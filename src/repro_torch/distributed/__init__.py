@@ -1,0 +1,10 @@
+from .device_groups import (
+    BuddyAllocator,
+    DeviceGroup,
+    assign_wave_groups,
+    groups_footprint,
+    pow2_floor,
+    scale_group,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,267 @@
+"""Blocked partial Cholesky of frontal matrices: the hand-written Hopper
+kernels, their plain PyTorch versions, launch counters and the build.
+
+Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
+
+* ``front_factor``  ← ``front_factor_vmem`` (batched there by ``vmap``): the
+  partial factorization of the leading ``nbp`` columns of a (B, mp, mp) stack
+  of padded fronts, one CTA per front.
+* ``panel_factor``  ← ``panel_factor``: ``[L11; A21·L11⁻ᵀ]`` of an (mp, nb)
+  slab, for the large-front path.
+* ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ`` over a grid of C tiles.
+
+The CUDA sources are ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
+and what bounds each kernel on the card are there).  They are compiled with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
+first use, keyed by a hash of the sources, into ``build/repro_torch/`` at
+the repository root, and loaded with ``ctypes``.
+
+Each wrapper takes the plain version for a tensor on the CPU and launches
+the kernel for a CUDA tensor, after checking device, dtype, shape, the
+multiple-of-128 constraints and contiguity; it raises on anything else.
+``LAUNCHES`` counts kernel launches and ``PLAIN_RUNS`` runs of the plain
+versions, so a run can show which path it took.
+
+Conventions (shared with the TPU kernels): fronts are symmetric, only the
+lower triangle is kept correct, factored columns end with zeros above the
+diagonal, and fronts are padded with a unit diagonal so padded pivots factor
+to no-ops.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+TILE = 128  # pivot block width of every kernel
+VMEM_FRONT_MAX = 1024  # fronts up to this padded order take front_factor
+
+KERNELS = ("front_factor", "panel_factor", "syrk_downdate")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
+_COUNT_LOCK = threading.Lock()
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = (_CSRC / "frontal_cholesky.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_counters() -> None:
+    """Set every launch and plain-run count to 0."""
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+            PLAIN_RUNS[k] = 0
+
+
+def _count(table: Dict[str, int], name: str) -> None:
+    with _COUNT_LOCK:
+        table[name] += 1
+
+
+# ----------------------------------------------------------------------
+# Build and load
+# ----------------------------------------------------------------------
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def library_path() -> Path:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / h.hexdigest()[:16] / "libfrontal_cholesky.so"
+
+
+def build_library() -> Path:
+    """Compile the CUDA sources unless a library for them exists already."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; bind its entry points."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            for t in ("f32", "f64"):
+                getattr(lib, f"front_factor_{t}").argtypes = [vp, ci, ci, ci, vp]
+                getattr(lib, f"panel_factor_{t}").argtypes = [vp, ci, ci, vp]
+                getattr(lib, f"syrk_downdate_{t}").argtypes = [vp, vp, vp, ci, ci, vp]
+                for k in KERNELS:
+                    getattr(lib, f"{k}_{t}").restype = ci
+            lib.frontal_error_string.argtypes = [ci]
+            lib.frontal_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> str:
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: kernel takes float32 or float64, got {dtype}")
+    return _SUFFIX[dtype]
+
+
+def _launch(name: str, suffix: str, device: torch.device, *args) -> None:
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"{name}_{suffix}")(*args, stream)
+    if rc != 0:
+        msg = lib.frontal_error_string(rc).decode()
+        raise RuntimeError(f"{name}_{suffix} launch failed: {msg} ({rc})")
+    _count(LAUNCHES, name)
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the kernels' yardstick)
+# ----------------------------------------------------------------------
+def _factor_slab_plain(a: torch.Tensor, nfac: int) -> None:
+    """In place: the blocked column algorithm of the TPU kernels on one
+    (mp, ncols) slab whose row i aligns with column i.  Per 128-column
+    block, each column is scaled by the square root of its pivot (zeros
+    above the diagonal) and downdates the block's later columns; then one
+    product downdates every column right of the block."""
+    mp, ncols = a.shape
+    for off in range(0, nfac, TILE):
+        hi = min(off + TILE, ncols)
+        for idx in range(off, off + TILE):
+            dsq = torch.sqrt(a[idx, idx])
+            below = a[idx + 1 :, idx] / dsq
+            a[:idx, idx] = 0
+            a[idx, idx] = dsq
+            a[idx + 1 :, idx] = below
+            a[idx + 1 :, idx + 1 : hi] -= below[:, None] * below[: hi - idx - 1][None, :]
+        if hi < ncols:
+            panel = a[:, off:hi].clone()
+            panel[off + torch.arange(TILE), torch.arange(TILE)] = 0  # strictly lower
+            a[:, hi:] -= panel @ panel[hi:ncols].T
+
+
+def front_factor_plain(fronts: torch.Tensor, nbp: int) -> torch.Tensor:
+    """Plain version of :func:`front_factor`: one front at a time, so a
+    front's bits never depend on the batch it rides in."""
+    _count(PLAIN_RUNS, "front_factor")
+    out = fronts.clone()
+    for f in out:
+        _factor_slab_plain(f, nbp)
+    return out
+
+
+def panel_factor_plain(slab: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`panel_factor`."""
+    _count(PLAIN_RUNS, "panel_factor")
+    out = slab.clone()
+    _factor_slab_plain(out, slab.shape[1])
+    return out
+
+
+def syrk_downdate_plain(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`syrk_downdate`."""
+    _count(PLAIN_RUNS, "syrk_downdate")
+    return c - a @ a.T
+
+
+# ----------------------------------------------------------------------
+# Wrappers
+# ----------------------------------------------------------------------
+def front_factor(fronts: torch.Tensor, nbp: int) -> torch.Tensor:
+    """Factor the leading ``nbp`` columns of each padded front of a
+    (B, mp, mp) stack.  Returns a new stack: L in columns [0, nbp) (zeros
+    above the diagonal) and the Schur complement in the trailing block,
+    lower triangle."""
+    if fronts.ndim != 3 or fronts.shape[1] != fronts.shape[2]:
+        raise ValueError(f"front_factor: need (B, mp, mp), got {tuple(fronts.shape)}")
+    b, mp, _ = fronts.shape
+    if mp % TILE or nbp % TILE or not 0 < nbp <= mp:
+        raise ValueError(f"front_factor: mp={mp}, nbp={nbp} must be multiples of {TILE}, nbp <= mp")
+    if fronts.device.type == "cpu":
+        return front_factor_plain(fronts, nbp)
+    suffix = _check_cuda("front_factor", fronts)
+    out = torch.empty_like(fronts)
+    out.copy_(fronts)
+    if b:
+        _launch("front_factor", suffix, fronts.device, out.data_ptr(), b, mp, nbp)
+    return out
+
+
+def panel_factor(slab: torch.Tensor) -> torch.Tensor:
+    """Factor an (mp, nb) slab (mp ≥ nb, both multiples of 128): Cholesky of
+    the leading nb×nb block and the solve of the rows below it."""
+    if slab.ndim != 2:
+        raise ValueError(f"panel_factor: need (mp, nb), got {tuple(slab.shape)}")
+    mp, nb = slab.shape
+    if mp % TILE or nb % TILE or not 0 < nb <= mp:
+        raise ValueError(f"panel_factor: mp={mp}, nb={nb} must be multiples of {TILE}, nb <= mp")
+    if slab.device.type == "cpu":
+        return panel_factor_plain(slab)
+    suffix = _check_cuda("panel_factor", slab)
+    out = torch.empty_like(slab)
+    out.copy_(slab)
+    _launch("panel_factor", suffix, slab.device, out.data_ptr(), mp, nb)
+    return out
+
+
+def syrk_downdate(c: torch.Tensor, a: torch.Tensor, tile: int = 256) -> torch.Tensor:
+    """C − A·Aᵀ with C (M, M), A (M, K).
+
+    ``tile`` (128 or 256) is the reference kernel's C tile.  It is only
+    checked, for the reference's rule that M be a multiple of it; neither
+    version reads it otherwise (the CUDA kernel always tiles C by 64)."""
+    if a.ndim != 2 or c.shape != (a.shape[0], a.shape[0]):
+        raise ValueError(f"syrk_downdate: C {tuple(c.shape)} and A {tuple(a.shape)}")
+    m, k = a.shape
+    if tile % TILE or m % tile:
+        raise ValueError(f"syrk_downdate: M={m} is not a multiple of tile={tile}")
+    if c.device.type == "cpu" and a.device.type == "cpu":
+        return syrk_downdate_plain(c, a)
+    suffix = _check_cuda("syrk_downdate", c, a)
+    if k % 32:
+        raise ValueError(f"syrk_downdate: K={k} must be a multiple of 32")
+    out = torch.empty_like(c)
+    _launch("syrk_downdate", suffix, c.device, c.data_ptr(), a.data_ptr(), out.data_ptr(), m, k)
+    return out

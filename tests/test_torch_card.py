@@ -1,0 +1,97 @@
+"""The port's CUDA kernels and executor on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels
+have no CPU mode).  The module imports neither JAX nor ``repro``, so it
+runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_card.py
+
+Each kernel is held against its plain PyTorch version on the same inputs:
+5e-5 relative for f32 fronts, 1e-4 for the panel + SYRK route, 1e-11 for
+f64 (the JAX package's tolerances).
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels.frontal_cholesky as fc
+import repro_torch.sparse as tsparse
+from repro_torch.runtime import PlanExecutor
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _spd(m, rng):
+    b = rng.normal(size=(m, m))
+    return b @ b.T + m * np.eye(m)
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.float64, 1e-11)])
+def test_front_factor_on_card(cuda, dtype, tol, rng):
+    x = torch.from_numpy(np.stack([_spd(384, rng) for _ in range(3)])).to(cuda, dtype)
+    before = fc.LAUNCHES["front_factor"]
+    got = fc.front_factor(x, 256)
+    assert fc.LAUNCHES["front_factor"] == before + 1
+    want = fc.front_factor_plain(x, 256)
+    assert _rel(torch.tril(got), torch.tril(want)) < tol
+    # batch-invariant: a front's bits do not depend on its batch
+    torch.testing.assert_close(fc.front_factor(x[1:2], 256)[0], got[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_panel_factor_on_card(cuda, dtype, tol, rng):
+    slab = torch.from_numpy(_spd(640, rng)[:, :256].copy()).to(cuda, dtype)
+    before = fc.LAUNCHES["panel_factor"]
+    got = fc.panel_factor(slab)
+    assert fc.LAUNCHES["panel_factor"] == before + 1
+    assert _rel(torch.tril(got), torch.tril(fc.panel_factor_plain(slab))) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_syrk_downdate_on_card(cuda, dtype, tol, rng):
+    c = torch.from_numpy(rng.normal(size=(384, 384))).to(cuda, dtype)
+    a = torch.from_numpy(rng.normal(size=(384, 128))).to(cuda, dtype)
+    before = fc.LAUNCHES["syrk_downdate"]
+    got = fc.syrk_downdate(c, a, tile=128)
+    assert fc.LAUNCHES["syrk_downdate"] == before + 1
+    assert _rel(got, fc.syrk_downdate_plain(c, a)) < tol
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        fc.front_factor(torch.eye(128, device=cuda, dtype=torch.float16)[None], 128)
+    with pytest.raises(ValueError):
+        fc.panel_factor(torch.eye(256, device=cuda)[:, :128].T.contiguous().T)
+
+
+def test_executor_on_card(cuda):
+    a = tsparse.grid_laplacian_2d(23)
+    ap = tsparse.permute_symmetric(a, tsparse.nested_dissection_2d(23))
+    symb = tsparse.analyze(ap, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    cpu, _ = PlanExecutor(
+        symb, plan, devices=[torch.device("cpu")] * 2, dtype=torch.float64
+    ).run(ap, warmup=False)
+    fc.reset_counters()
+    runs = [
+        PlanExecutor(symb, plan, dtype=torch.float64, mode=m).run(ap)
+        for m in ("async", "waves")
+    ]
+    assert not runs[0][1].interpret
+    assert fc.LAUNCHES["front_factor"] > 0
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    for pa, pw, pc in zip(runs[0][0].panels, runs[1][0].panels, cpu.panels):
+        np.testing.assert_array_equal(pa, pw)
+        assert np.abs(pa - pc).max() / max(1.0, np.abs(pc).max()) < 1e-11
