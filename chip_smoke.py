@@ -15,13 +15,25 @@ card → ‖LLᵀ−A‖ check.
 4. large-front route, random SPD n=2500 (minimum degree), f64;
    then phase 3's plan once more under torch.profiler (device time by
    kernel, busy share);
-5. modes: async and waves bit-identical (grid 60, f64); f32 grid 100.
+5. modes: async and waves bit-identical (grid 60, f64); f32 grid 100;
+6. the flash-attention kernel (its public entry point: nothing in the
+   package calls it) at qwen3-4b's attention widths (32 query heads,
+   Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
+   non-causal f32; each against its plain version, with CUDA-event times,
+   the plain version's, ``scaled_dot_product_attention``'s (a yardstick
+   the port never calls) and the bound;
+7. the facade at full size: ``Session(DeviceMesh(plan_devices=256))
+   .analyze(Poisson 200).plan("greedy").execute(dtype=float64)``, its
+   panels bit-identical to phase 3's; ``.optimize(max_front=64)`` on
+   Poisson 60, bit-identical to the unoptimized run; ``repro_torch.demo``.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4, after the executor's untimed warmup) and read just after: every kernel
-must have run on the main path, and no plain version.  Any failed
-check raises.  The line before the last is the kernels' JSON; the last line
-is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
+4 after the executor's untimed warmup; each run of phases 6 and 7, whose
+executors skip the warmup in the process phases 3-5 warmed) and read just
+after: every kernel must have run on the main path, and no plain
+version.  Any failed check raises.  The line before the last is the
+kernels' JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
 TOL_LARGE = {torch.float32: 1e-4, torch.float64: 1e-11}  # panel + SYRK route
+PEAK_BF16_TENSOR = 989e12  # dense bf16 tensor cores: the later redesign's bound
 
 
 def nvidia_smi() -> str:
@@ -184,6 +197,65 @@ def phase_kernels(fc) -> dict:
     return rec
 
 
+def phase_flash(fa) -> dict:
+    """The flash-attention kernel at qwen3-4b's attention widths and train_4k
+    length.  For each case the public function runs once with the counters
+    set to 0 (the path run), then against its plain version on the same
+    inputs, then timed.  Returns the f32 causal record."""
+    b, t, h, dh = 2, 4096, 32, 128
+    gen = torch.Generator().manual_seed(1)
+    qkv32 = [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
+    rec, launches = {}, 0
+    for dtype, causal in [(torch.float32, True), (torch.bfloat16, True),
+                          (torch.float32, False)]:
+        q, k, v = (x.to(dtype) for x in qkv32)
+        fa.reset_counters()
+        got = fa.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        path_launches, path_plain = fa.LAUNCHES["flash_attention"], fa.PLAIN_RUNS["flash_attention"]
+        check(path_launches > 0, f"flash {dtype} causal={causal}: kernel never launched")
+        check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
+        launches += path_launches
+        want = fa.flash_attention_plain(q, k, v, causal)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        not_equal = float((got != want).float().mean())  # share of elements not bit-equal
+        # f32: the reference's attention tolerance.  bf16: the same f32 math
+        # (within that tolerance), then one rounding each, so element by
+        # element at most 2 bf16 ulps of the element: eps * |want| + 2e-5
+        rtol = 0.0 if dtype == torch.float32 else torch.finfo(torch.bfloat16).eps
+        tol = 2e-5
+        excess = float((diff - rtol * want.float().abs()).max())  # must stay <= tol
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, warm=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        pairs = t * (t + 1) / 2 if causal else float(t * t)  # query-key pairs visited
+        flops = 4.0 * b * h * dh * pairs
+        nbytes = 4.0 * b * t * h * dh * (torch.finfo(dtype).bits // 8)
+        bnd, by = bound(nbytes, flops, torch.float32)  # the kernel's math is f32
+        bnd_tc = flops / PEAK_BF16_TENSOR * 1e3
+        print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh}: "
+              f"max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + {tol:.0e}: "
+              f"excess {excess:.3e}; not bit-equal {not_equal:.4f})  ms {ms:.4f}  "
+              f"plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}  bound_ms {bnd:.4f} ({by}, "
+              f"f32 rate)  bf16 tensor-core bound_ms {bnd_tc:.4f}  launches {path_launches}",
+              flush=True)
+        check(excess <= tol, f"flash {dtype} causal={causal}: err beyond {rtol}*|ref| {excess} > {tol}")
+        if dtype == torch.float32 and causal:
+            rec = dict(shape=[b, t, h, dh], causal=True, dtype="float32", max_abs_err=err,
+                       not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                       bound_by=by, library_ms=lib_ms, bf16_tensor_core_bound_ms=bnd_tc)
+        else:
+            rec.setdefault("other_cases", []).append(dict(
+                dtype=str(dtype)[6:], causal=causal, max_abs_err=err, rtol=rtol, atol=tol,
+                not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by, bf16_tensor_core_bound_ms=bnd_tc))
+    rec["launches"] = launches
+    return rec
+
+
 def sparse_l(fact) -> sp.csr_matrix:
     """The factor as a scipy sparse matrix, from the supernodal panels."""
     rows, cols, vals = [], [], []
@@ -264,6 +336,83 @@ def profile_run(name: str, ap, symb, plan, dtype) -> dict:
             "device_s_by_name": {k[:60]: v for k, v in top}}
 
 
+def phase_facade(fc, fact3, report3, wall3: float) -> dict:
+    """The facade at full size (Poisson 200, f64), then optimize on Poisson
+    60, then the demo; counters set to 0 just before each run, read just
+    after."""
+    from repro_torch import demo
+    from repro_torch.api import DeviceMesh, Session
+    from repro_torch.sparse import grid_laplacian_2d, nested_dissection_2d
+
+    def counted(what: str, run):
+        fc.reset_counters()
+        out = run()
+        torch.cuda.synchronize()
+        launches, plain = dict(fc.LAUNCHES), dict(fc.PLAIN_RUNS)
+        check(launches["front_factor"] > 0, f"{what}: front_factor never launched")
+        check(all(v == 0 for v in plain.values()), f"{what}: plain versions ran: {plain}")
+        return out, launches
+
+    g, g_opt = 200, 60
+    t0 = time.perf_counter()
+    sess = Session(DeviceMesh(plan_devices=256)).analyze(
+        grid_laplacian_2d(g), alpha=0.9, ordering=nested_dissection_2d(g)).plan("greedy")
+    t1 = time.perf_counter()
+    # the process is warm from phases 3-5 (library loaded, every shape class
+    # run), so each counted execute skips the executor's warmup: the counts
+    # are the runs' own dispatches, and the wall compares with phase 3's
+    rep, launches = counted("phase 7", lambda: sess.execute(dtype=torch.float64, warmup=False))
+    wall = time.perf_counter() - t1
+    res = residual(rep.artifact, sess.problem.matrix)
+    same = len(rep.artifact.panels) == len(fact3.panels) and all(
+        np.array_equal(x, y) for x, y in zip(rep.artifact.panels, fact3.panels))
+    print(f"[7 session poisson200 f64] analyze+plan {t1 - t0:.2f} s, execute wall {wall:.3f} s "
+          f"(warmup skipped; phase 3: {wall3:.3f} s), measured makespan {rep.makespan:.3f} s (phase 3: "
+          f"{report3.measured_makespan:.3f} s), n_dispatches {rep.metrics['n_dispatches']:.0f}, "
+          f"residual {res:.3e}, launches {launches}, panels == phase 3 bit for bit: {same}",
+          flush=True)
+    check(res <= 1e-12, f"phase 7 residual {res}")
+    check(same, "phase 7: Session panels differ from phase 3's")
+
+    def session60():
+        return Session(DeviceMesh(plan_devices=256)).analyze(
+            grid_laplacian_2d(g_opt), alpha=0.9, ordering=nested_dissection_2d(g_opt))
+
+    plain_sess = session60().plan("greedy")
+    n_fronts = plain_sess.problem.n
+    base, base_launches = counted(
+        "phase 7 unoptimized", lambda: plain_sess.execute(dtype=torch.float64, warmup=False))
+    opt_sess = session60().optimize(max_front=64).plan("greedy")
+    opt, opt_launches = counted(
+        "phase 7 optimized", lambda: opt_sess.execute(dtype=torch.float64, warmup=False))
+    same60 = len(base.artifact.panels) == len(opt.artifact.panels) and all(
+        np.array_equal(x, y) for x, y in zip(base.artifact.panels, opt.artifact.panels))
+    n_opt = opt.metrics["n_dispatches"]
+    # a finding, not a check: the unoptimized async runner already batches
+    # same-shape fronts across the tree, so the optimized plan may dispatch more
+    print(f"[7 optimize poisson60 f64] fronts {n_fronts} -> tasks {opt_sess.problem.n}; "
+          f"dispatches {n_opt:.0f} optimized vs {base.metrics['n_dispatches']:.0f} unoptimized "
+          f"(async, shape-class batching); makespan {opt.makespan:.3f} s vs {base.makespan:.3f} s; "
+          f"front_factor launches {opt_launches['front_factor']} vs {base_launches['front_factor']}; "
+          f"bit-identical: {same60}", flush=True)
+    check(same60, "phase 7: optimized factor differs from the unoptimized one")
+
+    demo_res, demo_launches = counted("phase 7 demo", lambda: demo.main(warmup=False))
+    print(f"[7 demo] residual {demo_res:.3e}, launches {demo_launches}", flush=True)
+    return {
+        "session_poisson200_f64": {"wall_s": wall, "makespan_s": rep.makespan,
+                                   "n_dispatches": rep.metrics["n_dispatches"],
+                                   "residual": res, "launches": launches},
+        "optimize_poisson60_f64": {"fronts": n_fronts, "tasks": opt_sess.problem.n,
+                                   "dispatches_opt": n_opt,
+                                   "dispatches_unopt": base.metrics["n_dispatches"],
+                                   "makespan_opt_s": opt.makespan,
+                                   "makespan_unopt_s": base.makespan,
+                                   "launches_opt": opt_launches, "launches_unopt": base_launches},
+        "demo": {"residual": demo_res, "launches": demo_launches},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -272,6 +421,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     import repro_torch.kernels.frontal_cholesky as fc
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.sparse import (
         grid_laplacian_2d,
         min_degree,
@@ -283,9 +434,9 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"[1] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    lib = fc.build_library()
-    fc.load_library()
-    print(f"[1] built {lib.relative_to(fc.BUILD_DIR.parents[1])} in {time.perf_counter() - t0:.2f} s",
+    lib = _build.build_library()
+    _build.load_library()
+    print(f"[1] built {lib.relative_to(_build.BUILD_DIR.parents[1])} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     rec = phase_kernels(fc)
@@ -334,6 +485,11 @@ def main() -> int:
     print(f"[5] f32 residual {res6:.3e}", flush=True)
     check(res6 <= 1e-5, f"phase 5 f32 residual {res6}")
 
+    # ---- the flash-attention kernel, then the facade -------------------
+    rec["flash_attention"] = phase_flash(flash)
+    e2e7 = phase_facade(fc, fact, report, wall)
+    launches7 = e2e7["session_poisson200_f64"]["launches"]
+
     replaces = {
         "front_factor": "src/repro/kernels/frontal_cholesky.py:98",
         "panel_factor": "src/repro/kernels/frontal_cholesky.py:145",
@@ -345,11 +501,20 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/frontal_cholesky.cu",
             "replaces": replaces[k],
-            "launches": launches[k],
+            "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200)",
+            "launches": launches[k] + launches7[k],
             **rec[k],
         }
         for k in fc.KERNELS
     ]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "path": "kernel entry point (no caller in src/repro)",
+        **rec["flash_attention"],
+    })
     print(json.dumps({
         "e2e": {
             "poisson200_f64_async": {"wall_s": wall, "makespan_s": report.measured_makespan,
@@ -357,6 +522,7 @@ def main() -> int:
                                      "profiled": prof3},
             "random_spd2500_f64_async": {"wall_s": wall4, "makespan_s": report4.measured_makespan,
                                          "n_dispatches": report4.n_dispatches, "residual": res4},
+            **e2e7,
         }
     }), flush=True)
     print(nvidia_smi(), flush=True)

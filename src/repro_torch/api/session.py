@@ -1,0 +1,333 @@
+"""The fluent facade: ``Session(platform).analyze(A).plan().execute()``.
+
+One object strings the whole pipeline together — tree of `p^α` malleable
+tasks → policy plan → executed run — over any
+:class:`~repro_torch.api.platform.Platform` and any registered
+:class:`~repro_torch.api.policy.Policy`.  Every step returns ``self`` until
+a terminal verb produces a :class:`~repro_torch.api.schedule.RunReport`:
+
+>>> import torch
+>>> from repro_torch.api import DeviceMesh, Session
+>>> rep = (Session(DeviceMesh(plan_devices=256))
+...        .analyze(a, alpha=0.9, ordering=nested_dissection_2d(200))
+...        .plan("greedy")
+...        .execute(dtype=torch.float64))
+
+Terminal verbs:
+
+* ``execute(...)`` — the plan executor on the platform's torch devices
+  (every CUDA device for ``DeviceMesh()``; CPU lanes when the caller
+  passes them); needs a problem that came from a matrix (``analyze``) and
+  converts the current schedule to an ExecutionPlan (exact when
+  discretized).
+* ``simulate`` and ``serve`` (the online event loop and request serving)
+  raise :class:`NotImplementedError`: their modules are not ported yet
+  (ROADMAP queue 1 items 7 and 8).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .platform import Platform, as_platform
+from .policy import accepts_memory_budget, get_policy
+from .problem import Problem, as_problem
+from .schedule import RunReport, Schedule
+
+
+def _clean_metrics(metrics: dict) -> dict:
+    """Drop unknown (None / NaN) metric values instead of storing null.
+
+    A metric a run could not measure (e.g. ready latency on the wave
+    path) is *absent*, not null — consumers ``get()`` it and JSON
+    artifacts never carry ``null``.
+    """
+    return {
+        k: float(v)
+        for k, v in metrics.items()
+        if v is not None and not (isinstance(v, float) and math.isnan(v))
+    }
+
+
+class Session:
+    """A scheduling session on one platform.
+
+    The session is a small state machine: ``analyze``/``load`` set the
+    problem, ``plan`` sets the schedule, the terminal verbs run it.
+    Each setter returns ``self`` so calls chain fluently; ``problem``
+    and ``schedule`` stay inspectable at every step.
+    """
+
+    def __init__(self, platform=None) -> None:
+        self.platform: Platform = as_platform(platform)
+        self.problem: Optional[Problem] = None
+        self.schedule: Optional[Schedule] = None
+
+    # -- problem setup --------------------------------------------------
+    def analyze(
+        self,
+        a,
+        alpha: float = 0.9,
+        *,
+        ordering=None,
+        relax: int = 2,
+        flop_rate: float = 1.0,
+    ) -> "Session":
+        """Sparse SPD matrix → ordering → symbolic → task tree."""
+        self.problem = Problem.from_matrix(
+            a, alpha, ordering=ordering, relax=relax, flop_rate=flop_rate
+        )
+        self.schedule = None
+        return self
+
+    def analyze_workload(self, spec, **kwargs) -> "Session":
+        """Model-zoo workload → task tree: not ported yet."""
+        raise NotImplementedError(
+            "Session.analyze_workload needs repro_torch.workloads, not ported "
+            "yet (ROADMAP queue 1 item 9)"
+        )
+
+    def load(self, problem, alpha: Optional[float] = None) -> "Session":
+        """Set the problem directly (Problem, TaskTree+α, lengths+α)."""
+        self.problem = as_problem(problem, alpha)
+        self.schedule = None
+        return self
+
+    def optimize(
+        self,
+        *,
+        max_front: Optional[float] = None,
+        max_fill: float = math.inf,
+        memory_budget: Optional[float] = None,
+        max_batch: int = 32,
+    ) -> "Session":
+        """Amalgamate the loaded problem's task tree (cull degenerate
+        fronts, fuse parent–child chains, merge small siblings into
+        batch dispatches) — see :func:`repro_torch.sparse.optimize_problem`.
+
+        The optimized Problem replaces ``self.problem`` and carries the
+        provenance map (optimized task → original fronts); ``plan``
+        serializes it into the schedule's meta and ``execute`` forwards
+        it to the executor so the factors still land in the *original*
+        index space bit-identically.  A finite ``memory_budget`` makes
+        the rewrite back off until its sequential peak fits.
+        """
+        from repro_torch.sparse.optimize import optimize_problem
+
+        self.problem = optimize_problem(
+            self._require_problem(),
+            max_front=max_front,
+            max_fill=max_fill,
+            memory_budget=memory_budget,
+            max_batch=max_batch,
+        )
+        self.schedule = None
+        return self
+
+    def _require_problem(self) -> Problem:
+        if self.problem is None:
+            raise RuntimeError(
+                "no problem loaded; call .analyze(A, alpha=...) or "
+                ".load(problem) first"
+            )
+        return self.problem
+
+    # -- planning -------------------------------------------------------
+    def plan(
+        self,
+        policy: str = "pm",
+        *,
+        memory_budget: Optional[float] = None,
+        **opts,
+    ) -> "Session":
+        """Plan with a registered policy; the Schedule lands on
+        ``self.schedule`` (chain ``.execute()`` / inspect directly).
+
+        ``memory_budget`` (bytes) is the resource dimension: a
+        budget-aware policy (``pm-bounded``) plans within it; any other
+        policy's schedule is *certified* against it and a violating plan
+        raises instead of being returned.  A finite budget that cannot
+        be checked at all — a placement-only schedule, or a problem
+        without footprints — also raises, so "planned with a budget"
+        always means "the budget was actually enforced".  When the
+        problem carries footprints the schedule always gets its
+        resident-bytes timeline attached (``schedule.memory_profile()``
+        / ``peak_memory()``).
+        """
+        problem = self._require_problem()
+        if memory_budget is not None and accepts_memory_budget(policy):
+            opts["memory_budget"] = memory_budget
+        sched = get_policy(policy, **opts).plan(problem, self.platform)
+        budget = math.inf if memory_budget is None else float(memory_budget)
+        if sched.entries and sched.memory is None:
+            sched.attach_memory(problem, budget=budget)
+        if memory_budget is not None and math.isfinite(budget):
+            if sched.memory is None:
+                why = (
+                    "the schedule is placement-only"
+                    if not sched.entries
+                    else "the problem carries no memory footprints"
+                )
+                raise ValueError(
+                    f"cannot certify policy {policy!r} against a memory "
+                    f"budget: {why}"
+                )
+            if sched.memory.peak > budget * (1 + 1e-9):
+                raise ValueError(
+                    f"policy {policy!r} needs {sched.memory.peak:.4g} B "
+                    f"peak memory, over the {budget:.4g} B budget; plan "
+                    f"with 'pm-bounded' to stay within it"
+                )
+        if problem.provenance is not None:
+            # ship the amalgamation map with the plan (JSON-serializable)
+            sched.meta["provenance"] = problem.provenance.to_dict()
+        if problem.meta:
+            # any problem meta rides the schedule into JSON v2; the
+            # plan's own keys win
+            for k, v in problem.meta.items():
+                sched.meta.setdefault(k, v)
+        self.schedule = sched
+        return self
+
+    @property
+    def fluid_makespan(self) -> float:
+        """Theorem-6 lower bound of the loaded problem on this platform."""
+        return self._require_problem().fluid_makespan(self.platform.profile())
+
+    def _require_schedule(self) -> Schedule:
+        if self.schedule is None:
+            self.plan()
+        assert self.schedule is not None
+        return self.schedule
+
+    # -- terminal verbs -------------------------------------------------
+    def simulate(self, **kwargs) -> RunReport:
+        """The discrete-event online loop: not ported yet."""
+        raise NotImplementedError(
+            "Session.simulate needs repro_torch.online.scheduler, not ported "
+            "yet (ROADMAP queue 1 item 7)"
+        )
+
+    def execute(
+        self,
+        *,
+        warmup: bool = True,
+        mode: str = "async",
+        dtype: torch.dtype = torch.float32,
+        **executor_kwargs,
+    ) -> RunReport:
+        """Execute the current schedule on the platform's torch devices.
+
+        ``mode`` selects the runner: ``"async"`` (default) dispatches
+        each front the instant its children's Schur complements land —
+        the per-front futures executor, no wave barrier — while
+        ``"waves"`` keeps the barrier-synchronous runner for A/B
+        comparison.  Both produce bit-identical factors.  ``dtype`` is
+        the fronts' type (``torch.float32``, the executor's default, or
+        ``torch.float64``).  Remaining keyword arguments (``delay_fn``,
+        ``memory_cap_bytes``, ``max_batch``, ...) reach
+        :class:`~repro_torch.runtime.executor.PlanExecutor` unchanged.
+
+        The problem must carry its sparse context (``analyze`` or
+        ``Problem.from_matrix``/``from_symbolic`` with a matrix); a
+        fluid schedule is discretized on the way (exact pass-through
+        for ``greedy``-family schedules and shipped-JSON plans).
+        """
+        from repro_torch.runtime.executor import PlanExecutor
+
+        problem = self._require_problem()
+        if problem.symb is None or problem.matrix is None:
+            raise RuntimeError(
+                "execute() needs a problem with symbolic+matrix context; "
+                "build it with Session.analyze or Problem.from_matrix"
+            )
+        schedule = self._require_schedule()
+        if schedule.entries:
+            plan = schedule.to_execution_plan()
+        else:
+            raise RuntimeError(
+                f"policy {schedule.policy!r} produced a placement, not an "
+                f"executable schedule; plan with 'greedy' (or any "
+                f"share-based policy) to execute"
+            )
+        devices = self.platform.devices()
+        if problem.provenance is not None:
+            executor_kwargs.setdefault("provenance", problem.provenance)
+        executor = PlanExecutor(
+            problem.symb,
+            plan,
+            devices=devices,
+            dtype=dtype,
+            mode=mode,
+            **executor_kwargs,
+        )
+        fact, report = executor.run(problem.matrix, warmup=warmup)
+        # the schedule's fluid bound is in model units; map it to seconds
+        # at the measured work rate so efficiency() compares like units
+        proj = report.projected_seconds()
+        fluid_seconds = (
+            proj * schedule.fluid_makespan / schedule.makespan
+            if schedule.makespan > 0
+            else proj
+        )
+        return RunReport(
+            kind="executed",
+            schedule=schedule,
+            makespan=report.measured_makespan,
+            fluid_makespan=fluid_seconds,
+            planned=schedule,
+            metrics=_clean_metrics(
+                {
+                    "measured_rate": report.measured_rate(),
+                    "n_dispatches": float(report.n_dispatches),
+                    "n_devices": float(report.n_devices),
+                    "projected_seconds": report.projected_seconds(),
+                    # the memory dimension, measured on the real buffers
+                    # vs. projected from the plan's timeline
+                    "measured_peak_bytes": report.measured_peak_bytes,
+                    "projected_peak_bytes": report.projected_peak_bytes,
+                    "fluid_ratio": (
+                        report.measured_makespan / fluid_seconds
+                        if fluid_seconds > 0
+                        else None
+                    ),
+                    # async-mode observable: the key is simply absent on
+                    # the wave path (no per-front ready instant), never
+                    # null
+                    "mean_ready_latency_s": report.mean_ready_latency(),
+                }
+            ),
+            detail=report,
+            artifact=fact,
+        )
+
+    def serve(self, stream, **kwargs) -> RunReport:
+        """Multi-tenant request serving: not ported yet."""
+        raise NotImplementedError(
+            "Session.serve needs repro_torch.online.queue (and .cluster for "
+            "cluster=), not ported yet (ROADMAP queue 1 items 7 and 8)"
+        )
+
+    # ------------------------------------------------------------------
+    def close(self) -> None:
+        """Release session-owned services.  Nothing to release yet: the
+        reference's only one is serve's live dashboard, not ported."""
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        prob = self.problem.name if self.problem else None
+        pol = self.schedule.policy if self.schedule else None
+        return (
+            f"Session({self.platform.describe()}, problem={prob!r}, "
+            f"planned={pol!r})"
+        )
+
+
+__all__ = ["Session"]

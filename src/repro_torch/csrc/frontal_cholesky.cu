@@ -1,5 +1,6 @@
 // Blocked partial Cholesky of frontal matrices, written by hand for Hopper
-// (sm_90a).  Plain C entry points, loaded with ctypes by
+// (sm_90a).  Plain C entry points, built with the other csrc sources by
+// repro_torch/kernels/_build.py and called from
 // repro_torch/kernels/frontal_cholesky.py.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/frontal_cholesky.py:
@@ -279,7 +280,9 @@ int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k,
                       void* stream) {
   return launch_syrk<double>(c, a, out, m, k, stream);
 }
-const char* frontal_error_string(int code) {
+// Message for an error code of any entry point of the library (the
+// flash-attention entry points included).
+const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -1,0 +1,112 @@
+"""Build, load and launch the port's CUDA kernel library.
+
+Every ``repro_torch/csrc/*.cu`` source is compiled by **one** ``nvcc`` call
+for ``sm_90a`` into a shared library with a plain C interface, at first
+use, into ``build/repro_torch/<hash>/`` at the repository root (the hash
+covers every source's bytes and the flags), and loaded with ``ctypes``.
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "frontal_cholesky.cu", CSRC / "flash_attention.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C entry point -> argument types (each returns an int error code)
+SIGNATURES = {
+    **{
+        f"{name}_{t}": args
+        for t in ("f32", "f64")
+        for name, args in (
+            ("front_factor", [_VP, _CI, _CI, _CI, _VP]),
+            ("panel_factor", [_VP, _CI, _CI, _VP]),
+            ("syrk_downdate", [_VP, _VP, _VP, _CI, _CI, _VP]),
+        )
+    },
+    # q, k, v, out, B, T, H, Dh, causal, scale, 4 strides each of q, k, v, stream
+    **{
+        f"flash_attention_{t}": [_VP] * 4 + [_CI] * 5 + [_CF] + [_CLL] * 12 + [_VP]
+        for t in ("f32", "bf16")
+    },
+}
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def library_path(sources: Sequence[Path] = SOURCES) -> Path:
+    """Where the library built from ``sources`` (as they are now) lives."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / h.hexdigest()[:16] / "librepro_torch_kernels.so"
+
+
+def build_library() -> Path:
+    """Compile every CUDA source (one ``nvcc`` call) unless a library for
+    them exists already."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; bind its entry points."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = _CI
+            lib.kernel_error_string.argtypes = [_CI]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream; raise
+    if it reports an error (a refused launch never runs, and a later
+    synchronize would not say so)."""
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")

@@ -10,11 +10,10 @@ Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
   slab, for the large-front path.
 * ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ`` over a grid of C tiles.
 
-The CUDA sources are ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
-and what bounds each kernel on the card are there).  They are compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, keyed by a hash of the sources, into ``build/repro_torch/`` at
-the repository root, and loaded with ``ctypes``.
+The CUDA source is ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
+and what bounds each kernel on the card are there).  It is built into the
+port's one kernel library by :mod:`repro_torch.kernels._build` (one ``nvcc``
+call for every source, ``sm_90a``, plain C interface, ``ctypes``).
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor, after checking device, dtype, shape, the
@@ -29,15 +28,12 @@ to no-ops.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict
 
 import torch
+
+from ._build import launch
 
 TILE = 128  # pivot block width of every kernel
 VMEM_FRONT_MAX = 1024  # fronts up to this padded order take front_factor
@@ -46,17 +42,6 @@ KERNELS = ("front_factor", "panel_factor", "syrk_downdate")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "frontal_cholesky.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_LIB = None
-_LIB_LOCK = threading.Lock()
 
 
 def reset_counters() -> None:
@@ -73,59 +58,8 @@ def _count(table: Dict[str, int], name: str) -> None:
 
 
 # ----------------------------------------------------------------------
-# Build and load
+# Launch
 # ----------------------------------------------------------------------
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def library_path() -> Path:
-    """Where the library built from the current sources lives."""
-    h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / h.hexdigest()[:16] / "libfrontal_cholesky.so"
-
-
-def build_library() -> Path:
-    """Compile the CUDA sources unless a library for them exists already."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library; bind its entry points."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for t in ("f32", "f64"):
-                getattr(lib, f"front_factor_{t}").argtypes = [vp, ci, ci, ci, vp]
-                getattr(lib, f"panel_factor_{t}").argtypes = [vp, ci, ci, vp]
-                getattr(lib, f"syrk_downdate_{t}").argtypes = [vp, vp, vp, ci, ci, vp]
-                for k in KERNELS:
-                    getattr(lib, f"{k}_{t}").restype = ci
-            lib.frontal_error_string.argtypes = [ci]
-            lib.frontal_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
-
-
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -147,13 +81,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> str:
 
 
 def _launch(name: str, suffix: str, device: torch.device, *args) -> None:
-    lib = load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = getattr(lib, f"{name}_{suffix}")(*args, stream)
-    if rc != 0:
-        msg = lib.frontal_error_string(rc).decode()
-        raise RuntimeError(f"{name}_{suffix} launch failed: {msg} ({rc})")
+    launch(f"{name}_{suffix}", device, *args)
     _count(LAUNCHES, name)
 
 

@@ -4,5 +4,11 @@ from .executor import (
     TraceEvent,
     execute_plan,
 )
+from .straggler import (
+    FrontDelays,
+    StragglerDetector,
+    StragglerInjector,
+    rebalance_two_pods,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -45,8 +45,8 @@ p^α projection and re-fits an *empirical* α from the trace (log throughput
 vs log engaged-devices regression over dispatches, the same regression the
 paper's §3 runs on measured dense-kernel timings).
 
-Straggler injection: ``delay_fn`` (front id → seconds, any callable; the
-reference's ``runtime/straggler.py`` is not ported yet) stretches a front's dispatch as if
+Straggler injection: ``delay_fn`` (front id → seconds; see
+``repro_torch.runtime.straggler.FrontDelays``) stretches a front's dispatch as if
 its device were slow — applied identically in both modes, it is the
 controlled experiment for the barrier-vs-futures comparison.
 
@@ -333,16 +333,17 @@ class PlanExecutor:
         ported yet (splitting a batch across cards is later work): only
         False is accepted.  Group carving still governs placement — a
         dispatch runs on the first device of its carved group.
-    delay_fn : optional front id → seconds straggler injection;
-        stretches the front's dispatch in both modes.
+    delay_fn : optional front id → seconds straggler injection (see
+        :class:`repro_torch.runtime.straggler.FrontDelays`); stretches the
+        front's dispatch in both modes.
     memory_cap_bytes : async-mode byte budget — a dispatch that would push
         resident buffers past the cap is deferred while anything is in
         flight (and shrunk to a single front before being deferred);
         progress is always guaranteed when the pipeline is empty.
     max_workers : async worker threads; defaults to ``max(2, n_devices)``.
-    provenance : amalgamation map (anything with the ``groups``,
-        ``labels`` and ``parent`` fields of the reference's
-        ``sparse/optimize.py`` ``Provenance``, not ported yet) when
+    provenance : amalgamation map
+        (:class:`repro_torch.sparse.optimize.Provenance`, or anything with
+        its ``groups``, ``labels`` and ``parent`` fields) when
         ``plan`` schedules an *optimized* tree: plan labels are then
         fused-group ids, and each group dispatch factors its member fronts
         (children before parents, same-shape members batched per level)

@@ -6,6 +6,7 @@ symbolic      elimination tree, supernodes, frontal flops → TaskTree
 frontal       torch.linalg reference kernels (assembly, partial Cholesky)
 multifrontal  the numeric factorization (pluggable factor kernel)
 plan          PM-scheduled execution plans (waves of device groups)
+optimize      tree amalgamation (cull / fuse chains / merge siblings)
 """
 from .frontal import assemble_front, full_cholesky_ref, partial_cholesky_ref
 from .matrix import (
@@ -23,6 +24,7 @@ from .multifrontal import (
     lower_csc,
     solve,
 )
+from .optimize import Provenance, optimize_problem
 from .ordering import min_degree, nested_dissection_2d
 from .plan import ExecutionPlan, make_plan, pm_projected_makespan, replan_elastic
 from .symbolic import (

@@ -8,7 +8,9 @@ runs where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 5e-5 relative for f32 fronts, 1e-4 for the panel + SYRK route, 1e-11 for
-f64 (the JAX package's tolerances).
+f64 (the JAX package's tolerances); 2e-5 max-abs for f32 attention and 2
+bf16 ulps of max(1, max|ref|) for bf16 attention (same f32 math, one
+rounding each).
 """
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ import torch
 
 import repro_torch.kernels.frontal_cholesky as fc
 import repro_torch.sparse as tsparse
+from repro_torch.api import DeviceMesh, Session
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.runtime import PlanExecutor
 
 pytestmark = pytest.mark.gpu
@@ -95,3 +99,64 @@ def test_executor_on_card(cuda):
     for pa, pw, pc in zip(runs[0][0].panels, runs[1][0].panels, cpu.panels):
         np.testing.assert_array_equal(pa, pw)
         assert np.abs(pa - pc).max() / max(1.0, np.abs(pc).max()) < 1e-11
+
+
+FLASH_SHAPES = [
+    (1, 64, 2, 16, 16, 16, True),
+    (2, 128, 3, 32, 32, 64, True),
+    (1, 64, 2, 16, 32, 16, False),
+    (1, 96, 1, 8, 32, 32, True),  # 64 does not divide T: the ragged edge
+    (1, 512, 32, 128, 256, 256, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dh,bq,bkv,causal", FLASH_SHAPES)
+def test_flash_attention_on_card(cuda, dtype, b, t, h, dh, bq, bkv, causal, rng):
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal, bq, bkv)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal, bq, bkv)
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        assert err < 2e-5
+    else:
+        # same f32 math on both sides (within the f32 tolerance), then one
+        # rounding each: element by element, at most 2 bf16 ulps of the element
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=torch.finfo(torch.bfloat16).eps, atol=2e-5)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 64, 2, 12, device=cuda)
+    with pytest.raises(ValueError, match="Dh"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 2, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.float(), q.float().cpu(), q.float())
+
+
+def test_session_execute_on_card(cuda):
+    """The facade on every CUDA device, f64: the same factor bits as the
+    executor driven directly, through the kernels."""
+    g = 23
+    a = tsparse.grid_laplacian_2d(g)
+    sess = Session(DeviceMesh(plan_devices=8)).analyze(
+        a, alpha=0.9, ordering=tsparse.nested_dissection_2d(g), relax=1).plan("greedy")
+    assert sess.platform.devices()[0].type == "cuda"
+    fc.reset_counters()
+    rep = sess.execute(dtype=torch.float64)
+    assert fc.LAUNCHES["front_factor"] > 0
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    assert rep.detail.interpret is False and rep.metrics["n_devices"] >= 1
+    direct, _ = PlanExecutor(sess.problem.symb, sess.schedule.to_execution_plan(),
+                             dtype=torch.float64).run(sess.problem.matrix)
+    for pa, pd in zip(rep.artifact.panels, direct.panels):
+        np.testing.assert_array_equal(pa, pd)
+    assert all(m > 0 for m in sess.platform.resources().memory)

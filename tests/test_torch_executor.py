@@ -192,18 +192,27 @@ def test_executor_contracts(grid23):
 
 
 def test_import_isolation():
-    """Every port module and chip_smoke import neither jax nor repro."""
+    """Every port module (the facade, the optimizer, the straggler module,
+    the demo and the flash kernel's wrapper among them), chip_smoke and the
+    card tests import neither jax nor repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import test_torch_card
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo",
+        "repro_torch.kernels.flash_attention", "repro_torch.kernels._build",
+        "repro_torch.sparse.optimize", "repro_torch.runtime.straggler",
+        "repro_torch.online.events", "repro_torch.core.hetero"}
+assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(REPO, "src"), REPO]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), REPO, os.path.join(REPO, "tests")]))
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
         text=True, timeout=120,
