@@ -10,7 +10,9 @@ card → ‖LLᵀ−A‖ check.
 1. card and build: ``nvidia-smi`` name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, f32 and f64,
    at the main path's shapes, with CUDA-event times beside the plain
-   version's, a library yardstick's and the bound;
+   version's, a library yardstick's and the bound, and each row's
+   kernel/library ratio; the factor kernels' cluster size and how many
+   such clusters the card holds at once;
 3. main path, 2-D Poisson 200×200 (nested dissection), f64, async runner;
 4. large-front route, random SPD n=2500 (minimum degree), f64;
    then phase 3's plan once more under torch.profiler (device time by
@@ -113,13 +115,37 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 # ----------------------------------------------------------------------
+def kernel_row(rows: dict, name: str, dtype, shape: dict, err: float, ms: float,
+               plain_ms: float, lib_ms: float, bnd: float, by: str, main: bool) -> None:
+    """Print one phase-2 row with its kernel/library ratio and file it:
+    the main path's f64 shape as the kernel's record, the rest as its
+    ``other_cases``."""
+    row = dict(dtype=str(dtype)[6:], **shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bnd, bound_by=by, x_library=ms / lib_ms,
+               x_bound=ms / bnd)
+    print(f"    -> {name} {row['dtype']} {shape}: {ms / lib_ms:.2f}x library, "
+          f"{ms / bnd:.1f}x bound", flush=True)
+    rec = rows.setdefault(name, {})
+    if main:
+        rec.update(row)
+    else:
+        rec.setdefault("other_cases", []).append(row)
+
+
 def phase_kernels(fc) -> dict:
-    """Every kernel against its plain version on the card; returns the
-    per-kernel record at the main path's f64 shape."""
+    """Every kernel against its plain version on the card, f32 and f64;
+    returns the per-kernel records (the main path's f64 shape first, the
+    other shapes and types under ``other_cases``)."""
     from repro_torch.kernels.ref import panel_factor_ref
 
     gen = torch.Generator().manual_seed(0)
-    rec = {}
+    rec, clusters = {}, []
+    for dtype in (torch.float32, torch.float64):
+        for mp in (256, 1024, 1152):
+            cs, room = fc.cluster_room(mp, dtype, torch.device("cuda"))
+            print(f"cluster {str(dtype)[6:]} mp={mp}: {cs} CTAs per cluster, "
+                  f"{room} clusters resident at once", flush=True)
+            clusters.append(dict(dtype=str(dtype)[6:], mp=mp, ctas=cs, max_active_clusters=room))
     for dtype in (torch.float32, torch.float64):
         size = torch.finfo(dtype).bits // 8
         for b, mp, nbp in [(32, 256, 128), (4, 1024, 256)]:
@@ -145,12 +171,9 @@ def phase_kernels(fc) -> dict:
                   f"max_abs_err {err:.3e} rel {rel:.3e}  ms {ms:.4f}  plain_ms {plain_ms:.3f}  "
                   f"library_ms {lib_ms:.4f}  bound_ms {bnd:.5f} ({by})", flush=True)
             check(rel <= TOL[dtype], f"front_factor {dtype} {b}x{mp}: rel err {rel}")
-            if dtype == torch.float64 and mp == 256:
-                rec["front_factor"] = dict(
-                    shape=[b, mp, mp], nbp=nbp, dtype="float64", max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                )
-        for mp, nb in [(1152, 128), (1152, 256)]:
+            kernel_row(rec, "front_factor", dtype, dict(shape=[b, mp, mp], nbp=nbp), err, ms,
+                       plain_ms, lib_ms, bnd, by, dtype == torch.float64 and mp == 256)
+        for mp, nb in [(1152, 128), (1152, 256), (1152, 512)]:
             s = spd_batch(gen, 1, mp, dtype)[0, :, :nb].contiguous()
             got = fc.panel_factor(s)
             torch.cuda.synchronize()
@@ -168,11 +191,8 @@ def phase_kernels(fc) -> dict:
                   flush=True)
             check(rel <= TOL_LARGE[dtype], f"panel_factor {dtype} {mp}x{nb}: rel err {rel}")
             check(rel_ref <= TOL_LARGE[dtype], f"panel_factor {dtype} {mp}x{nb} vs oracle: {rel_ref}")
-            if dtype == torch.float64 and nb == 256:
-                rec["panel_factor"] = dict(
-                    shape=[mp, nb], dtype="float64", max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                )
+            kernel_row(rec, "panel_factor", dtype, dict(shape=[mp, nb]), err, ms, plain_ms,
+                       lib_ms, bnd, by, dtype == torch.float64 and nb == 256)
         for m, k, tile in [(1024, 128, 256), (896, 256, 128)]:
             c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
             a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
@@ -189,11 +209,9 @@ def phase_kernels(fc) -> dict:
                   f"library_ms {lib_ms:.4f}  bound_ms {bnd:.5f} ({by})", flush=True)
             check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m}: rel err {rel}")
             check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} vs f64: {rel64}")
-            if dtype == torch.float64 and m == 1024:
-                rec["syrk_downdate"] = dict(
-                    shape=[m, k], tile=tile, dtype="float64", max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                )
+            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile), err, ms,
+                       plain_ms, lib_ms, bnd, by, dtype == torch.float64 and m == 1024)
+    rec["front_factor"]["clusters"] = clusters
     return rec
 
 

@@ -14,53 +14,504 @@
 // and below the diagonal only (the host reads tril and symmetrizes).
 //
 // What bounds it on the card.  On a TPU the whole front lives in VMEM; on an
-// H100 a 1024^2 fp32 front (4 MiB) is ~18x a block's 227 KB of shared memory,
-// so the front stays in device memory (mostly L2-resident: a front is at most
-// 8 MiB of the 50 MB L2).  Work per front is small (a (256,128) front is
-// ~6 MFLOP, ~1 MB moved in f64) and the 128 pivot columns of a block depend on
-// each other in sequence, so a front is latency-bound, not bound by bytes or
-// flops.  The design keeps that sequential part cheap and local:
-//   * one CTA per front (grid = batch): a whole factorization is one launch,
-//     fronts never share a CTA, so a front's bits do not depend on the batch;
-//   * (A) the 128x128 diagonal block is factored column by column in shared
-//     memory, so the dependent steps synchronize through shared memory only;
-//   * (B) rows below the block are solved against L11 one warp per row, the
-//     row held in registers (4 values per lane), multipliers broadcast by
-//     warp shuffles: no barrier per column;
-//   * (C) the trailing downdate is a shared-memory tiled GEMM (64x64 output
-//     tiles, K in chunks of 32, 4x4 accumulators per thread in the working
-//     type), lower tiles only.
-// No atomics and a fixed summation order everywhere: results are
-// deterministic and batch-invariant.  Tensor cores (DMMA / wgmma), TMA and
-// more than one CTA per front are later work.
+// H100 a 1024^2 f64 front (8 MiB) is ~36x a block's 227 KB of shared memory,
+// so the front stays in device memory (L2-resident: at most 8 MiB of the
+// 50 MB L2).  Work per front is small (a (256,128) front is ~6 MFLOP) and the
+// 128 pivots of a block depend on each other in sequence, so a front is
+// bound by latency (dependent steps and barriers), not by bytes or flops.
+// front_factor and panel_factor share one routine, factor_slab:
+//   * one thread-block cluster per front (panel_factor: one cluster for the
+//     slab).  Its size (cluster_size: 2 CTAs for a 256-row front, 16 from
+//     768 rows), and which rows and tiles each CTA takes, depend on the
+//     slab's shape only, never on the batch, so a front's bits do not depend
+//     on the batch it rides in;
+//   * (A) every CTA of the cluster factors the same 128x128 diagonal block
+//     in its own shared memory with the same code (identical bits, no
+//     distributed shared memory): right-looking by 32-column sub-blocks, a
+//     32-step factor of the sub-block by one warp in registers (shuffles,
+//     one reciprocal square root per pivot), a row-parallel solve of the
+//     rows below it and one product downdating the rest of the block;
+//   * (B) rows below the block are split over the cluster's CTAs and staged
+//     in shared memory 64 at a time; per 32-column sub-block, one product
+//     with the sub-blocks already solved, then a solve against L_ss, one
+//     row per thread, pivots applied as reciprocals;
+//   * (C) the trailing downdate's lower 64x64 output tiles are dealt to the
+//     CTAs round-robin and stream through a ring of three shared-memory
+//     stages filled by cp.async (16 bytes) two K chunks ahead, across tile
+//     boundaries;
+//   * products run on the FP64 tensor cores in f64 (mma.sync m16n8k8 in
+//     (C), m8n8k4 in (A) and (B)) and on FFMA in f32 (wgmma has no f64 form
+//     and TF32 would miss the reference's tolerance);
+//   * barrier.cluster (cluster.sync) separates (B) from (C) and (C) from the
+//     next block; data written by other CTAs is read with ld.global.cg /
+//     cp.async.cg (through L2, never a stale L1 line).
+// What bounds it now (repro_torch.kernels.frontal_split times each phase):
+// the pivot chain of (A), repeated by every CTA, for the small fronts of
+// the main path; the (C) tiles of the largest fronts, which keep 16 of the
+// 132 SMs busy per front; then the row solves of (B).  No atomics and a fixed summation order everywhere: results are
+// deterministic and batch-invariant.
+//
+// syrk_kernel keeps its first design: one CTA per 64x64 tile of C, 4x4
+// f32/f64 FMA accumulators per thread; it runs level with torch.addmm.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int TB = 128;      // pivot block width (TILE on the Python side)
+constexpr int SB = 32;       // sub-block width inside a pivot block
 constexpr int NT = 256;      // threads per CTA
-constexpr int NW = NT / 32;  // warps per CTA
-constexpr int GT = 64;       // output tile edge of the GEMM downdate
-constexpr int KC = 32;       // K chunk of the GEMM downdate
+constexpr int GT = 64;       // output tile edge of the GEMM downdates
+constexpr int KC = 32;       // K chunk of the SYRK kernel
 constexpr int DLD = TB + 1;  // padded row stride of the diagonal block
-constexpr int GLD = KC + 1;  // padded row stride of a GEMM operand tile
+constexpr int GLD = KC + 1;  // padded row stride of a SYRK operand tile
+constexpr int MAX_CLUSTER = 16;  // the H100 holds clusters of 16 (non-portable)
+
+// 1/sqrt(x): one hardware estimate and its refinement (within an ulp or
+// two), instead of a rounded square root followed by a division.
+template <typename T>
+__device__ __forceinline__ T dev_rsqrt(T x);
+template <>
+__device__ __forceinline__ float dev_rsqrt<float>(float x) { return rsqrtf(x); }
+template <>
+__device__ __forceinline__ double dev_rsqrt<double>(double x) { return rsqrt(x); }
+
+// Load through L2 (never L1): the value may have been written by another
+// CTA of the cluster before the last cluster barrier.
+template <typename T>
+__device__ __forceinline__ T ldcg(const T* p) { return __ldcg(p); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b on the FP64 tensor cores: one 8x8x4 product per warp.  A is
+// 8x4 row-major (lane holds A[lane/4][lane%4]), B is 4x8 column-major
+// (lane holds B[lane%4][lane/4]), D 8x8 (lane holds D[lane/4][2*(lane%4)+i]).
+__device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// ----------------------------------------------------------------------
+// (C) the trailing downdate: out[i, j] -= sum_k ar[i, k] ac[j, k] over
+// K = TB for each of a CTA's 64x64 output tiles, operands and output in
+// device memory (row stride lda).  The CTA's (tile, 64-wide K chunk) pairs
+// form one stream through a ring of NS shared-memory stages, filled by
+// cp.async NS-1 chunks ahead, across tile boundaries.
+// ----------------------------------------------------------------------
+constexpr int CK = 64;                 // K chunk of a stage
+constexpr int CLD = CK + 4;            // row stride of a stage's operand tile (16-B rows)
+constexpr int NS = 3;                  // ring stages
+constexpr int NCH = TB / CK;           // K chunks per tile
+constexpr int STAGE = 2 * GT * CLD;    // elements per stage (both operands)
+
+// d += a * b on the FP64 tensor cores, one 16x8x8 product per warp (g =
+// lane/4, t = lane%4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void dmma_16x8x8(double (&d)[4], const double (&a)[4], double b0,
+                                            double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// The t-th lower 64x64 tile, in row-major order, of a grid of nr x nc.
+__device__ __forceinline__ void lower_tile(int t, int nc, int& ti, int& tj) {
+  ti = 0;
+  while (t >= min(ti + 1, nc)) t -= min(++ti, nc);
+  tj = t;
+}
 
 template <typename T>
-__device__ __forceinline__ T dev_sqrt(T x);
-template <>
-__device__ __forceinline__ float dev_sqrt<float>(float x) { return sqrtf(x); }
-template <>
-__device__ __forceinline__ double dev_sqrt<double>(double x) { return sqrt(x); }
+__device__ void trailing_downdate(T* a, int lda, int off, int t0, int nr, int nc, int rank,
+                                  int cs, T* smem) {
+  int nlow = 0;
+  for (int ti = 0; ti < nr; ++ti) nlow += min(ti + 1, nc);
+  const int mine = rank < nlow ? (nlow - rank + cs - 1) / cs : 0;  // tiles t = rank + u*cs
+  const int nq = mine * NCH;
+  const int tid = threadIdx.x;
 
-// out[i, j] = cin[i, j] - sum_k ar[i, k] * ac[j, k] over one GT x GT tile.
-// ar / ac point at the tile's first operand row (row stride lda); cin / out
-// at the tile's first element (row stride ldc; they may alias).  With
-// lower_only, entries with i + diag < j (above the matrix diagonal) are left
-// alone.  Called by all NT threads; uses 2*GT*GLD elements of smem.
+  auto fetch = [&](int q) {  // chunk q of the stream into stage q % NS
+    if (q < nq) {
+      int ti, tj;
+      lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
+      const T* ar = a + (size_t)(t0 + GT * ti) * lda + off + (q % NCH) * CK;
+      const T* ac = a + (size_t)(t0 + GT * tj) * lda + off + (q % NCH) * CK;
+      T* As = smem + (q % NS) * STAGE;
+      T* Bs = As + GT * CLD;
+      constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+      constexpr int PER_ROW = CK / V;
+      for (int e = tid; e < GT * PER_ROW; e += NT) {
+        const int i = e / PER_ROW, kk = (e % PER_ROW) * V;
+        cp_async16(As + i * CLD + kk, ar + (size_t)i * lda + kk);
+        cp_async16(Bs + i * CLD + kk, ac + (size_t)i * lda + kk);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  for (int q = 0; q < NS - 1; ++q) fetch(q);
+  if constexpr (std::is_same<T, double>::value) {
+    // 8 warps: warp w owns rows 16*(w/2) + [0, 16), cols 32*(w%2) + [0, 32):
+    // four 16x8 DMMA tiles.
+    const int lane = tid & 31, warp = tid >> 5;
+    const int wr = 16 * (warp >> 1), wc = 32 * (warp & 1);
+    const int g = lane >> 2, t4 = lane & 3;
+    double acc[4][4] = {};
+    for (int q = 0; q < nq; ++q) {
+      fetch(q + NS - 1);
+      cp_async_wait<NS - 1>();
+      __syncthreads();
+      const double* As = smem + (q % NS) * STAGE;
+      const double* Bs = As + GT * CLD;
+#pragma unroll
+      for (int k = 0; k < CK; k += 8) {
+        const double* ap = As + (wr + g) * CLD + k + t4;
+        const double av[4] = {ap[0], ap[8 * CLD], ap[4], ap[8 * CLD + 4]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const double* bp = Bs + (wc + 8 * j + g) * CLD + k + t4;
+          dmma_16x8x8(acc[j], av, bp[0], bp[4]);
+        }
+      }
+      if (q % NCH == NCH - 1) {  // the tile's last chunk: write it out
+        int ti, tj;
+        lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
+        T* out = a + (size_t)(t0 + GT * ti) * lda + t0 + GT * tj;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int r = wr + g + 8 * (h >> 1), c = wc + 8 * j + 2 * t4 + (h & 1);
+            if (ti != tj || r >= c) {
+              T* o = out + (size_t)r * lda + c;
+              *o = ldcg(o) - acc[j][h];
+            }
+            acc[j][h] = 0.0;
+          }
+      }
+      __syncthreads();  // stage q % NS is refilled next
+    }
+  } else {
+    // f32: 16x16 threads, each a 4x4 FFMA tile (rows ty + 16i, cols tx + 16j).
+    const int tx = tid & 15, ty = tid >> 4;
+    float acc[4][4] = {};
+    for (int q = 0; q < nq; ++q) {
+      fetch(q + NS - 1);
+      cp_async_wait<NS - 1>();
+      __syncthreads();
+      const float* As = smem + (q % NS) * STAGE;
+      const float* Bs = As + GT * CLD;
+#pragma unroll 8
+      for (int kk = 0; kk < CK; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[(ty + 16 * i) * CLD + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * CLD + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      if (q % NCH == NCH - 1) {
+        int ti, tj;
+        lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
+        T* out = a + (size_t)(t0 + GT * ti) * lda + t0 + GT * tj;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = ty + 16 * i, c = tx + 16 * j;
+            if (ti != tj || r >= c) {
+              T* o = out + (size_t)r * lda + c;
+              *o = ldcg(o) - acc[i][j];
+            }
+            acc[i][j] = 0.0f;
+          }
+      }
+      __syncthreads();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ----------------------------------------------------------------------
+// (A) and (B): the diagonal block and the rows below it, in shared memory
+// ----------------------------------------------------------------------
+// C -= A B^T on shared-memory operands, by 8x8 output tiles dealt to the
+// warps, each warp four tiles at a time (four independent accumulators):
+// C is (8*m8 x 8*n8), A (8*m8 x K), B (8*n8 x K), K a multiple of 4, row
+// strides ldc / lda / ldb.  With lower (m8 == n8), only the tiles on or
+// below the diagonal are computed and only entries on or below it written.
+// f64 on DMMA; f32 on FFMA, each lane the two entries a DMMA lane holds.
 template <typename T>
-__device__ void tile_downdate(const T* ar, const T* ac, int lda, int K,
-                              const T* cin, T* out, int ldc, int diag,
-                              bool lower_only, T* smem) {
+__device__ void smem_update(T* C, int ldc, const T* A, int lda, const T* B, int ldb, int m8,
+                            int n8, int K, bool lower) {
+  constexpr int NWARP = NT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ntiles = lower ? m8 * (m8 + 1) / 2 : m8 * n8;
+  for (int p0 = warp; p0 < ntiles; p0 += 4 * NWARP) {
+    int ti[4], tj[4];
+    bool on[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // tile p: row-major over the lower triangle or the grid
+      const int p = p0 + u * NWARP;
+      on[u] = p < ntiles;
+      if (lower) {
+        int i = (int)((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+        while (i * (i + 1) / 2 > p) --i;
+        while ((i + 1) * (i + 2) / 2 <= p) ++i;
+        ti[u] = i;
+        tj[u] = p - i * (i + 1) / 2;
+      } else {
+        ti[u] = p / n8;
+        tj[u] = p % n8;
+      }
+    }
+    T acc[4][2] = {};
+    for (int k = 0; k < K; k += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!on[u]) continue;
+        const T* ar = A + (8 * ti[u] + g) * lda + k;
+        if constexpr (std::is_same<T, double>::value) {
+          dmma_8x8x4(acc[u][0], acc[u][1], ar[t4], B[(8 * tj[u] + g) * ldb + k + t4]);
+        } else {
+          const T* b0 = B + (8 * tj[u] + 2 * t4) * ldb + k;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc[u][0] = fmaf(ar[kk], b0[kk], acc[u][0]);
+            acc[u][1] = fmaf(ar[kk], b0[ldb + kk], acc[u][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (!on[u]) continue;
+      const int r = 8 * ti[u] + g, c = 8 * tj[u] + 2 * t4;
+      const bool diag = lower && ti[u] == tj[u];
+      T* o = C + r * ldc + c;
+      if (!diag || r >= c) o[0] -= acc[u][0];
+      if (!diag || r >= c + 1) o[1] -= acc[u][1];
+    }
+  }
+}
+
+constexpr int XR = 64;       // rows of a (B) chunk
+constexpr int XLD = TB + 4;  // row stride of the (B) chunk
+
+// x := x L_ss^-T for one row x of 32 entries (columns sb + [0, 32)), where
+// L_ss is the factored 32x32 diagonal sub-block at (sb, sb) of D and rinv
+// holds the reciprocals of its pivots.  32 dependent steps, each one
+// multiply and the FMAs of the entries after it.
+template <typename T>
+__device__ __forceinline__ void solve_sub(T (&x)[SB], const T* D, const T* rinv, int sb) {
+#pragma unroll
+  for (int j = 0; j < SB; ++j) {
+    x[j] *= rinv[sb + j];
+#pragma unroll
+    for (int i = j + 1; i < SB; ++i) x[i] -= x[j] * D[(sb + i) * DLD + sb + j];
+  }
+}
+
+// Rows [0, n) of X (row stride ldx), columns sb + [0, 32): solved against
+// L_ss, one row per thread.
+template <typename T>
+__device__ void solve_rows(T* X, int ldx, int n, const T* D, const T* rinv, int sb) {
+  for (int i = threadIdx.x; i < n; i += NT) {
+    T* row = X + i * ldx + sb;
+    T x[SB];
+#pragma unroll
+    for (int j = 0; j < SB; ++j) x[j] = row[j];
+    solve_sub(x, D, rinv, sb);
+#pragma unroll
+    for (int j = 0; j < SB; ++j) row[j] = x[j];
+  }
+}
+
+// (A) partial Cholesky of the 128x128 diagonal block D (lower triangle) in
+// shared memory, right-looking by 32-column sub-blocks; rinv[j] = 1/L[j][j].
+template <typename T>
+__device__ void factor_diag(T* D, T* rinv) {
+  const int tid = threadIdx.x;
+  for (int sb = 0; sb < TB; sb += SB) {
+    // (A1) one warp factors the 32x32 sub-block in registers: lane i holds
+    // row sb + i; column j's entries travel by shuffles.
+    if (tid < 32) {
+      const int i = tid;
+      T x[SB];
+      T my_rinv = T(0);
+#pragma unroll
+      for (int k = 0; k < SB; ++k) x[k] = k <= i ? D[(sb + i) * DLD + sb + k] : T(0);
+#pragma unroll
+      for (int j = 0; j < SB; ++j) {
+        const T p = __shfl_sync(0xffffffffu, x[j], j);
+        const T r = dev_rsqrt(p);
+        if (i == j) {
+          x[j] = p * r;
+          my_rinv = r;
+        } else if (i > j) {
+          x[j] *= r;
+        }
+#pragma unroll
+        for (int k = j + 1; k < SB; ++k) {
+          const T lkj = __shfl_sync(0xffffffffu, x[j], k);
+          if (i >= k) x[k] -= x[j] * lkj;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SB; ++k)
+        if (k <= i) D[(sb + i) * DLD + sb + k] = x[k];
+      rinv[sb + i] = my_rinv;
+    }
+    __syncthreads();
+    // (A2) rows below the sub-block inside the block, one per thread.
+    const int base = sb + SB, nbelow = TB - base;
+    solve_rows(D + base * DLD, DLD, nbelow, D, rinv, sb);
+    __syncthreads();
+    // (A3) downdate the rest of the block's lower triangle by the sub-block.
+    if (nbelow) {
+      smem_update(D + base * DLD + base, DLD, D + base * DLD + sb, DLD, D + base * DLD + sb, DLD,
+                  nbelow / 8, nbelow / 8, SB, true);
+      __syncthreads();
+    }
+  }
+}
+
+// (B) rows [lo, hi) of the slab below the block (row stride lda, columns
+// from the block's first): l_r = a_r L11^-T, in chunks of XR rows staged in
+// shared memory X, left-looking by 32-column sub-blocks: one product with
+// the solved sub-blocks, then a row-parallel solve against L_ss.
+template <typename T>
+__device__ void solve_below(T* a, int lda, int lo, int hi, const T* D, const T* rinv, T* X) {
+  const int tid = threadIdx.x;
+  for (int r0 = lo; r0 < hi; r0 += XR) {
+    const int n = min(XR, hi - r0);
+#pragma unroll 8
+    for (int e = tid; e < XR * TB; e += NT) {
+      const int i = e / TB, c = e % TB;
+      X[i * XLD + c] = i < n ? ldcg(a + (size_t)(r0 + i) * lda + c) : T(0);
+    }
+    __syncthreads();
+    for (int sb = 0; sb < TB; sb += SB) {
+      if (sb) {
+        smem_update(X + sb, XLD, X, XLD, D + sb * DLD, DLD, XR / 8, SB / 8, sb, false);
+        __syncthreads();
+      }
+      solve_rows(X, XLD, n, D, rinv, sb);
+      __syncthreads();
+    }
+#pragma unroll 8
+    for (int e = tid; e < XR * TB; e += NT) {
+      const int i = e / TB, c = e % TB;
+      if (i < n) a[(size_t)(r0 + i) * lda + c] = X[i * XLD + c];
+    }
+  }
+}
+
+// CTAs per cluster for a slab of mp rows: enough that each takes about 64
+// of the first block's rows below it (a power of two, at most 16: 2 for a
+// 256-row front, 16 from 768 rows).  A function of the shape only: never
+// of the batch.
+inline int cluster_size(int mp) {
+  const int rows = (mp - TB) / GT;
+  int cs = 1;
+  while (cs < rows && cs < MAX_CLUSTER) cs *= 2;
+  return cs;
+}
+
+// factor_slab's smem: the diagonal block, the pivots' reciprocals and a (B)
+// chunk; (C) reuses it for its ring of operand stages.
+template <typename T>
+constexpr size_t factor_smem_bytes() {
+  constexpr size_t ab = (size_t)TB * DLD + TB + (size_t)XR * XLD;
+  constexpr size_t c = (size_t)NS * STAGE;
+  return (ab > c ? ab : c) * sizeof(T);
+}
+
+// Partial Cholesky, in place, of the leading nfac columns of an (mp x ncols)
+// row-major slab (row stride ncols) whose row i aligns with column i, by
+// one cluster.  Per 128-column block: (A) factor the diagonal block in each
+// CTA's smem, (B) solve the rows below it (split over the CTAs), (C)
+// downdate the slab's trailing columns [off+TB, ncols) (lower tiles dealt
+// over the CTAs).  Front: ncols = mp, nfac = nbp.  Panel: ncols = nfac = nb.
+template <typename T>
+__device__ void factor_slab(T* a, int mp, int ncols, int nfac, T* smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int lda = ncols;
+  T* D = smem;
+  T* rinv = D + TB * DLD;
+  T* X = rinv + TB;
+
+  for (int off = 0; off < nfac; off += TB) {
+    const int t0 = off + TB;
+    // (A) the diagonal block, factored by every CTA alike.
+#pragma unroll 8
+    for (int e = tid; e < TB * TB; e += NT) {
+      const int r = e / TB, c = e % TB;
+      D[r * DLD + c] = ldcg(a + (size_t)(off + r) * lda + off + c);
+    }
+    __syncthreads();
+    factor_diag(D, rinv);
+
+    // (B) this CTA's contiguous share of the rows below the block.
+    const int per = (mp - t0 + cs - 1) / cs;
+    const int lo = t0 + rank * per, hi = min(mp, lo + per);
+    solve_below(a + off, lda, lo, hi, D, rinv, X);
+    cluster.sync();  // every L21 row stored; every CTA done reading the block
+
+    // CTA 0 stores L11 and the zeros above it.
+    if (rank == 0) {
+#pragma unroll 8
+      for (int e = tid; e < TB * TB; e += NT) {
+        const int r = e / TB, c = e % TB;
+        a[(size_t)(off + r) * lda + off + c] = (r >= c) ? D[r * DLD + c] : T(0);
+      }
+      for (int e = tid; e < off * TB; e += NT) {
+        const int r = e / TB, c = e % TB;
+        a[(size_t)r * lda + off + c] = T(0);
+      }
+    }
+    __syncthreads();  // D is reused as the operand stages below
+
+    // (C) trailing downdate a[r, c] -= sum_k l[r, k] l[c, k], r >= c: lower
+    // 64x64 tiles in row-major order, tile t to CTA t % cs.
+    trailing_downdate(a, lda, off, t0, (mp - t0) / GT, (ncols - t0) / GT, rank, cs, smem);
+    cluster.sync();  // the next block reads what (C) wrote
+  }
+}
+
+// syrk_kernel's tile: out[i, j] = cin[i, j] - sum_k ar[i, k] * ac[j, k] over
+// one GT x GT tile (row strides lda for the operands, ldc for cin / out).
+// Called by all NT threads; uses 2*GT*GLD elements of smem.
+template <typename T>
+__device__ void syrk_tile(const T* ar, const T* ac, int lda, int K, const T* cin, T* out,
+                          int ldc, T* smem) {
   T* As = smem;
   T* Bs = smem + GT * GLD;
   const int tx = threadIdx.x & 15;
@@ -96,105 +547,22 @@ __device__ void tile_downdate(const T* ar, const T* ac, int lda, int K,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      if (!lower_only || r + diag >= c) {
-        const size_t o = (size_t)r * ldc + c;
-        out[o] = cin[o] - acc[i][j];
-      }
+      const size_t o = (size_t)(ty + 16 * i) * ldc + tx + 16 * j;
+      out[o] = cin[o] - acc[i][j];
     }
 }
 
-// Partial Cholesky, in place, of the leading nfac columns of an (mp x ncols)
-// row-major slab (row stride ncols) whose row i aligns with column i.
-// Per 128-column block: (A) factor the diagonal block in smem, (B) solve the
-// rows below it, (C) downdate the slab's trailing columns [off+TB, ncols).
-// Front: ncols = mp, nfac = nbp.  Panel: ncols = nfac = nb.
-template <typename T>
-__device__ void factor_slab(T* a, int mp, int ncols, int nfac, T* smem) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int lda = ncols;
-  T* D = smem;
-
-  for (int off = 0; off < nfac; off += TB) {
-    // (A) diagonal block: load, factor column by column, store.
-    for (int e = tid; e < TB * TB; e += NT) {
-      const int r = e / TB, c = e % TB;
-      D[r * DLD + c] = a[(size_t)(off + r) * lda + off + c];
-    }
-    __syncthreads();
-    for (int j = 0; j < TB; ++j) {
-      const T s = dev_sqrt(D[j * DLD + j]);
-      if (tid > j && tid < TB) D[tid * DLD + j] = D[tid * DLD + j] / s;
-      __syncthreads();
-      if (tid == 0) D[j * DLD + j] = s;
-      // rank-1 downdate of the block's remaining lower triangle:
-      // D[r, c] -= l[r] * l[c] for j < c <= r < TB
-      const int c = j + 1 + (tid & (TB - 1));
-      if (c < TB) {
-        const T lc = D[c * DLD + j];
-        for (int r = c + (tid >> 7); r < TB; r += NT / TB)
-          D[r * DLD + c] -= D[r * DLD + j] * lc;
-      }
-      __syncthreads();
-    }
-    for (int e = tid; e < TB * TB; e += NT) {
-      const int r = e / TB, c = e % TB;
-      a[(size_t)(off + r) * lda + off + c] = (r >= c) ? D[r * DLD + c] : T(0);
-    }
-    for (int e = tid; e < off * TB; e += NT) {  // above the block: zeros
-      const int r = e / TB, c = e % TB;
-      a[(size_t)r * lda + off + c] = T(0);
-    }
-
-    // (B) rows below the block: l_r = a_r L11^-T, one warp per row; lane
-    // holds columns lane + 32q, the owner of column j broadcasts l_r[j].
-    for (int r = off + TB + warp; r < mp; r += NW) {
-      T* row = a + (size_t)r * lda + off;
-      T x[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) x[q] = row[lane + 32 * q];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        for (int jl = 0; jl < 32; ++jl) {
-          const int j = 32 * q + jl;
-          T xj = x[q] / D[j * DLD + j];
-          xj = __shfl_sync(0xffffffffu, xj, jl);
-          if (lane == jl) x[q] = xj;
-#pragma unroll
-          for (int p = q; p < 4; ++p) {
-            const int k = lane + 32 * p;
-            if (k > j) x[p] -= xj * D[k * DLD + j];
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) row[lane + 32 * q] = x[q];
-    }
-    __syncthreads();
-
-    // (C) trailing downdate a[r, c] -= sum_k l[r, k] l[c, k], r >= c.
-    const int t0 = off + TB;
-    const int nr = (mp - t0) / GT;
-    const int nc = (ncols - t0) / GT;
-    for (int t = 0; t < nr * nc; ++t) {
-      const int ti = t / nc, tj = t % nc;
-      if (ti < tj) continue;  // wholly above the diagonal
-      const int r0 = t0 + GT * ti, c0 = t0 + GT * tj;
-      T* cblk = a + (size_t)r0 * lda + c0;
-      tile_downdate<T>(a + (size_t)r0 * lda + off, a + (size_t)c0 * lda + off,
-                       lda, TB, cblk, cblk, lda, r0 - c0, true, smem);
-    }
-    __syncthreads();
-  }
-}
-
+// ----------------------------------------------------------------------
+// Kernels and launches
+// ----------------------------------------------------------------------
+// One cluster per front: the cluster's first block index / cluster size is
+// the front.
 template <typename T>
 __global__ void __launch_bounds__(NT) front_factor_kernel(T* a, int mp, int nbp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  factor_slab<T>(a + (size_t)blockIdx.x * mp * mp, mp, mp, nbp, smem);
+  const int front = blockIdx.x / cg::this_cluster().num_blocks();
+  factor_slab<T>(a + (size_t)front * mp * mp, mp, mp, nbp, smem);
 }
 
 template <typename T>
@@ -211,47 +579,97 @@ __global__ void __launch_bounds__(NT)
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int r0 = blockIdx.y * GT, c0 = blockIdx.x * GT;
   const size_t o = (size_t)r0 * m + c0;
-  tile_downdate<T>(a + (size_t)r0 * k, a + (size_t)c0 * k, k, k, c + o,
-                   out + o, m, 0, false, smem);
+  syrk_tile<T>(a + (size_t)r0 * k, a + (size_t)c0 * k, k, k, c + o, out + o, m, smem);
 }
 
-constexpr size_t factor_smem_elems() {
-  return (size_t)TB * DLD > (size_t)2 * GT * GLD ? (size_t)TB * DLD
-                                                 : (size_t)2 * GT * GLD;
+// Launch configuration of one cluster per slab: `slabs` clusters of
+// cluster_size(mp) CTAs.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int slabs, int mp, size_t smem, void* stream) {
+    const int cs = cluster_size(mp);
+    cfg.gridDim = dim3(slabs * cs);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of this shape the card can hold at once, or an error:
+// a cluster that cannot be placed (too much smem, no room) is refused,
+// never run some other way.  Asked once per device and cluster size, then
+// cached, so a launch adds no query.
+constexpr int MAX_DEVICES = 16;
+template <auto kernel>
+cudaError_t cluster_room(int mp, size_t smem, int* clusters) {
+  static std::atomic<int> known[MAX_DEVICES][5];  // clusters + 1 by log2(size); 0: not asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int cs = cluster_size(mp);
+  int slot = 0;
+  while ((1 << slot) < cs) ++slot;
+  if (dev < MAX_DEVICES && known[dev][slot].load() > 0) {
+    *clusters = known[dev][slot].load() - 1;
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (cs > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  ClusterLaunch l(1, mp, smem, nullptr);
+  e = cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg);
+  if (e != cudaSuccess) return e;
+  if (*clusters <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < MAX_DEVICES) known[dev][slot].store(*clusters + 1);
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch_front(void* a, int batch, int mp, int nbp, void* stream) {
-  const size_t smem = factor_smem_elems() * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      front_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = factor_smem_bytes<T>();
+  int room = 0;
+  cudaError_t e = cluster_room<front_factor_kernel<T>>(mp, smem, &room);
   if (e != cudaSuccess) return (int)e;
-  front_factor_kernel<T><<<batch, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<T*>(a), mp, nbp);
+  ClusterLaunch l(batch, mp, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, front_factor_kernel<T>, static_cast<T*>(a), mp, nbp);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_panel(void* a, int mp, int nb, void* stream) {
-  const size_t smem = factor_smem_elems() * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      panel_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = factor_smem_bytes<T>();
+  int room = 0;
+  cudaError_t e = cluster_room<panel_factor_kernel<T>>(mp, smem, &room);
   if (e != cudaSuccess) return (int)e;
-  panel_factor_kernel<T><<<1, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<T*>(a), mp, nb);
+  ClusterLaunch l(1, mp, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, panel_factor_kernel<T>, static_cast<T*>(a), mp, nb);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_syrk(const void* c, const void* a, void* out, int m, int k,
-                void* stream) {
+int front_room(int mp, int* cluster, int* clusters) {
+  *cluster = cluster_size(mp);
+  return (int)cluster_room<front_factor_kernel<T>>(mp, factor_smem_bytes<T>(), clusters);
+}
+
+template <typename T>
+int launch_syrk(const void* c, const void* a, void* out, int m, int k, void* stream) {
   const size_t smem = (size_t)2 * GT * GLD * sizeof(T);
   dim3 grid(m / GT, m / GT);
   syrk_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(c), static_cast<const T*>(a), static_cast<T*>(out),
-      m, k);
+      static_cast<const T*>(c), static_cast<const T*>(a), static_cast<T*>(out), m, k);
   return (int)cudaGetLastError();
 }
 
@@ -259,7 +677,8 @@ int launch_syrk(const void* c, const void* a, void* out, int m, int k,
 
 extern "C" {
 
-// Each entry point launches on `stream` and returns cudaGetLastError().
+// Each entry point launches on `stream` and returns cudaGetLastError() (or
+// the error that refused the launch).
 int front_factor_f32(void* a, int batch, int mp, int nbp, void* stream) {
   return launch_front<float>(a, batch, mp, nbp, stream);
 }
@@ -272,18 +691,25 @@ int panel_factor_f32(void* a, int mp, int nb, void* stream) {
 int panel_factor_f64(void* a, int mp, int nb, void* stream) {
   return launch_panel<double>(a, mp, nb, stream);
 }
-int syrk_downdate_f32(const void* c, const void* a, void* out, int m, int k,
-                      void* stream) {
+int syrk_downdate_f32(const void* c, const void* a, void* out, int m, int k, void* stream) {
   return launch_syrk<float>(c, a, out, m, k, stream);
 }
-int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k,
-                      void* stream) {
+int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k, void* stream) {
   return launch_syrk<double>(c, a, out, m, k, stream);
+}
+// The cluster that factors an (mp x mp) front (panel_factor: an mp-row
+// slab): its CTA count, and how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters).  Launches nothing; the stream is unused.
+int front_cluster_room_f32(int mp, int* cluster, int* clusters, void* stream) {
+  (void)stream;
+  return front_room<float>(mp, cluster, clusters);
+}
+int front_cluster_room_f64(int mp, int* cluster, int* clusters, void* stream) {
+  (void)stream;
+  return front_room<double>(mp, cluster, clusters);
 }
 // Message for an error code of any entry point of the library (the
 // flash-attention entry points included).
-const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

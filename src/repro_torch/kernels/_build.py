@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 # C entry point -> argument types (each returns an int error code)
 SIGNATURES = {
     **{
@@ -37,6 +38,8 @@ SIGNATURES = {
             ("front_factor", [_VP, _CI, _CI, _CI, _VP]),
             ("panel_factor", [_VP, _CI, _CI, _VP]),
             ("syrk_downdate", [_VP, _VP, _VP, _CI, _CI, _VP]),
+            # mp, out: CTAs per cluster, out: clusters resident at once, stream
+            ("front_cluster_room", [_CI, _PI, _PI, _VP]),
         )
     },
     # q, k, v, out, B, T, H, Dh, causal, scale, 4 strides each of q, k, v, stream

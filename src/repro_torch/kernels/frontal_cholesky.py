@@ -5,15 +5,20 @@ Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
 
 * ``front_factor``  ← ``front_factor_vmem`` (batched there by ``vmap``): the
   partial factorization of the leading ``nbp`` columns of a (B, mp, mp) stack
-  of padded fronts, one CTA per front.
+  of padded fronts, one thread-block cluster per front.
 * ``panel_factor``  ← ``panel_factor``: ``[L11; A21·L11⁻ᵀ]`` of an (mp, nb)
-  slab, for the large-front path.
+  slab, for the large-front path (one cluster, the same device routine).
 * ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ`` over a grid of C tiles.
 
 The CUDA source is ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
 and what bounds each kernel on the card are there).  It is built into the
 port's one kernel library by :mod:`repro_torch.kernels._build` (one ``nvcc``
-call for every source, ``sm_90a``, plain C interface, ``ctypes``).
+call for every source, ``sm_90a``, plain C interface, ``ctypes``).  The
+cluster that factors a front has a size set by the front's order alone
+(:func:`cluster_room` reports it and how many fit on the card), so a
+front's bits never depend on its batch; a launch the card cannot place
+raises.  :mod:`repro_torch.kernels.frontal_split` times the kernels'
+phases on the card.
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor, after checking device, dtype, shape, the
@@ -28,8 +33,9 @@ to no-ops.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -83,6 +89,19 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> str:
 def _launch(name: str, suffix: str, device: torch.device, *args) -> None:
     launch(f"{name}_{suffix}", device, *args)
     _count(LAUNCHES, name)
+
+
+def cluster_room(mp: int, dtype: torch.dtype, device: torch.device) -> Tuple[int, int]:
+    """(CTAs per cluster, clusters the card holds at once) for the cluster
+    that factors an (mp, mp) front, or an mp-row panel, in ``dtype``.  The
+    cluster's size depends on ``mp`` only.  Launches nothing and counts
+    nothing; raises where the card cannot place such a cluster."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"cluster_room: kernel takes float32 or float64, got {dtype}")
+    size, room = ctypes.c_int(0), ctypes.c_int(0)
+    launch(f"front_cluster_room_{_SUFFIX[dtype]}", torch.device(device), mp,
+           ctypes.byref(size), ctypes.byref(room))
+    return size.value, room.value
 
 
 # ----------------------------------------------------------------------

@@ -93,7 +93,7 @@ def factor_fn():
 # Batched dispatch (the plan executor's path).
 #
 # Fronts of one dispatch are padded host-side to a common 128-aligned
-# (mp, mp) shape class and factored in ONE launch (one CTA per front).
+# (mp, mp) shape class and factored in ONE launch (one cluster per front).
 # Padding follows the same unit-diagonal convention as ``partial_cholesky``:
 # padded pivot columns factor to e_j no-ops, so fronts with different true
 # (m, nb) can share a class as long as they round to the same (mp, nbp).

@@ -8,18 +8,22 @@ runs where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 5e-5 relative for f32 fronts, 1e-4 for the panel + SYRK route, 1e-11 for
-f64 (the JAX package's tolerances); 2e-5 max-abs for f32 attention and 2
-bf16 ulps of max(1, max|ref|) for bf16 attention (same f32 math, one
-rounding each).
+f64 (the JAX package's tolerances); 2e-5 max-abs for f32 attention and,
+for bf16 attention, element by element |got - ref| <= eps_bf16 * |ref| +
+2e-5 (the same f32 math within the f32 tolerance, then one rounding each:
+at most 2 bf16 ulps of the element).  The frontal kernels are also held
+to determinism and batch invariance bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.kernels.frontal_cholesky as fc
+import repro_torch.kernels.ops as ops
 import repro_torch.sparse as tsparse
 from repro_torch.api import DeviceMesh, Session
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import partial_cholesky_ref
 from repro_torch.runtime import PlanExecutor
 
 pytestmark = pytest.mark.gpu
@@ -42,25 +46,65 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
 
 
+def _spd_batch(b, m, rng, device, dtype):
+    x = torch.from_numpy(rng.normal(size=(b, m, m))).to(device)
+    return (x @ x.mT + m * torch.eye(m, device=device, dtype=x.dtype)).to(dtype)
+
+
+FRONT_SHAPES = [(mp, nbp) for mp in (128, 256, 384, 1024) for nbp in sorted({128, mp})]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.float64, 1e-11)])
-def test_front_factor_on_card(cuda, dtype, tol, rng):
-    x = torch.from_numpy(np.stack([_spd(384, rng) for _ in range(3)])).to(cuda, dtype)
+@pytest.mark.parametrize("mp,nbp", FRONT_SHAPES)
+def test_front_factor_on_card(cuda, dtype, tol, mp, nbp, rng):
+    x = _spd_batch(33, mp, rng, cuda, dtype)
     before = fc.LAUNCHES["front_factor"]
-    got = fc.front_factor(x, 256)
+    got = fc.front_factor(x, nbp)
     assert fc.LAUNCHES["front_factor"] == before + 1
-    want = fc.front_factor_plain(x, 256)
-    assert _rel(torch.tril(got), torch.tril(want)) < tol
-    # batch-invariant: a front's bits do not depend on its batch
-    torch.testing.assert_close(fc.front_factor(x[1:2], 256)[0], got[1], rtol=0, atol=0)
+    pick = [0, 16, 32]
+    want = fc.front_factor_plain(x[pick], nbp)
+    assert _rel(torch.tril(got[pick]), torch.tril(want)) < tol
+    # deterministic, and batch-invariant: a front's bits do not depend on
+    # the batch it rides in (alone vs in a batch of 33)
+    torch.testing.assert_close(fc.front_factor(x, nbp), got, rtol=0, atol=0)
+    torch.testing.assert_close(fc.front_factor(x[16:17], nbp)[0], got[16], rtol=0, atol=0)
+
+
+PANEL_SHAPES = [(mp, nb) for nb in (128, 256, 512) for mp in (nb, 640, 1152) if mp >= nb]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-def test_panel_factor_on_card(cuda, dtype, tol, rng):
-    slab = torch.from_numpy(_spd(640, rng)[:, :256].copy()).to(cuda, dtype)
+@pytest.mark.parametrize("mp,nb", PANEL_SHAPES)
+def test_panel_factor_on_card(cuda, dtype, tol, mp, nb, rng):
+    slab = _spd_batch(1, mp, rng, cuda, dtype)[0, :, :nb].contiguous()
     before = fc.LAUNCHES["panel_factor"]
     got = fc.panel_factor(slab)
     assert fc.LAUNCHES["panel_factor"] == before + 1
     assert _rel(torch.tril(got), torch.tril(fc.panel_factor_plain(slab))) < tol
+    torch.testing.assert_close(fc.panel_factor(slab), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("m,nb", [(200, 100), (300, 300), (1000, 150)])
+def test_padding_inert_on_card(cuda, dtype, tol, m, nb, rng):
+    """Unit-diagonal padding factors to no-ops on the card: padded pivots
+    stay e_j columns, padded rows and columns stay zero, and the unpadded
+    result is the oracle's."""
+    front = _spd(m, rng)
+    f = torch.from_numpy(ops.pad_front_np(front, nb)).to(cuda, dtype)
+    mp, nbp = ops.padded_shape(m, nb)
+    out = torch.tril(fc.front_factor(f[None], nbp)[0])
+    real = torch.zeros(mp, dtype=torch.bool, device=cuda)
+    real[:nb] = True
+    real[nbp:nbp + m - nb] = True
+    pad = ~real
+    assert torch.equal(out[pad][:, pad], torch.eye(int(pad.sum()), device=cuda, dtype=dtype))
+    assert not out[pad][:, real].any() and not out[real][:, pad].any()
+    panel, schur = ops.extract_panel_schur(out.cpu().numpy(), m, nb)
+    want_p, want_s = partial_cholesky_ref(torch.from_numpy(front), nb)
+    assert _rel(torch.from_numpy(panel).double(), want_p) < tol
+    if m > nb:
+        assert _rel(torch.from_numpy(schur).double(), want_s) < tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])

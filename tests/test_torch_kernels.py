@@ -178,3 +178,16 @@ def test_wrappers_count_plain_runs_and_reject_bad_shapes():
         fc.syrk_downdate(torch.zeros(256, 256), torch.zeros(256, 64), tile=512)
     with pytest.raises(ValueError):
         tops.batched_front_factor(torch.zeros(1, 1152, 1152), 128)
+
+
+def test_frontal_split_switches_match_the_source():
+    """The phase-split tool edits the kernel source by text: each edit must
+    find its line exactly once, and every variant skips a distinct set of
+    phases."""
+    from repro_torch.kernels import frontal_split
+
+    src = (frontal_split.CSRC / "frontal_cholesky.cu").read_text()
+    for old in frontal_split._SWITCHES:
+        assert src.count(old) == 1, old
+    assert len(set(frontal_split.VARIANTS.values())) == len(frontal_split.VARIANTS)
+    assert frontal_split.VARIANTS["full"] == 0
