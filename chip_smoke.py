@@ -12,18 +12,23 @@ card → ‖LLᵀ−A‖ check.
    at the main path's shapes, with CUDA-event times beside the plain
    version's, a library yardstick's and the bound, and each row's
    kernel/library ratio; the factor kernels' cluster size and how many
-   such clusters the card holds at once;
+   such clusters the card holds at once.  ``syrk_downdate`` is BLAS syrk
+   with uplo='L' on the card: its lower triangle is compared, its
+   strictly-upper part must equal C;
 3. main path, 2-D Poisson 200×200 (nested dissection), f64, async runner;
-4. large-front route, random SPD n=2500 (minimum degree), f64;
-   then phase 3's plan once more under torch.profiler (device time by
-   kernel, busy share);
+4. large-front route, random SPD n=2500 (minimum degree), f64, then
+   ``syrk_downdate`` alone at the (M, K) this run launched; then phase 3's
+   plan once more under torch.profiler (device time by kernel, busy
+   share);
 5. modes: async and waves bit-identical (grid 60, f64); f32 grid 100;
-6. the flash-attention kernel (its public entry point: nothing in the
+6. the flash-attention kernels (their public entry point: nothing in the
    package calls it) at qwen3-4b's attention widths (32 query heads,
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
-   non-causal f32; each against its plain version, with CUDA-event times,
-   the plain version's, ``scaled_dot_product_attention``'s (a yardstick
-   the port never calls) and the bound;
+   causal bf16 at Dh=64, non-causal f32; each through the route its
+   (dtype, Dh) names (the per-route counter is checked), against its plain
+   version, twice bit for bit, with CUDA-event times, the plain version's,
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+   and the bound;
 7. the facade at full size: ``Session(DeviceMesh(plan_devices=256))
    .analyze(Poisson 200).plan("greedy").execute(dtype=float64)``, its
    panels bit-identical to phase 3's; ``.optimize(max_front=64)`` on
@@ -58,7 +63,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
 TOL_LARGE = {torch.float32: 1e-4, torch.float64: 1e-11}  # panel + SYRK route
-PEAK_BF16_TENSOR = 989e12  # dense bf16 tensor cores: the later redesign's bound
+PEAK_BF16_TENSOR = 989e12  # dense bf16 tensor cores
+PEAK_TF32_TENSOR = 495e12  # dense TF32 tensor cores
 
 
 def nvidia_smi() -> str:
@@ -132,6 +138,55 @@ def kernel_row(rows: dict, name: str, dtype, shape: dict, err: float, ms: float,
         rec.setdefault("other_cases", []).append(row)
 
 
+def syrk_case(fc, gen, dtype, m: int, k: int, tile: int) -> tuple:
+    """``syrk_downdate`` (BLAS syrk, uplo='L', on the card) at (M, K): the
+    lower triangle against the plain version's full product and an f64
+    product, the strictly-upper part equal to C, two calls bit for bit;
+    returns (err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    size = torch.finfo(dtype).bits // 8
+    c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
+    a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
+    got = fc.syrk_downdate(c, a, tile)
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch.tril(got), torch.tril(fc.syrk_downdate_plain(c, a)))
+    _, rel64 = rel_err(torch.tril(got).double(),
+                       torch.tril(c.double() - a.double() @ a.double().T))
+    upper_is_c = torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    same = torch.equal(fc.syrk_downdate(c, a, tile), got)
+    ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile))
+    plain_ms = cuda_ms(lambda: fc.syrk_downdate_plain(c, a))
+    lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
+    # the function's least work: read C and A, write C; m(m+1)/2 entries of K products
+    bnd, by = bound((2.0 * m * m + m * k) * size, float(m) * (m + 1) * k, dtype)
+    print(f"syrk_downdate {str(dtype)[6:]} M={m} K={k} tile={tile}: lower max_abs_err {err:.3e} "
+          f"rel {rel:.3e} (vs f64 product {rel64:.3e}), upper == C {upper_is_c}, "
+          f"deterministic {same}  ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
+          f"bound_ms {bnd:.5f} ({by})", flush=True)
+    check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m}: rel err {rel}")
+    check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} vs f64: {rel64}")
+    check(upper_is_c, f"syrk_downdate {dtype} M={m}: strictly-upper part differs from C")
+    check(same, f"syrk_downdate {dtype} M={m}: two calls differ")
+    return err, ms, plain_ms, lib_ms, bnd, by
+
+
+def large_front_syrk_shapes(symb) -> list:
+    """(M, K) of every syrk_downdate the large-front route launches for
+    ``symb``'s fronts: per outer panel of a padded front above
+    VMEM_FRONT_MAX, M = trailing order, K = panel width."""
+    from repro_torch.kernels import ops
+
+    shapes = []
+    for sn in symb.supernodes:
+        mp, nbp = ops.padded_shape(len(sn.rows), len(sn.cols))
+        if mp <= ops.VMEM_FRONT_MAX:
+            continue
+        for k0 in range(0, nbp, ops.OUTER_PANEL):
+            pw = min(ops.OUTER_PANEL, nbp - k0)
+            if mp - k0 - pw > 0:
+                shapes.append((mp - k0 - pw, pw))
+    return shapes
+
+
 def phase_kernels(fc) -> dict:
     """Every kernel against its plain version on the card, f32 and f64;
     returns the per-kernel records (the main path's f64 shape first, the
@@ -194,45 +249,37 @@ def phase_kernels(fc) -> dict:
             kernel_row(rec, "panel_factor", dtype, dict(shape=[mp, nb]), err, ms, plain_ms,
                        lib_ms, bnd, by, dtype == torch.float64 and nb == 256)
         for m, k, tile in [(1024, 128, 256), (896, 256, 128)]:
-            c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
-            a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
-            got = fc.syrk_downdate(c, a, tile)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, fc.syrk_downdate_plain(c, a))
-            _, rel64 = rel_err(got.double(), c.double() - a.double() @ a.double().T)
-            ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile))
-            plain_ms = cuda_ms(lambda: fc.syrk_downdate_plain(c, a))
-            lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
-            bnd, by = bound((2.0 * m * m + m * k) * size, 2.0 * m * m * k, dtype)
-            print(f"syrk_downdate {str(dtype)[6:]} M={m} K={k} tile={tile}: max_abs_err {err:.3e} "
-                  f"rel {rel:.3e} (vs f64 product {rel64:.3e})  ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-                  f"library_ms {lib_ms:.4f}  bound_ms {bnd:.5f} ({by})", flush=True)
-            check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m}: rel err {rel}")
-            check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} vs f64: {rel64}")
-            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile), err, ms,
-                       plain_ms, lib_ms, bnd, by, dtype == torch.float64 and m == 1024)
+            row = syrk_case(fc, gen, dtype, m, k, tile)
+            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile), *row,
+                       dtype == torch.float64 and m == 1024)
     rec["front_factor"]["clusters"] = clusters
     return rec
 
 
 def phase_flash(fa) -> dict:
-    """The flash-attention kernel at qwen3-4b's attention widths and train_4k
-    length.  For each case the public function runs once with the counters
-    set to 0 (the path run), then against its plain version on the same
-    inputs, then timed.  Returns the f32 causal record."""
-    b, t, h, dh = 2, 4096, 32, 128
+    """The flash-attention kernels at qwen3-4b's attention widths and
+    train_4k length (and Dh=64, the other head dim of the repo's configs).
+    For each case the public function runs once with the counters set to 0
+    (the path run: its route counter must read 1), then against its plain
+    version on the same inputs, then timed.  Returns the f32 causal record."""
+    b, t, h = 2, 4096, 32
     gen = torch.Generator().manual_seed(1)
-    qkv32 = [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
+    qkv32 = {dh: [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
+             for dh in (128, 64)}
     rec, launches = {}, 0
-    for dtype, causal in [(torch.float32, True), (torch.bfloat16, True),
-                          (torch.float32, False)]:
-        q, k, v = (x.to(dtype) for x in qkv32)
+    for dtype, causal, dh in [(torch.float32, True, 128), (torch.bfloat16, True, 128),
+                              (torch.bfloat16, True, 64), (torch.float32, False, 128)]:
+        q, k, v = (x.to(dtype) for x in qkv32[dh])
+        route = fa.route(dtype, dh)
         fa.reset_counters()
         got = fa.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
         path_launches, path_plain = fa.LAUNCHES["flash_attention"], fa.PLAIN_RUNS["flash_attention"]
+        routes = dict(fa.ROUTE_LAUNCHES)
         check(path_launches > 0, f"flash {dtype} causal={causal}: kernel never launched")
         check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
+        check(routes == {r: int(r == route) for r in fa.ROUTES},
+              f"flash {dtype} Dh={dh}: routes {routes}, expected {route}")
         launches += path_launches
         want = fa.flash_attention_plain(q, k, v, causal)
         diff = (got.float() - want.float()).abs()
@@ -244,6 +291,7 @@ def phase_flash(fa) -> dict:
         rtol = 0.0 if dtype == torch.float32 else torch.finfo(torch.bfloat16).eps
         tol = 2e-5
         excess = float((diff - rtol * want.float().abs()).max())  # must stay <= tol
+        same = torch.equal(fa.flash_attention(q, k, v, causal), got)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, warm=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -252,24 +300,32 @@ def phase_flash(fa) -> dict:
         pairs = t * (t + 1) / 2 if causal else float(t * t)  # query-key pairs visited
         flops = 4.0 * b * h * dh * pairs
         nbytes = 4.0 * b * t * h * dh * (torch.finfo(dtype).bits // 8)
-        bnd, by = bound(nbytes, flops, torch.float32)  # the kernel's math is f32
-        bnd_tc = flops / PEAK_BF16_TENSOR * 1e3
-        print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh}: "
-              f"max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + {tol:.0e}: "
-              f"excess {excess:.3e}; not bit-equal {not_equal:.4f})  ms {ms:.4f}  "
-              f"plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}  bound_ms {bnd:.4f} ({by}, "
-              f"f32 rate)  bf16 tensor-core bound_ms {bnd_tc:.4f}  launches {path_launches}",
-              flush=True)
+        # the least time for the same work on the card: bf16 on its tensor
+        # cores; f32 the faster of the CUDA cores and three TF32 products
+        t_ops = (flops / PEAK_BF16_TENSOR if dtype == torch.bfloat16
+                 else min(flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_TENSOR))
+        t_bytes = nbytes / PEAK_BYTES
+        bnd, by = (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+        # the kernel's own design: bf16 runs PV twice (P split in two), f32 three TF32 passes
+        design_ms = (1.5 * flops / PEAK_BF16_TENSOR if dtype == torch.bfloat16
+                     else 3 * flops / PEAK_TF32_TENSOR) * 1e3
+        print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh} "
+              f"route {route}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
+              f"{tol:.0e}: excess {excess:.3e}; not bit-equal {not_equal:.4f}; deterministic "
+              f"{same})  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}  "
+              f"bound_ms {bnd:.4f} ({by})  design bound_ms {design_ms:.4f}  "
+              f"x_library {ms / lib_ms:.2f}  launches {path_launches}", flush=True)
         check(excess <= tol, f"flash {dtype} causal={causal}: err beyond {rtol}*|ref| {excess} > {tol}")
+        check(same, f"flash {dtype} Dh={dh} causal={causal}: two calls differ")
+        check(ms >= bnd, f"flash {dtype} Dh={dh}: {ms} ms under the bound {bnd} ms")
+        case = dict(dtype=str(dtype)[6:], causal=causal, shape=[b, t, h, dh], kernel=route,
+                    max_abs_err=err, rtol=rtol, atol=tol, not_bit_equal=not_equal, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                    design_bound_ms=design_ms, x_library=ms / lib_ms)
         if dtype == torch.float32 and causal:
-            rec = dict(shape=[b, t, h, dh], causal=True, dtype="float32", max_abs_err=err,
-                       not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                       bound_by=by, library_ms=lib_ms, bf16_tensor_core_bound_ms=bnd_tc)
+            rec = case
         else:
-            rec.setdefault("other_cases", []).append(dict(
-                dtype=str(dtype)[6:], causal=causal, max_abs_err=err, rtol=rtol, atol=tol,
-                not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bnd, bound_by=by, bf16_tensor_core_bound_ms=bnd_tc))
+            rec.setdefault("other_cases", []).append(case)
     rec["launches"] = launches
     return rec
 
@@ -475,7 +531,8 @@ def main() -> int:
     a = random_spd(2500, 8.0, np.random.default_rng(0))
     ap4 = permute_symmetric(a, min_degree(a))
     print(f"[4] min_degree ordering {time.perf_counter() - t0:.1f} s", flush=True)
-    fact4, report4, wall4, _ = drive("4 random_spd2500 f64", ap4, torch.float64, counters=fc)
+    fact4, report4, wall4, (symb4, _) = drive("4 random_spd2500 f64", ap4, torch.float64,
+                                               counters=fc)
     launches4, plain4 = dict(fc.LAUNCHES), dict(fc.PLAIN_RUNS)
     res4 = residual(fact4, ap4)
     launches = {k: launches3[k] + launches4[k] for k in launches3}
@@ -485,6 +542,20 @@ def main() -> int:
     check(launches4["panel_factor"] >= 3, "phase 4: panel_factor launched < 3 times")
     check(launches4["syrk_downdate"] >= 3, "phase 4: syrk_downdate launched < 3 times")
     check(all(v == 0 for v in plain4.values()), f"phase 4: plain versions ran: {plain4}")
+    shapes4 = large_front_syrk_shapes(symb4)
+    check(len(shapes4) == launches4["syrk_downdate"],
+          f"phase 4: {launches4['syrk_downdate']} syrk launches, {len(shapes4)} shapes")
+    # syrk_downdate alone at the (M, K) phase 4 launches (after the run: not counted)
+    gen4 = torch.Generator().manual_seed(4)
+    rec["syrk_downdate"]["phase4_cases"] = []
+    for m4, k4 in sorted(set(shapes4)):
+        err, ms, plain_ms, lib_ms, bnd, by = syrk_case(fc, gen4, torch.float64, m4, k4, 128)
+        print(f"    -> syrk_downdate float64 phase-4 shape M={m4} K={k4} "
+              f"({shapes4.count((m4, k4))} launches): {ms / lib_ms:.2f}x library", flush=True)
+        rec["syrk_downdate"]["phase4_cases"].append(dict(
+            dtype="float64", shape=[m4, k4], launches=shapes4.count((m4, k4)), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+            x_library=ms / lib_ms))
     # where phase 3's time goes: the same plan once more, under the profiler
     prof3 = profile_run("3 poisson200 f64", ap, symb, plan, torch.float64)
 

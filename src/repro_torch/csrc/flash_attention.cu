@@ -4,57 +4,88 @@
 // repro_torch/kernels/flash_attention.py.
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention.py:
-//   flash_fwd_kernel  <- flash_attention (:77) / _flash_body (:31)
+//   flash_wgmma_kernel, flash_tf32_kernel, flash_fwd_kernel
+//       <- flash_attention (:77) / _flash_body (:31)
 //
 // What it computes (as the TPU kernel does): for Q, K, V of shape
 // (B, T, H, Dh), K and V already repeated to the query head count,
 //   O = softmax(scale * Q K^T [causal: key <= query, else -1e30]) V,
-// scale = Dh^-0.5 applied to q in f32, every product and the running
-// (max, sum, accumulator) in f32, the final division by max(l, 1e-30), one
-// rounding to the input type (f32 or bf16) on the store.  No logsumexp, no
-// backward pass.
+// scale = Dh^-0.5, the running (max, sum, accumulator) in f32, the final
+// division by max(l, 1e-30), one rounding to the input type (f32 or bf16) on
+// the store.  No logsumexp, no backward pass.
 //
-// Design.  On the TPU the KV grid axis runs in order and carries the running
-// state in VMEM scratch between grid steps.  Blocks on Hopper run in no
-// order, so here one CTA owns one (batch*head, 64-row query tile) and loops
-// over the 64-key KV tiles itself:
-//   * the query tile (pre-scaled), one K tile, one V tile and the 64x64
-//     probability tile live in dynamic shared memory as f32, rows padded to
-//     Dh+1 / 65 floats so the column reads of the two products do not
-//     conflict (Dh=128: 113 KB, Dh=256: 209 KB, opted in with
-//     cudaFuncSetAttribute);
-//   * 256 threads as 16x16: thread (tx, ty) owns rows ty+16i (i<4), score
-//     columns tx+16j (j<4) and output columns tx+16c; a row's max and sum
-//     are reduced over the 16 lanes sharing ty by warp shuffles, and the
-//     row's m, l and accumulator stay in registers;
-//   * tensors are read through their (B, T, H, Dh) strides: no transposed
-//     copies; the output is written contiguous (B, T, H, Dh);
-//   * causal: KV tiles wholly in the future are not visited, and query tiles
-//     are scheduled longest first; keys past T (the ragged last tile, when
-//     64 does not divide T) get probability 0, query rows past T are not
-//     stored.
-// What bounds it on this card: operations.  At the main-path shape
-// (B=2, T=4096, H=32, Dh=128, causal) it does ~2.75e11 flops while moving
-// ~537 MB (f32: q, k, v read once, o written once), ~510 flops per byte,
-// far above the card's f32 ridge (67 TFLOP/s over 3.35 TB/s: 20);
-// with every product on the CUDA cores in f32 the bound is the f32 rate
-// (67 TFLOP/s).  This first version reads both operands of every FMA from
-// shared memory, so it runs well below that; tensor cores (wgmma on bf16,
-// TMA-fed KV tiles) are a later redesign.
+// On the TPU the KV grid axis runs in order and carries the running state in
+// VMEM scratch between grid steps.  Blocks on Hopper run in no order, so one
+// CTA owns one (batch*head, query tile) and loops over the KV tiles itself.
+// Causal: the tensor-core kernels schedule query tiles longest first across
+// every (batch, head) (the grid's fast axis is batch*head, its slow axis
+// runs from the last query tile; the CUDA-core kernel, within each head), KV
+// tiles wholly in the future are not visited, and the mask is applied only
+// on tiles that cross the diagonal or the end of T.
+// Keys past T get probability exactly 0 (-inf), query rows past T are not
+// stored.  The output is written contiguous (B, T, H, Dh).  The tensor-core
+// kernels take the exponent in base 2: p = 2^(s c - m) with c carrying
+// log2(e), by one FMA and one ex2.
+//
+// What bounds it on this card: operations.  At the main-path shape (B=2,
+// T=4096, H=32, Dh=128, causal) the function does ~2.75e11 flops while
+// moving ~268 MB in bf16 (~537 MB in f32), far above the ridge of every
+// unit.  So every product goes to the tensor cores, in three routes chosen
+// by the wrapper from (dtype, Dh):
+//
+// * flash_wgmma_kernel (bf16, Dh 64 or 128).  One CTA per 128-row query
+//   tile: a producer warpgroup (one thread issues TMA, registers given back
+//   by setmaxnreg) and two consumer warpgroups of 64 query rows each.  TMA
+//   loads Q once and 128-key K and V tiles through a ring of two stages
+//   (mbarriers: full per operand, empty per stage); the tensor is 4-D
+//   (Dh, H, T, B) with its own strides, one box is 64 Dh-columns (128 B) x
+//   128 rows, 128-byte swizzled.  S = Q K^T is wgmma m64n128k16 with both
+//   operands in shared memory (K-major), scaled in f32 afterwards (in the
+//   exponent's FMA; q scale is not representable in bf16).  The
+//   reference keeps P in f32; one rounding of P to bf16 would cost about
+//   2^-9 |v| sqrt(sum p^2) / l, which does not shrink with |O|.  So P is
+//   split in registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and PV
+//   is two register-A wgmmas (m64n{Dh}k16) against the same V tile
+//   (MN-major, no transpose), leaving an error of at most 2^-17 of
+//   sum p |v| / l.
+// * flash_tf32_kernel (f32, Dh 64 or 128).  TF32 alone misses the f32
+//   tolerance, so both products use the 3xTF32 split a = a_big + a_small
+//   (cvt.rna.tf32 each), a b ~ a_big b_big + a_big b_small + a_small b_big,
+//   on mma.sync m16n8k8 (8 warps, each 16 query rows), the three products
+//   of a group of independent output blocks issued pass by pass.  Q (scaled
+//   in f32, as the reference does) and 64-key K and V tiles come through a
+//   cp.async double buffer and are split as their fragments are read; S and
+//   P stay in registers.  P's accumulator layout feeds the A operand
+//   directly by permuting the keys of each 8-key step (A column t <-> key
+//   2t, t+4 <-> 2t+1; V's rows are read in the same order).
+// * flash_fwd_kernel (the first kernel, any other Dh: 8 to 256 in steps of
+//   8): f32 math on the CUDA cores, operands from shared memory.
+//
+// No atomics and a fixed summation order: two calls give the same bits.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int BQ = 64;    // query rows per CTA
-constexpr int BKV = 64;   // keys per KV tile
-constexpr int NT = 256;   // threads per CTA (16 x 16)
-constexpr int PLD = BKV + 1;  // padded row stride of the probability tile
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
 
 struct Strides {
   long long b, t, h, d;
 };
+
+// ----------------------------------------------------------------------
+// flash_fwd_kernel (route simt): one CTA per (batch*head, 64-row query
+// tile), 64-key KV tiles, Q/K/V/P tiles in f32 shared memory (rows padded
+// to Dh+1 / 65 floats), 256 threads as 16x16 each owning 4x4 scores and
+// 4 x Dh/16 outputs; any strides, Dh 8..256.
+// ----------------------------------------------------------------------
+constexpr int BQ = 64;    // query rows per CTA
+constexpr int BKV = 64;   // keys per KV tile
+constexpr int NT = 256;   // threads per CTA (16 x 16)
+constexpr int PLD = BKV + 1;  // padded row stride of the probability tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -249,12 +280,663 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                              scale, sq, sk, sv, stream);
 }
 
+
+// ----------------------------------------------------------------------
+// Tensor-core routes: shared pieces
+// ----------------------------------------------------------------------
+constexpr int TQ = 128;  // query rows per CTA (both tensor-core routes)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Online softmax over one key tile for the two rows a thread holds in a
+// 16-row MMA accumulator: s[4j + e] is row row[e >> 1], key
+// kv0 + 8j + c2 + (e & 1).  Masks (only when `mask`), folds the tile into
+// the running max m and sum l, leaves p in s and returns in corr the factor
+// that rescales the rows' accumulators.  The four lanes that share a row
+// reduce by shuffles.
+//   EXP2 false: p = exp(s scale - m), s scaled first (the reference's order).
+//   EXP2 true:  p = 2^(s scale - m) by one FMA and one ex2, where scale
+//               carries log2(e) and m is in the same base-2 units; the max is
+//               taken over the unscaled s (scale > 0, rounding is monotone:
+//               the same max).
+template <int NJ, bool EXP2>
+__device__ __forceinline__ void softmax_tile(float (&s)[4 * NJ], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int kv0, int c2,
+                                             const int (&row)[2], int seq, int causal,
+                                             bool mask, float scale) {
+  const float neg_inf_f32 = __int_as_float(0xff800000);
+  float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = EXP2 ? s[4 * j + e] : s[4 * j + e] * scale;
+      if (mask) {
+        const int key = kv0 + 8 * j + c2 + (e & 1);
+        if (key >= seq)
+          x = neg_inf_f32;  // past the end: probability exactly 0
+        else if (causal && key > row[e >> 1])
+          x = NEG_INF;
+      }
+      s[4 * j + e] = x;
+      mt[e >> 1] = fmaxf(mt[e >> 1], x);
+    }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float mn = fmaxf(m[r], EXP2 ? mt[r] * scale : mt[r]);
+    corr[r] = EXP2 ? exp2f(m[r] - mn) : expf(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[4 * j + e], mr = m[e >> 1];
+      const float p = EXP2 ? exp2f(fmaf(x, scale, -mr)) : expf(x - mr);
+      s[4 * j + e] = p;
+      ps[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+    ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+    l[r] = l[r] * corr[r] + ps[r];
+  }
+}
+
+// ----------------------------------------------------------------------
+// bf16: warpgroup MMA fed by TMA
+// ----------------------------------------------------------------------
+constexpr int WK = 128;                // keys per KV tile
+constexpr int WSTAGES = 2;             // K/V ring stages
+constexpr int WBOX = TQ * 128;         // bytes of one box: 128 rows x 64 bf16
+constexpr int WTHREADS = 384;          // producer warpgroup + 2 consumer warpgroups
+
+template <int DH>
+__host__ __device__ constexpr int wg_tile_bytes() { return (DH / 64) * WBOX; }
+// Q, the K and V stages, the mbarriers, and slack to align the base to 1 KB
+template <int DH>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  return (1 + 2 * WSTAGES) * wg_tile_bytes<DH>() + 1024 + 1024;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One TMA box of a 4-D map into shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address; leading offset `lbo` bytes (K-major: unused; MN-major: from one
+// 64-element swizzle atom to the next along M/N, here from box to box);
+// stride 1024 B between groups of 8 rows of 128 B (the swizzle atom TMA
+// writes).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous region.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) asm volatile("" : "+r"(r[i][u])::"memory");
+}
+
+// d += A B, A from registers (bf16 pairs), B from shared memory, MN-major (transposed), m64n128k16.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A B, A and B from shared memory (descriptors), m64n128k16, bf16 -> f32.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A B, A from registers (bf16 pairs), B from shared memory, MN-major (transposed), m64n64k16.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// One CTA per (batch*head, 128-row query tile): warpgroup 0 produces (one
+// thread issues every TMA load), warpgroups 1 and 2 each own 64 query rows.
+template <int DH>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                       int heads, int seq, int causal, float scale) {
+  constexpr int NB = DH / 64;  // 64-column boxes per tile
+  constexpr int TILE = wg_tile_bytes<DH>();
+  extern __shared__ __align__(1024) uint8_t wsmem[];
+  uint8_t* base = wsmem + ((1024 - (smem_u32(wsmem) & 1023)) & 1023);
+  uint8_t* Qs = base;
+  uint8_t* Ks = Qs + TILE;
+  uint8_t* Vs = Ks + WSTAGES * TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WSTAGES * TILE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + WSTAGES;
+  uint64_t* empty = v_full + WSTAGES;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;  // longest rows first
+  const int kv_end = causal ? min(seq, q0 + TQ) : seq;
+  const int ntiles = (kv_end + WK - 1) / WK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < WSTAGES; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(empty + st, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) tma_load_4d(Qs + c * WBOX, &tq, q_full, 64 * c, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % WSTAGES;
+        if (it >= WSTAGES) mbar_wait(empty + st, ((it / WSTAGES) - 1) & 1);
+        mbar_expect_tx(k_full + st, TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(Ks + st * TILE + c * WBOX, &tk, k_full + st, 64 * c, h, it * WK, b);
+        mbar_expect_tx(v_full + st, TILE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(Vs + st * TILE + c * WBOX, &tv, v_full + st, 64 * c, h, it * WK, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int c2 = 2 * (lane & 3);
+    const int rbase = q0 + 64 * cw;  // the warpgroup's first query row
+    const int row[2] = {rbase + 16 * warp + (lane >> 2), rbase + 16 * warp + (lane >> 2) + 8};
+    const uint32_t qa = smem_u32(Qs) + 64 * cw * 128;  // the warpgroup's 64 rows of each box
+    const float scale_log2 = scale * 1.4426950408889634f;  // p = 2^(s scale log2(e) - m)
+
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % WSTAGES;
+      const uint32_t ph = (it / WSTAGES) & 1;
+      const int kv0 = it * WK;
+      const uint32_t kb = smem_u32(Ks + st * TILE);
+      const uint32_t vb = smem_u32(Vs + st * TILE);
+
+      // S = Q K^T: 64 x 128 per warpgroup, k16 steps along Dh
+      float s[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      mbar_wait(k_full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t off = (kk / 4) * WBOX + (kk % 4) * 32;
+        wgmma_ss_n128(s, sw128_desc(qa + off), sw128_desc(kb + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      const bool mask = kv0 + WK > seq || (causal && kv0 + WK - 1 > rbase);
+      float corr[2];
+      softmax_tile<16, true>(s, m, l, corr, kv0, c2, row, seq, causal, mask, scale_log2);
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        o[4 * i + 0] *= corr[0];
+        o[4 * i + 1] *= corr[0];
+        o[4 * i + 2] *= corr[1];
+        o[4 * i + 3] *= corr[1];
+      }
+      // P as register A operands, k16 step kk = keys 16kk + [0, 16):
+      // a[u] = (s[8kk + 2u], s[8kk + 2u + 1]), split into hi + lo.
+      uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float x = s[8 * kk + 2 * u], y = s[8 * kk + 2 * u + 1];
+          const __nv_bfloat162 hv = __floats2bfloat162_rn(x, y);
+          phi[kk][u] = *reinterpret_cast<const uint32_t*>(&hv);
+          plo[kk][u] = pack_bf16(x - __low2float(hv), y - __high2float(hv));
+        }
+
+      // O += P_hi V + P_lo V
+      mbar_wait(v_full + st, ph);
+      fence_regs(o);
+      wgmma_fence();
+      // k16 step kk: keys 16kk + [0, 16) of V, 2048 bytes on; Dh=128 spans
+      // both boxes in one product (leading offset: one box)
+      auto pv = [&](const uint32_t(&a)[4], int kk) {
+        if constexpr (NB == 2)
+          wgmma_rs_n128(o, a, sw128_desc(vb + kk * 2048, WBOX));
+        else
+          wgmma_rs_n64(o, a, sw128_desc(vb + kk * 2048));
+      };
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pv(phi[kk], kk);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pv(plo[kk], kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      fence_regs(phi);
+      fence_regs(plo);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= seq) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = out + (((size_t)b * seq + row[r]) * heads + h) * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        const __nv_bfloat162 v2 =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] / den, o[4 * i + 2 * r + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + c2) = v2;
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// f32: 3xTF32 on mma.sync
+// ----------------------------------------------------------------------
+constexpr int FK = 64;         // keys per KV tile
+constexpr int FTHREADS = 256;  // 8 warps x 16 query rows
+
+template <int DH>
+constexpr int tf32_smem_bytes() {  // Q tile and two K/V stages, rows padded by 4 floats
+  return (TQ + 4 * FK) * (DH + 4) * (int)sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = big + small, each rounded to TF32 (small carries the next 11 bits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d += a b on the tensor cores, one 16x8x8 TF32 product per warp (g =
+// lane/4, t = lane%4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d[4n, 4n + 4) += a b_n for G column blocks n, b_n's fragment read at
+// (p0[n step], p1[n step]), in about f32 accuracy: the three TF32 products
+// of the split, smallest first, issued pass by pass so that consecutive
+// products do not wait on each other.
+template <int G>
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const float* p0,
+                                           const float* p1, int step) {
+  uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+  for (int n = 0; n < G; ++n) {
+    split_tf32(p0[n * step], bb[n][0], bs[n][0]);
+    split_tf32(p1[n * step], bb[n][1], bs[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < G; ++n) mma_tf32(d + 4 * n, as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < G; ++n) mma_tf32(d + 4 * n, ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < G; ++n) mma_tf32(d + 4 * n, ab, bb[n][0], bb[n][1]);
+}
+
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// rows [r0, r0 + rows) of one (batch, head)'s (T, Dh) slice into a tile of
+// row stride DH + 4; rows past T are zero.  16-byte copies: the wrapper
+// hands this route only tensors whose rows are 16-byte aligned.
+template <int DH>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src, long long st,
+                                                int r0, int rows, int seq) {
+  constexpr int CH = DH / 4;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CH; e += FTHREADS) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const int t = r0 + r;
+    const bool valid = t < seq;
+    cp_async16_zfill(dst + r * (DH + 4) + c, src + (valid ? (long long)t * st : 0) + c, valid);
+  }
+}
+
+// One CTA per (batch*head, 128-row query tile), 8 warps of 16 query rows;
+// 64-key K and V tiles through a cp.async double buffer.
+template <int DH>
+__global__ void __launch_bounds__(FTHREADS, 1)
+    flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, int heads, int seq,
+                      int causal, float scale, Strides sq, Strides sk, Strides sv) {
+  constexpr int LD = DH + 4;
+  extern __shared__ __align__(16) float tsmem[];
+  float* Qs = tsmem;           // TQ x LD
+  float* Kb = Qs + TQ * LD;    // 2 stages of FK x LD
+  float* Vb = Kb + 2 * FK * LD;
+
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;  // longest rows first
+  const int kv_end = causal ? min(seq, q0 + TQ) : seq;
+  const int ntiles = (kv_end + FK - 1) / FK;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = q0 + 16 * warp;  // the warp's first query row
+  const int row[2] = {wrow + g, wrow + g + 8};
+
+  load_rows_async<DH>(Qs, qb, sq.t, q0, TQ, seq);
+  load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq);
+  load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {  // the next tile into the other stage
+      const int nx = (it + 1) & 1;
+      load_rows_async<DH>(Kb + nx * FK * LD, kb, sk.t, (it + 1) * FK, FK, seq);
+      load_rows_async<DH>(Vb + nx * FK * LD, vb, sv.t, (it + 1) * FK, FK, seq);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    if (it == 0) {  // q * scale in f32, once, as the reference scales q
+      for (int e = threadIdx.x; e < TQ * DH; e += FTHREADS) Qs[(e / DH) * LD + e % DH] *= scale;
+      __syncthreads();
+    }
+    const int kv0 = it * FK;
+    // a tile wholly in this warp's future changes nothing (p = 0, corr = 1)
+    if (!(causal && kv0 > wrow + 15)) {
+      const float* Ks = Kb + (it & 1) * FK * LD;
+      const float* Vs = Vb + (it & 1) * FK * LD;
+      // S = (scale Q) K^T: 16 x 64 per warp
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        const float* qa = Qs + (16 * warp + g) * LD + 8 * ks + t4;
+        uint32_t ab[4], as[4];
+        split_tf32(qa[0], ab[0], as[0]);
+        split_tf32(qa[8 * LD], ab[1], as[1]);
+        split_tf32(qa[4], ab[2], as[2]);
+        split_tf32(qa[8 * LD + 4], ab[3], as[3]);
+        const float* kp = Ks + g * LD + 8 * ks + t4;  // key 8j + g at kp + 8j LD
+        mma_3xtf32<FK / 8>(s, ab, as, kp, kp + 4, 8 * LD);
+      }
+      const bool mask = kv0 + FK > seq || (causal && kv0 + FK - 1 > wrow);
+      float corr[2];
+      softmax_tile<FK / 8, true>(s, m, l, corr, kv0, 2 * t4, row, seq, causal, mask,
+                                 1.4426950408889634f);  // p = 2^(s log2(e) - m)
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        o[4 * i + 0] *= corr[0];
+        o[4 * i + 1] *= corr[0];
+        o[4 * i + 2] *= corr[1];
+        o[4 * i + 3] *= corr[1];
+      }
+      // O += P V, 8 keys per step; A column t holds key 2t, column t+4 key
+      // 2t+1 (the accumulator's own layout), so B row t reads V row 2t.
+#pragma unroll
+      for (int kk = 0; kk < FK / 8; ++kk) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[4 * kk + 0], ab[0], as[0]);
+        split_tf32(s[4 * kk + 2], ab[1], as[1]);
+        split_tf32(s[4 * kk + 1], ab[2], as[2]);
+        split_tf32(s[4 * kk + 3], ab[3], as[3]);
+        const float* vp = Vs + (8 * kk + 2 * t4) * LD + g;  // column 8n + g at vp + 8n
+#pragma unroll
+        for (int n0 = 0; n0 < DH / 8; n0 += 8)
+          mma_3xtf32<8>(o + 4 * n0, ab, as, vp + 8 * n0, vp + LD + 8 * n0, 8);
+      }
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= seq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* orow = out + (((size_t)b * seq + row[r]) * heads + h) * DH;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t4) =
+          make_float2(o[4 * n + 2 * r] / den, o[4 * n + 2 * r + 1] / den);
+  }
+}
+
+// ----------------------------------------------------------------------
+// Launches of the tensor-core routes
+// ----------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
+// -lcuda at build time).
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The 4-D map of a bf16 (B, T, H, Dh) tensor with strides s (elements; Dh's
+// is 1): dims innermost first (Dh, H, T, B), box (64, 1, 128, 1), 128-byte
+// swizzle, rows past T read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int dh,
+                     Strides s) {
+  EncodeTiled fn;
+  cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)TQ, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DH>
+int run_wgmma(const void* q, const void* k, const void* v, void* out, int batch, int seq,
+              int heads, int causal, float scale, Strides sq, Strides sk, Strides sv,
+              void* stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = make_map(&mq, q, batch, seq, heads, DH, sq)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mk, k, batch, seq, heads, DH, sk)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mv, v, batch, seq, heads, DH, sv)) != cudaSuccess) return (int)e;
+  constexpr int smem = wg_smem_bytes<DH>();
+  e = cudaFuncSetAttribute(flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
+  flash_wgmma_kernel<DH><<<grid, WTHREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), heads, seq, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int run_tf32(const void* q, const void* k, const void* v, void* out, int batch, int seq,
+             int heads, int causal, float scale, Strides sq, Strides sk, Strides sv,
+             void* stream) {
+  constexpr int smem = tf32_smem_bytes<DH>();
+  cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
+  flash_tf32_kernel<DH><<<grid, FTHREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), heads, seq, causal, scale, sq, sk, sv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each entry point launches on `stream` and returns cudaGetLastError().
-// Strides are in elements, in (B, T, H, Dh) order, for q, k and v.
+// Each entry point launches on `stream` and returns cudaGetLastError() (or
+// the error that refused the launch).  Strides are in elements, in (B, T,
+// H, Dh) order, for q, k and v; the output is contiguous (B, T, H, Dh).
+//
+// The CUDA-core kernel: f32 or bf16, 8 <= Dh <= 256 in steps of 8, any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int seq, int heads, int dh,
                         int causal, float scale, long long qb, long long qt,
@@ -277,6 +959,35 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
       q, k, v, out, batch, seq, heads, dh, causal, scale,
       Strides{qb, qt, qh, qd}, Strides{kb, kt, kh, kd},
       Strides{vb, vt, vh, vd}, stream);
+}
+// Tensor-core routes: Dh 64 or 128 (anything else: cudaErrorInvalidValue);
+// the innermost stride 1, the others multiples of 16 bytes, pointers
+// 16-byte aligned (TMA's and cp.async's rule; the wrapper checks it).
+int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int batch,
+                               int seq, int heads, int dh, int causal, float scale, long long qb,
+                               long long qt, long long qh, long long qd, long long kb,
+                               long long kt, long long kh, long long kd, long long vb,
+                               long long vt, long long vh, long long vd, void* stream) {
+  const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
+  if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
+  if (dh == 64)
+    return run_wgmma<64>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
+  if (dh == 128)
+    return run_wgmma<128>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
+  return (int)cudaErrorInvalidValue;
+}
+int flash_attention_3xtf32_f32(const void* q, const void* k, const void* v, void* out, int batch,
+                               int seq, int heads, int dh, int causal, float scale, long long qb,
+                               long long qt, long long qh, long long qd, long long kb,
+                               long long kt, long long kh, long long kd, long long vb,
+                               long long vt, long long vh, long long vd, void* stream) {
+  const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
+  if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
+  if (dh == 64)
+    return run_tf32<64>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
+  if (dh == 128)
+    return run_tf32<128>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

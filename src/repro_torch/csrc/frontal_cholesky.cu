@@ -51,8 +51,11 @@
 // 132 SMs busy per front; then the row solves of (B).  No atomics and a fixed summation order everywhere: results are
 // deterministic and batch-invariant.
 //
-// syrk_kernel keeps its first design: one CTA per 64x64 tile of C, 4x4
-// f32/f64 FMA accumulators per thread; it runs level with torch.addmm.
+// syrk_kernel is BLAS syrk with uplo='L' (the host reads tril only): one
+// CTA per 64x64 tile on or below the diagonal, the same (C) machinery
+// (lower_downdate: cp.async ring, DMMA in f64, FFMA in f32; TF32 would miss
+// the reference's tolerance); strictly-upper tiles hold C, copied through.
+// Half the flops of the full product, the same bytes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -67,9 +70,7 @@ constexpr int TB = 128;      // pivot block width (TILE on the Python side)
 constexpr int SB = 32;       // sub-block width inside a pivot block
 constexpr int NT = 256;      // threads per CTA
 constexpr int GT = 64;       // output tile edge of the GEMM downdates
-constexpr int KC = 32;       // K chunk of the SYRK kernel
 constexpr int DLD = TB + 1;  // padded row stride of the diagonal block
-constexpr int GLD = KC + 1;  // padded row stride of a SYRK operand tile
 constexpr int MAX_CLUSTER = 16;  // the H100 holds clusters of 16 (non-portable)
 
 // 1/sqrt(x): one hardware estimate and its refinement (within an ulp or
@@ -86,9 +87,11 @@ __device__ __forceinline__ double dev_rsqrt<double>(double x) { return rsqrt(x);
 template <typename T>
 __device__ __forceinline__ T ldcg(const T* p) { return __ldcg(p); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// 16 bytes from gmem into smem, or 16 zero bytes when !in (nothing read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in = true) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(in ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -119,7 +122,6 @@ __device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a, dou
 constexpr int CK = 64;                 // K chunk of a stage
 constexpr int CLD = CK + 4;            // row stride of a stage's operand tile (16-B rows)
 constexpr int NS = 3;                  // ring stages
-constexpr int NCH = TB / CK;           // K chunks per tile
 constexpr int STAGE = 2 * GT * CLD;    // elements per stage (both operands)
 
 // d += a * b on the FP64 tensor cores, one 16x8x8 product per warp (g =
@@ -141,118 +143,171 @@ __device__ __forceinline__ void lower_tile(int t, int nc, int& ti, int& tj) {
   tj = t;
 }
 
-template <typename T>
-__device__ void trailing_downdate(T* a, int lda, int off, int t0, int nr, int nc, int rank,
-                                  int cs, T* smem) {
+// C - A A^T over the lower 64x64 tiles of an output of nr x nc tiles: tile
+// (ti, tj), ti >= tj, of out gets cin's tile less the product of rows
+// 64 ti + [0, 64) and 64 tj + [0, 64) of the operand op (row stride lda,
+// K columns; out and cin row stride ldc).  On a diagonal tile only entries
+// on or below the diagonal are downdated; those above it are left alone
+// (out == cin) or copied from cin.  The CTA's tiles are t = rank + u * cs in
+// row-major order over the lower triangle; its (tile, K chunk) pairs form
+// one stream through a ring of NS shared-memory stages of CKT-wide K
+// chunks, filled by cp.async NS-1 chunks ahead, across tile boundaries.  A
+// thread reads its 16 entries of cin when a tile's first chunk is in hand,
+// so that load is under the tile's products.  `prologue()` runs once the
+// first chunks are on their way.  K is a multiple of 16 bytes' worth of
+// elements; a last partial chunk is zero-filled.
+template <typename T, int CKT = CK, typename Prologue>
+__device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out, int ldc,
+                               int nr, int nc, int rank, int cs, T* smem, Prologue prologue) {
+  constexpr int LDT = CKT + 4;       // row stride of a stage's operand tile
+  constexpr int STG = 2 * GT * LDT;  // elements per stage
   int nlow = 0;
   for (int ti = 0; ti < nr; ++ti) nlow += min(ti + 1, nc);
+  const int nch = (K + CKT - 1) / CKT;                      // K chunks per tile
   const int mine = rank < nlow ? (nlow - rank + cs - 1) / cs : 0;  // tiles t = rank + u*cs
-  const int nq = mine * NCH;
+  const int nq = mine * nch;
   const int tid = threadIdx.x;
+  const bool copy = out != cin;
 
   auto fetch = [&](int q) {  // chunk q of the stream into stage q % NS
     if (q < nq) {
       int ti, tj;
-      lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
-      const T* ar = a + (size_t)(t0 + GT * ti) * lda + off + (q % NCH) * CK;
-      const T* ac = a + (size_t)(t0 + GT * tj) * lda + off + (q % NCH) * CK;
-      T* As = smem + (q % NS) * STAGE;
-      T* Bs = As + GT * CLD;
+      lower_tile(rank + (q / nch) * cs, nc, ti, tj);
+      const int k0 = (q % nch) * CKT;
+      const T* ar = op + (size_t)(GT * ti) * lda + k0;
+      const T* ac = op + (size_t)(GT * tj) * lda + k0;
+      T* As = smem + (q % NS) * STG;
+      T* Bs = As + GT * LDT;
       constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
-      constexpr int PER_ROW = CK / V;
+      constexpr int PER_ROW = CKT / V;
       for (int e = tid; e < GT * PER_ROW; e += NT) {
         const int i = e / PER_ROW, kk = (e % PER_ROW) * V;
-        cp_async16(As + i * CLD + kk, ar + (size_t)i * lda + kk);
-        cp_async16(Bs + i * CLD + kk, ac + (size_t)i * lda + kk);
+        const bool in = k0 + kk < K;
+        cp_async16(As + i * LDT + kk, ar + (size_t)i * lda + (in ? kk : 0), in);
+        cp_async16(Bs + i * LDT + kk, ac + (size_t)i * lda + (in ? kk : 0), in);
       }
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
+  // entry u of the thread's 16 in tile (ti, tj): rc(u) gives (r, c); a
+  // diagonal tile's entries above the diagonal are kept (or copied) from cin
+  auto offset = [&](int ti, int tj, int r, int c) {
+    return (size_t)(GT * ti + r) * ldc + GT * tj + c;
+  };
+  auto load_tile = [&](int ti, int tj, auto rc, T (&cv)[16]) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      int r, c;
+      rc(u, r, c);
+      cv[u] = (ti != tj || r >= c || copy) ? ldcg(cin + offset(ti, tj, r, c)) : T(0);
+    }
+  };
+  auto write_tile = [&](int ti, int tj, auto rc, const T (&cv)[16], T (&acc)[16]) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      int r, c;
+      rc(u, r, c);
+      if (ti != tj || r >= c)
+        out[offset(ti, tj, r, c)] = cv[u] - acc[u];
+      else if (copy)
+        out[offset(ti, tj, r, c)] = cv[u];
+      acc[u] = T(0);
+    }
+  };
 
   for (int q = 0; q < NS - 1; ++q) fetch(q);
+  prologue();
+  T acc[16] = {};
+  T cv[16];
+  int ti = 0, tj = 0;
   if constexpr (std::is_same<T, double>::value) {
     // 8 warps: warp w owns rows 16*(w/2) + [0, 16), cols 32*(w%2) + [0, 32):
-    // four 16x8 DMMA tiles.
+    // four 16x8 DMMA tiles, acc[4j + h] = D_j[g + 8(h/2)][2 t4 + (h%2)].
     const int lane = tid & 31, warp = tid >> 5;
     const int wr = 16 * (warp >> 1), wc = 32 * (warp & 1);
     const int g = lane >> 2, t4 = lane & 3;
-    double acc[4][4] = {};
+    auto rc = [&](int u, int& r, int& c) {
+      r = wr + g + 8 * ((u & 3) >> 1);
+      c = wc + 8 * (u >> 2) + 2 * t4 + (u & 1);
+    };
     for (int q = 0; q < nq; ++q) {
       fetch(q + NS - 1);
       cp_async_wait<NS - 1>();
       __syncthreads();
-      const double* As = smem + (q % NS) * STAGE;
-      const double* Bs = As + GT * CLD;
+      if (q % nch == 0) {  // a new tile: its cin entries, under the products
+        lower_tile(rank + (q / nch) * cs, nc, ti, tj);
+        load_tile(ti, tj, rc, cv);
+      }
+      const double* As = smem + (q % NS) * STG;
+      const double* Bs = As + GT * LDT;
 #pragma unroll
-      for (int k = 0; k < CK; k += 8) {
-        const double* ap = As + (wr + g) * CLD + k + t4;
-        const double av[4] = {ap[0], ap[8 * CLD], ap[4], ap[8 * CLD + 4]};
+      for (int k = 0; k < CKT; k += 8) {
+        const double* ap = As + (wr + g) * LDT + k + t4;
+        const double av[4] = {ap[0], ap[8 * LDT], ap[4], ap[8 * LDT + 4]};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const double* bp = Bs + (wc + 8 * j + g) * CLD + k + t4;
-          dmma_16x8x8(acc[j], av, bp[0], bp[4]);
+          const double* bp = Bs + (wc + 8 * j + g) * LDT + k + t4;
+          dmma_16x8x8(*reinterpret_cast<double(*)[4]>(acc + 4 * j), av, bp[0], bp[4]);
         }
       }
-      if (q % NCH == NCH - 1) {  // the tile's last chunk: write it out
-        int ti, tj;
-        lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
-        T* out = a + (size_t)(t0 + GT * ti) * lda + t0 + GT * tj;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            const int r = wr + g + 8 * (h >> 1), c = wc + 8 * j + 2 * t4 + (h & 1);
-            if (ti != tj || r >= c) {
-              T* o = out + (size_t)r * lda + c;
-              *o = ldcg(o) - acc[j][h];
-            }
-            acc[j][h] = 0.0;
-          }
-      }
+      if (q % nch == nch - 1) write_tile(ti, tj, rc, cv, acc);  // the tile's last chunk
       __syncthreads();  // stage q % NS is refilled next
     }
   } else {
-    // f32: 16x16 threads, each a 4x4 FFMA tile (rows ty + 16i, cols tx + 16j).
+    // f32: 16x16 threads, each a 4x4 FFMA tile (rows ty + 16i, cols tx + 16j),
+    // acc[4i + j].
     const int tx = tid & 15, ty = tid >> 4;
-    float acc[4][4] = {};
+    auto rc = [&](int u, int& r, int& c) {
+      r = ty + 16 * (u >> 2);
+      c = tx + 16 * (u & 3);
+    };
     for (int q = 0; q < nq; ++q) {
       fetch(q + NS - 1);
       cp_async_wait<NS - 1>();
       __syncthreads();
-      const float* As = smem + (q % NS) * STAGE;
-      const float* Bs = As + GT * CLD;
-#pragma unroll 8
-      for (int kk = 0; kk < CK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[(ty + 16 * i) * CLD + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * CLD + kk];
+      if (q % nch == 0) {
+        lower_tile(rank + (q / nch) * cs, nc, ti, tj);
+        load_tile(ti, tj, rc, cv);
+      }
+      const float* As = smem + (q % NS) * STG;
+      const float* Bs = As + GT * LDT;
+      // four k at a time by 16-byte reads (a quarter warp's eight rows
+      // then fall on distinct banks), summed in k order
+#pragma unroll 2
+      for (int kk = 0; kk < CKT; kk += 4) {
+        float4 av[4], bv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * LDT + kk);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * LDT + kk);
+        const float* a4 = reinterpret_cast<const float*>(av);
+        const float* b4 = reinterpret_cast<const float*>(bv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[4 * i + j] = fmaf(a4[4 * i + u], b4[4 * j + u], acc[4 * i + j]);
       }
-      if (q % NCH == NCH - 1) {
-        int ti, tj;
-        lower_tile(rank + (q / NCH) * cs, nc, ti, tj);
-        T* out = a + (size_t)(t0 + GT * ti) * lda + t0 + GT * tj;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = ty + 16 * i, c = tx + 16 * j;
-            if (ti != tj || r >= c) {
-              T* o = out + (size_t)r * lda + c;
-              *o = ldcg(o) - acc[i][j];
-            }
-            acc[i][j] = 0.0f;
-          }
-      }
+      if (q % nch == nch - 1) write_tile(ti, tj, rc, cv, acc);
       __syncthreads();
     }
   }
   cp_async_wait<0>();
+}
+
+// (C) the trailing downdate of factor_slab, in place: out[i, j] -= sum_k
+// ar[i, k] ac[j, k] over K = TB (the block's columns from off) for the
+// lower 64x64 tiles of the trailing block from row and column t0.
+template <typename T>
+__device__ void trailing_downdate(T* a, int lda, int off, int t0, int nr, int nc, int rank,
+                                  int cs, T* smem) {
+  T* c = a + (size_t)t0 * lda + t0;
+  lower_downdate<T>(a + (size_t)t0 * lda + off, lda, TB, c, c, lda, nr, nc, rank, cs, smem,
+                    [] {});
 }
 
 // ----------------------------------------------------------------------
@@ -506,52 +561,6 @@ __device__ void factor_slab(T* a, int mp, int ncols, int nfac, T* smem) {
   }
 }
 
-// syrk_kernel's tile: out[i, j] = cin[i, j] - sum_k ar[i, k] * ac[j, k] over
-// one GT x GT tile (row strides lda for the operands, ldc for cin / out).
-// Called by all NT threads; uses 2*GT*GLD elements of smem.
-template <typename T>
-__device__ void syrk_tile(const T* ar, const T* ac, int lda, int K, const T* cin, T* out,
-                          int ldc, T* smem) {
-  T* As = smem;
-  T* Bs = smem + GT * GLD;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  T acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int e = threadIdx.x; e < GT * KC; e += NT) {
-      const int i = e / KC, kk = e % KC;
-      As[i * GLD + kk] = ar[(size_t)i * lda + k0 + kk];
-      Bs[i * GLD + kk] = ac[(size_t)i * lda + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      T av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[(ty + 16 * i) * GLD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * GLD + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t o = (size_t)(ty + 16 * i) * ldc + tx + 16 * j;
-      out[o] = cin[o] - acc[i][j];
-    }
-}
-
 // ----------------------------------------------------------------------
 // Kernels and launches
 // ----------------------------------------------------------------------
@@ -572,14 +581,45 @@ __global__ void __launch_bounds__(NT) panel_factor_kernel(T* a, int mp, int nb) 
   factor_slab<T>(a, mp, nb, nb, smem);
 }
 
+// syrk's K chunk: 32 in f64 (110.6 KB of stages), 64 in f32 (104.4 KB), so
+// that two CTAs fit on an SM.
+template <typename T>
+__host__ __device__ constexpr int syrk_chunk() { return std::is_same<T, double>::value ? 32 : 64; }
+template <typename T>
+constexpr size_t syrk_smem_bytes() { return (size_t)NS * 2 * GT * (syrk_chunk<T>() + 4) * sizeof(T); }
+
+// BLAS syrk, lower: one CTA per 64x64 tile on or below the diagonal of the
+// (m x m) output (tile t in row-major order over the lower triangle).  It
+// copies the mirror tile above the diagonal from c unchanged, then
+// downdates its own tile, c - a a^T, on the tensor cores in f64.
 template <typename T>
 __global__ void __launch_bounds__(NT)
     syrk_kernel(const T* c, const T* a, T* out, int m, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const int r0 = blockIdx.y * GT, c0 = blockIdx.x * GT;
-  const size_t o = (size_t)r0 * m + c0;
-  syrk_tile<T>(a + (size_t)r0 * k, a + (size_t)c0 * k, k, k, c + o, out + o, m, smem);
+  const int n = m / GT;
+  int ti, tj;
+  lower_tile(blockIdx.x, n, ti, tj);
+  // the strictly-upper tile (tj, ti) mirroring this one: c, copied through
+  // while the first operand chunks are on their way
+  auto mirror = [&] {
+    if (ti == tj) return;
+    constexpr int V = 16 / sizeof(T), PER = GT * GT / V / NT;
+    const size_t o = (size_t)(GT * tj) * m + GT * ti;
+    uint4 x[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = threadIdx.x + u * NT;
+      x[u] = *reinterpret_cast<const uint4*>(c + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V);
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = threadIdx.x + u * NT;
+      *reinterpret_cast<uint4*>(out + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V) = x[u];
+    }
+  };
+  lower_downdate<T, syrk_chunk<T>()>(a, k, k, c, out, m, n, n, blockIdx.x, gridDim.x, smem,
+                                     mirror);
 }
 
 // Launch configuration of one cluster per slab: `slabs` clusters of
@@ -664,11 +704,31 @@ int front_room(int mp, int* cluster, int* clusters) {
   return (int)cluster_room<front_factor_kernel<T>>(mp, factor_smem_bytes<T>(), clusters);
 }
 
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem) and the
+// largest shared-memory carveout (so that two such CTAs share an SM), once
+// per device, not on every launch.
+template <auto kernel>
+cudaError_t smem_opt_in(size_t smem) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && done[dev].load()) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true);
+  return e;
+}
+
 template <typename T>
 int launch_syrk(const void* c, const void* a, void* out, int m, int k, void* stream) {
-  const size_t smem = (size_t)2 * GT * GLD * sizeof(T);
-  dim3 grid(m / GT, m / GT);
-  syrk_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  constexpr size_t smem = syrk_smem_bytes<T>();
+  cudaError_t e = smem_opt_in<syrk_kernel<T>>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n = m / GT;
+  syrk_kernel<T><<<n * (n + 1) / 2, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(c), static_cast<const T*>(a), static_cast<T*>(out), m, k);
   return (int)cudaGetLastError();
 }

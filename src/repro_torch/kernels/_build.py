@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernel library.
 
-Every ``repro_torch/csrc/*.cu`` source is compiled by **one** ``nvcc`` call
-for ``sm_90a`` into a shared library with a plain C interface, at first
-use, into ``build/repro_torch/<hash>/`` at the repository root (the hash
-covers every source's bytes and the flags), and loaded with ``ctypes``.
+Every ``repro_torch/csrc/*.cu`` source is compiled for ``sm_90a`` by its
+own ``nvcc`` call, all started together, and the objects are linked into
+one shared library with a plain C interface, at first use, into
+``build/repro_torch/<hash>/`` at the repository root (the hash covers every
+source's bytes and the flags), and loaded with ``ctypes``.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 """
@@ -22,10 +23,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "frontal_cholesky.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# flags of one call that builds a shared library from sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# the same flags for one source's object file
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 _VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -45,7 +49,7 @@ SIGNATURES = {
     # q, k, v, out, B, T, H, Dh, causal, scale, 4 strides each of q, k, v, stream
     **{
         f"flash_attention_{t}": [_VP] * 4 + [_CI] * 5 + [_CF] + [_CLL] * 12 + [_VP]
-        for t in ("f32", "bf16")
+        for t in ("f32", "bf16", "wgmma_bf16", "3xtf32_f32")
     },
 }
 
@@ -68,20 +72,34 @@ def library_path(sources: Sequence[Path] = SOURCES) -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / "librepro_torch_kernels.so"
 
 
+def _run(cmds: Sequence[Sequence[str]]) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_library() -> Path:
-    """Compile every CUDA source (one ``nvcc`` call) unless a library for
-    them exists already."""
+    """Compile every CUDA source (one ``nvcc`` each, all at once) and link
+    them, unless a library for them exists already."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    tag = os.getpid()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    _run([[_nvcc(), *COMPILE_FLAGS, "-o", str(obj), str(src)]
+          for src, obj in zip(SOURCES, objs)])
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
+    _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 
@@ -102,14 +120,32 @@ def load_library() -> ctypes.CDLL:
         return _LIB
 
 
+# the current stream as a cudaStream_t without building a Stream object
+# (which costs more host time than the rest of a launch); the public call
+# where torch lacks it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a ``cudaStream_t``."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; raise
     if it reports an error (a refused launch never runs, and a later
     synchronize would not say so)."""
-    lib = load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    lib = _LIB or load_library()
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = _raw_stream(index)
+    if index == current:
         rc = getattr(lib, entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")

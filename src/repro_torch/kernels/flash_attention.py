@@ -1,4 +1,4 @@
-"""Forward flash attention: the hand-written Hopper kernel, its plain
+"""Forward flash attention: the hand-written Hopper kernels, their plain
 PyTorch version and launch counters.
 
 Counterpart of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
@@ -14,9 +14,23 @@ this function on its main path, as nothing in ``repro`` calls the TPU
 kernel: it is a public kernel entry point.
 
 The wrapper takes the plain version when q, k and v lie on the CPU and
-launches the kernel for CUDA tensors (f32 or bf16, 8 ≤ Dh ≤ 256 in steps
-of 8, any strides); it raises on anything else.  ``LAUNCHES`` counts kernel
-launches and ``PLAIN_RUNS`` runs of the plain version.
+launches a kernel for CUDA tensors (f32 or bf16, 8 ≤ Dh ≤ 256 in steps
+of 8, any strides); it raises on anything else.  Which kernel is a pure
+function of the dtype and Dh (:func:`route`):
+
+* ``"wgmma_tma"``: bf16 with Dh 64 or 128, warpgroup MMA fed by TMA;
+* ``"mma_3xtf32"``: f32 with Dh 64 or 128, ``mma.sync`` in TF32 with the
+  three-product split (about f32 accuracy);
+* ``"simt"``: every other Dh, the first kernel (f32 math on the CUDA cores).
+
+The two tensor-core routes read q, k and v by TMA or 16-byte ``cp.async``:
+a tensor whose innermost stride is not 1, whose other strides are not
+positive multiples of 16 bytes or whose data is not 16-byte aligned
+(:func:`tma_ready`) is first copied contiguous by the wrapper.  A failed
+build or launch raises; no route stands in for another.
+
+``LAUNCHES`` counts kernel launches (all routes), ``ROUTE_LAUNCHES`` the
+launches of each route and ``PLAIN_RUNS`` runs of the plain version.
 """
 from __future__ import annotations
 
@@ -31,24 +45,68 @@ NEG_INF = -1e30
 DH_MAX = 256
 
 KERNELS = ("flash_attention",)
+ROUTES = ("wgmma_tma", "mma_3xtf32", "simt")
+TC_HEAD_DIMS = (64, 128)  # the tensor-core kernels' instantiations
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in ROUTES}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# route -> dtype -> C entry point
+_ENTRY = {
+    "wgmma_tma": {torch.bfloat16: "flash_attention_wgmma_bf16"},
+    "mma_3xtf32": {torch.float32: "flash_attention_3xtf32_f32"},
+    "simt": {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"},
+}
 
 
 def reset_counters() -> None:
-    """Set the launch and plain-run counts to 0."""
+    """Set the launch, per-route launch and plain-run counts to 0."""
     with _COUNT_LOCK:
         for k in KERNELS:
             LAUNCHES[k] = 0
             PLAIN_RUNS[k] = 0
+        for r in ROUTES:
+            ROUTE_LAUNCHES[r] = 0
 
 
-def _count(table: Dict[str, int]) -> None:
+def _count(table: Dict[str, int], route: str = "") -> None:
     with _COUNT_LOCK:
         table["flash_attention"] += 1
+        if route:
+            ROUTE_LAUNCHES[route] += 1
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that takes (dtype, Dh) on the card: ``"wgmma_tma"`` for
+    bf16 and ``"mma_3xtf32"`` for f32 when Dh is 64 or 128, else ``"simt"``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: kernel takes float32 or bfloat16, got {dtype}")
+    if dh in TC_HEAD_DIMS:
+        return "wgmma_tma" if dtype == torch.bfloat16 else "mma_3xtf32"
+    return "simt"
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether the tensor-core routes can read ``x`` in place: innermost
+    stride 1, every other stride a positive multiple of 16 bytes, data
+    16-byte aligned."""
+    size = x.element_size()
+    return (
+        x.stride(-1) == 1
+        and all(s > 0 and s * size % 16 == 0 for s in x.stride()[:-1])
+        and x.data_ptr() % 16 == 0
+    )
+
+
+def kernel_inputs(q, k, v, rt: str):
+    """q, k, v as the kernel of route ``rt`` reads them: the tensor-core
+    routes get a contiguous copy (fresh, so aligned) of each tensor that
+    is not :func:`tma_ready`; the simt kernel takes any strides."""
+    if rt == "simt":
+        return q, k, v
+    return tuple(x if tma_ready(x) else x.clone(memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
 
 
 def _blocks(q, k, v, block_q: int, block_kv: int) -> Tuple[int, int]:
@@ -121,8 +179,8 @@ def flash_attention(
 
     ``block_q``/``block_kv`` are the reference kernel's tiles: they set the
     plain version's blocking and the reference's rule that they divide T
-    (``ValueError`` otherwise); the CUDA kernel tiles by 64 on its own and
-    masks the ragged edge."""
+    (``ValueError`` otherwise); the CUDA kernels tile by their own sizes
+    and mask the ragged edge.  On the card the route is :func:`route`'s."""
     _blocks(q, k, v, block_q, block_kv)
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_plain(q, k, v, causal, block_q, block_kv)
@@ -134,20 +192,20 @@ def flash_attention(
             raise TypeError(f"flash_attention: mixed dtypes {dtype} and {x.dtype}")
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    if dtype not in _SUFFIX:
-        raise TypeError(f"flash_attention: kernel takes float32 or bfloat16, got {dtype}")
     b, t, h, dh = q.shape
+    rt = route(dtype, dh)
     if dh > DH_MAX or dh % 8:
         raise ValueError(f"flash_attention: Dh={dh} must be a multiple of 8 and <= {DH_MAX}")
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H={b * h} exceeds the grid's 65535")
     out = torch.empty((b, t, h, dh), dtype=dtype, device=dev)
     if out.numel():
+        q, k, v = kernel_inputs(q, k, v, rt)
         launch(
-            f"flash_attention_{_SUFFIX[dtype]}", dev,
+            _ENTRY[rt][dtype], dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, t, h, dh, int(bool(causal)), dh**-0.5,
             *q.stride(), *k.stride(), *v.stride(),
         )
-        _count(LAUNCHES)
+        _count(LAUNCHES, rt)
     return out

@@ -8,7 +8,10 @@ Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
   of padded fronts, one thread-block cluster per front.
 * ``panel_factor``  ← ``panel_factor``: ``[L11; A21·L11⁻ᵀ]`` of an (mp, nb)
   slab, for the large-front path (one cluster, the same device routine).
-* ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ`` over a grid of C tiles.
+* ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ``.  On the card it is
+  BLAS ``syrk`` with ``uplo='L'``: the lower triangle holds ``C − A·Aᵀ``,
+  the strictly-upper part holds C unchanged (the large-front route reads
+  ``tril`` only); its plain version computes the full product.
 
 The CUDA source is ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
 and what bounds each kernel on the card are there).  It is built into the
@@ -196,6 +199,11 @@ def panel_factor(slab: torch.Tensor) -> torch.Tensor:
 def syrk_downdate(c: torch.Tensor, a: torch.Tensor, tile: int = 256) -> torch.Tensor:
     """C − A·Aᵀ with C (M, M), A (M, K).
 
+    On the card only the lower triangle is computed (BLAS ``syrk``,
+    ``uplo='L'``: what the large-front route reads); the entries above the
+    diagonal are C's, copied through.  The plain version (CPU tensors)
+    computes the full product, as the reference kernel does.
+
     ``tile`` (128 or 256) is the reference kernel's C tile.  It is only
     checked, for the reference's rule that M be a multiple of it; neither
     version reads it otherwise (the CUDA kernel always tiles C by 64)."""
@@ -209,6 +217,11 @@ def syrk_downdate(c: torch.Tensor, a: torch.Tensor, tile: int = 256) -> torch.Te
     suffix = _check_cuda("syrk_downdate", c, a)
     if k % 32:
         raise ValueError(f"syrk_downdate: K={k} must be a multiple of 32")
+    # the kernel reads rows by 16-byte copies: a view off that alignment is
+    # copied first
+    c, a = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (c, a))
     out = torch.empty_like(c)
-    _launch("syrk_downdate", suffix, c.device, c.data_ptr(), a.data_ptr(), out.data_ptr(), m, k)
+    if m:
+        _launch("syrk_downdate", suffix, c.device, c.data_ptr(), a.data_ptr(), out.data_ptr(),
+                m, k)
     return out

@@ -8,7 +8,9 @@ runs where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 5e-5 relative for f32 fronts, 1e-4 for the panel + SYRK route, 1e-11 for
-f64 (the JAX package's tolerances); 2e-5 max-abs for f32 attention and,
+f64 (the JAX package's tolerances); ``syrk_downdate`` is BLAS syrk with
+uplo='L' on the card, so its lower triangle is compared and its
+strictly-upper part must equal C; 2e-5 max-abs for f32 attention and,
 for bf16 attention, element by element |got - ref| <= eps_bf16 * |ref| +
 2e-5 (the same f32 math within the f32 tolerance, then one rounding each:
 at most 2 bf16 ulps of the element).  The frontal kernels are also held
@@ -107,14 +109,33 @@ def test_padding_inert_on_card(cuda, dtype, tol, m, nb, rng):
         assert _rel(torch.from_numpy(schur).double(), want_s) < tol
 
 
+def _check_syrk_lower(c, a, tile, tol):
+    """BLAS syrk, uplo='L': the lower triangle against the plain version's
+    full product, the strictly-upper part exactly C, two calls bit for bit."""
+    before = fc.LAUNCHES["syrk_downdate"]
+    got = fc.syrk_downdate(c, a, tile=tile)
+    assert fc.LAUNCHES["syrk_downdate"] == before + 1
+    assert _rel(torch.tril(got), torch.tril(fc.syrk_downdate_plain(c, a))) < tol
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    torch.testing.assert_close(fc.syrk_downdate(c, a, tile=tile), got, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
 def test_syrk_downdate_on_card(cuda, dtype, tol, rng):
     c = torch.from_numpy(rng.normal(size=(384, 384))).to(cuda, dtype)
     a = torch.from_numpy(rng.normal(size=(384, 128))).to(cuda, dtype)
-    before = fc.LAUNCHES["syrk_downdate"]
-    got = fc.syrk_downdate(c, a, tile=128)
-    assert fc.LAUNCHES["syrk_downdate"] == before + 1
-    assert _rel(got, fc.syrk_downdate_plain(c, a)) < tol
+    _check_syrk_lower(c, a, 128, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("m,k,tile", [(1024, 128, 256), (896, 256, 128), (640, 512, 128),
+                                      (256, 96, 128)])
+def test_syrk_downdate_shapes_on_card(cuda, dtype, tol, m, k, tile, rng):
+    """chip_smoke's phase-2 shapes, the widest panel (K=512) and a K that
+    leaves a partial 64-wide chunk."""
+    c = torch.from_numpy(rng.normal(size=(m, m))).to(cuda, dtype)
+    a = torch.from_numpy(rng.normal(size=(m, k))).to(cuda, dtype)
+    _check_syrk_lower(c, a, tile, tol)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -173,6 +194,66 @@ def test_flash_attention_on_card(cuda, dtype, b, t, h, dh, bq, bkv, causal, rng)
         # rounding each: element by element, at most 2 bf16 ulps of the element
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=torch.finfo(torch.bfloat16).eps, atol=2e-5)
+
+
+def _flash_check(got, want, dtype):
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) < 2e-5
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=torch.finfo(torch.bfloat16).eps, atol=2e-5)
+
+
+TC_ROUTE = {torch.bfloat16: "wgmma_tma", torch.float32: "mma_3xtf32"}
+FLASH_TC_SHAPES = [
+    (1, 4096, 4, 64, True), (1, 4096, 4, 64, False),
+    (1, 4096, 4, 128, True), (1, 4096, 4, 128, False),
+    (1, 96, 2, 64, True), (1, 96, 2, 128, False),  # T below one 128-row tile
+    (2, 200, 3, 128, True), (1, 200, 2, 64, False),  # a ragged last tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dh,causal", FLASH_TC_SHAPES)
+def test_flash_tensor_core_routes_on_card(cuda, dtype, b, t, h, dh, causal, rng):
+    """Dh 64 and 128 go through the tensor-core kernel of their dtype, meet
+    the bar against the plain version and give the same bits twice."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    blk = 128 if t % 128 == 0 else 8
+    fa.reset_counters()
+    got = fa.flash_attention(q, k, v, causal, blk, blk)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {r: int(r == TC_ROUTE[dtype]) for r in fa.ROUTES}
+    assert fa.LAUNCHES["flash_attention"] == 1 and fa.PLAIN_RUNS["flash_attention"] == 0
+    _flash_check(got, fa.flash_attention_plain(q, k, v, causal, blk, blk), dtype)
+    torch.testing.assert_close(fa.flash_attention(q, k, v, causal, blk, blk), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tensor_core_routes_take_strided_inputs(cuda, dtype, rng):
+    """A (B, H, T, Dh) tensor seen as (B, T, H, Dh) is read in place; one
+    whose rows are not 16-byte aligned is copied first: both give the bits
+    of the contiguous inputs."""
+    x = torch.from_numpy(rng.standard_normal((1, 3, 256, 128)).astype(np.float32)).to(cuda, dtype)
+    view = x.transpose(1, 2)
+    wide = torch.zeros(1, 256, 3, 130, device=cuda, dtype=dtype)
+    wide[..., :128] = view
+    odd = wide[..., :128]  # head rows 130 elements apart: not a multiple of 16 bytes
+    assert fa.tma_ready(view) and not view.is_contiguous() and not fa.tma_ready(odd)
+    want = fa.flash_attention(view.contiguous(), view.contiguous(), view.contiguous())
+    for q in (view, odd):
+        fa.reset_counters()
+        got = fa.flash_attention(q, q, q)
+        assert fa.ROUTE_LAUNCHES[TC_ROUTE[dtype]] == 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_other_head_dims_take_the_simt_kernel(cuda):
+    q = torch.randn(1, 128, 2, 32, device=cuda, dtype=torch.bfloat16)
+    fa.reset_counters()
+    fa.flash_attention(q, q, q)
+    assert fa.ROUTE_LAUNCHES == {"wgmma_tma": 0, "mma_3xtf32": 0, "simt": 1}
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
