@@ -9,10 +9,13 @@ card → ‖LLᵀ−A‖ check.
 
 1. card and build: ``nvidia-smi`` name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, f32 and f64,
-   at the main path's shapes, with CUDA-event times beside the plain
-   version's, a library yardstick's and the bound, and each row's
-   kernel/library ratio; the factor kernels' cluster size and how many
-   such clusters the card holds at once.  ``syrk_downdate`` is BLAS syrk
+   at the main path's shapes, with CUDA-event times (each call issued
+   behind a spin of the card, so the events read the card's time, not the
+   host's) beside the plain version's, a library yardstick's and the
+   bound, and each row's kernel/library ratio (``syrk_downdate`` also
+   with both calls issued to an idle card, and its time against K); the
+   factor kernels' cluster size and how many such clusters the card holds
+   at once.  ``syrk_downdate`` is BLAS syrk
    with uplo='L' on the card: its lower triangle is compared, its
    strictly-upper part must equal C;
 3. main path, 2-D Poisson 200×200 (nested dissection), f64, async runner;
@@ -24,7 +27,8 @@ card → ‖LLᵀ−A‖ check.
 6. the flash-attention kernels (their public entry point: nothing in the
    package calls it) at qwen3-4b's attention widths (32 query heads,
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
-   causal bf16 at Dh=64, non-causal f32; each through the route its
+   causal bf16 at Dh=64, non-causal f32, causal f32 and bf16 at Dh=96
+   (the simt kernel's route); each through the route its
    (dtype, Dh) names (the per-route counter is checked), against its plain
    version, twice bit for bit, with CUDA-event times, the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
@@ -80,14 +84,25 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after ``warm`` untimed runs."""
+QUEUE_CYCLES = 2_000_000  # about 1 ms of the card's clock
+
+
+def cuda_ms(fn, reps: int = 7, warm: int = 2, queued: bool = True) -> float:
+    """Median CUDA-event time of ``fn()`` in ms, after ``warm`` untimed runs.
+
+    ``queued``: each timed call is issued while the card spins for about
+    1 ms (``torch.cuda._sleep``), so the events read the card's time for
+    the call's work, not the host's time to issue it (which a call of tens
+    of µs would otherwise be dominated by).  ``queued=False``: the call
+    starts on an idle card, its host time included."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -156,17 +171,36 @@ def syrk_case(fc, gen, dtype, m: int, k: int, tile: int) -> tuple:
     ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile))
     plain_ms = cuda_ms(lambda: fc.syrk_downdate_plain(c, a))
     lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
+    # the same calls each issued to an idle card: what a lone caller waits
+    call_ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile), queued=False)
+    lib_call_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1), queued=False)
     # the function's least work: read C and A, write C; m(m+1)/2 entries of K products
     bnd, by = bound((2.0 * m * m + m * k) * size, float(m) * (m + 1) * k, dtype)
     print(f"syrk_downdate {str(dtype)[6:]} M={m} K={k} tile={tile}: lower max_abs_err {err:.3e} "
           f"rel {rel:.3e} (vs f64 product {rel64:.3e}), upper == C {upper_is_c}, "
           f"deterministic {same}  ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
-          f"bound_ms {bnd:.5f} ({by})", flush=True)
+          f"bound_ms {bnd:.5f} ({by})  idle-card call: ms {call_ms:.4f} library_ms "
+          f"{lib_call_ms:.4f}", flush=True)
     check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m}: rel err {rel}")
     check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} vs f64: {rel64}")
     check(upper_is_c, f"syrk_downdate {dtype} M={m}: strictly-upper part differs from C")
     check(same, f"syrk_downdate {dtype} M={m}: two calls differ")
     return err, ms, plain_ms, lib_ms, bnd, by
+
+
+def syrk_sweep(fc, gen, dtype) -> None:
+    """What a ``syrk_downdate`` call's time is made of: the card's time at
+    M=1024 for K from 32 to 512 (the slope is the K loop, the rest is fixed)
+    and at M=128, K=32 (four tiles: launch and one CTA's chain), beside
+    ``addmm`` and a copy of C (``clone``: the bytes' floor with a launch)."""
+    for m, k in [(128, 32), (1024, 32), (1024, 128), (1024, 512)]:
+        c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
+        a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
+        ms = cuda_ms(lambda: fc.syrk_downdate(c, a, 128))
+        lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
+        clone_ms = cuda_ms(c.clone)
+        print(f"syrk_downdate sweep {str(dtype)[6:]} M={m} K={k}: ms {ms:.4f}  library_ms "
+              f"{lib_ms:.4f}  clone_ms {clone_ms:.4f}", flush=True)
 
 
 def large_front_syrk_shapes(symb) -> list:
@@ -252,23 +286,28 @@ def phase_kernels(fc) -> dict:
             row = syrk_case(fc, gen, dtype, m, k, tile)
             kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile), *row,
                        dtype == torch.float64 and m == 1024)
+        syrk_sweep(fc, gen, dtype)
     rec["front_factor"]["clusters"] = clusters
     return rec
 
 
 def phase_flash(fa) -> dict:
     """The flash-attention kernels at qwen3-4b's attention widths and
-    train_4k length (and Dh=64, the other head dim of the repo's configs).
-    For each case the public function runs once with the counters set to 0
-    (the path run: its route counter must read 1), then against its plain
-    version on the same inputs, then timed.  Returns the f32 causal record."""
+    train_4k length (and Dh=64, the other head dim of the repo's configs;
+    Dh=96, a head dim the tensor-core kernels are not built for, takes the
+    simt kernel).  For each case the public function runs once with the
+    counters set to 0 (the path run: its route counter must read 1), then
+    against its plain version on the same inputs, then timed.  Returns one
+    record per route: its first case, the others under ``other_cases`` and
+    the path runs' launches of that route."""
     b, t, h = 2, 4096, 32
     gen = torch.Generator().manual_seed(1)
     qkv32 = {dh: [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
-             for dh in (128, 64)}
-    rec, launches = {}, 0
+             for dh in (128, 64, 96)}
+    recs = {}
     for dtype, causal, dh in [(torch.float32, True, 128), (torch.bfloat16, True, 128),
-                              (torch.bfloat16, True, 64), (torch.float32, False, 128)]:
+                              (torch.bfloat16, True, 64), (torch.float32, False, 128),
+                              (torch.float32, True, 96), (torch.bfloat16, True, 96)]:
         q, k, v = (x.to(dtype) for x in qkv32[dh])
         route = fa.route(dtype, dh)
         fa.reset_counters()
@@ -280,7 +319,6 @@ def phase_flash(fa) -> dict:
         check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
         check(routes == {r: int(r == route) for r in fa.ROUTES},
               f"flash {dtype} Dh={dh}: routes {routes}, expected {route}")
-        launches += path_launches
         want = fa.flash_attention_plain(q, k, v, causal)
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
@@ -306,9 +344,11 @@ def phase_flash(fa) -> dict:
                  else min(flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_TENSOR))
         t_bytes = nbytes / PEAK_BYTES
         bnd, by = (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
-        # the kernel's own design: bf16 runs PV twice (P split in two), f32 three TF32 passes
-        design_ms = (1.5 * flops / PEAK_BF16_TENSOR if dtype == torch.bfloat16
-                     else 3 * flops / PEAK_TF32_TENSOR) * 1e3
+        # the kernel's own design: wgmma_tma runs PV twice (P split in two),
+        # mma_3xtf32 three TF32 passes, simt f32 math on the CUDA cores
+        design_ms = 1e3 * {"wgmma_tma": 1.5 * flops / PEAK_BF16_TENSOR,
+                           "mma_3xtf32": 3 * flops / PEAK_TF32_TENSOR,
+                           "simt": flops / PEAK_FLOPS[torch.float32]}[route]
         print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh} "
               f"route {route}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
               f"{tol:.0e}: excess {excess:.3e}; not bit-equal {not_equal:.4f}; deterministic "
@@ -322,12 +362,12 @@ def phase_flash(fa) -> dict:
                     max_abs_err=err, rtol=rtol, atol=tol, not_bit_equal=not_equal, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
                     design_bound_ms=design_ms, x_library=ms / lib_ms)
-        if dtype == torch.float32 and causal:
-            rec = case
+        if route not in recs:
+            recs[route] = dict(case, launches=0)
         else:
-            rec.setdefault("other_cases", []).append(case)
-    rec["launches"] = launches
-    return rec
+            recs[route].setdefault("other_cases", []).append(case)
+        recs[route]["launches"] += path_launches
+    return recs
 
 
 def sparse_l(fact) -> sp.csr_matrix:
@@ -596,14 +636,17 @@ def main() -> int:
         }
         for k in fc.KERNELS
     ]
-    kernels.append({
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:77",
-        "path": "kernel entry point (no caller in src/repro)",
-        **rec["flash_attention"],
-    })
+    kernels += [
+        {
+            "name": f"flash_attention/{route}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "path": "kernel entry point (no caller in src/repro)",
+            **rec["flash_attention"][route],
+        }
+        for route in flash.ROUTES
+    ]
     print(json.dumps({
         "e2e": {
             "poisson200_f64_async": {"wall_s": wall, "makespan_s": report.measured_makespan,

@@ -50,7 +50,9 @@
 //   sum p |v| / l.
 // * flash_tf32_kernel (f32, Dh 64 or 128).  TF32 alone misses the f32
 //   tolerance, so both products use the 3xTF32 split a = a_big + a_small
-//   (cvt.rna.tf32 each), a b ~ a_big b_big + a_big b_small + a_small b_big,
+//   (each rounded to TF32, nearest, ties away from zero, by two integer
+//   operations: the bits of cvt.rna.tf32.f32, which costs more issue time),
+//   a b ~ a_big b_big + a_big b_small + a_small b_big,
 //   on mma.sync m16n8k8 (8 warps, each 16 query rows), the three products
 //   of a group of independent output blocks issued pass by pass.  Q (scaled
 //   in f32, as the reference does) and 64-key K and V tiles come through a
@@ -668,10 +670,11 @@ constexpr int tf32_smem_bytes() {  // Q tile and two K/V stages, rows padded by 
   return (TQ + 4 * FK) * (DH + 4) * (int)sizeof(float);
 }
 
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits cvt.rna.tf32.f32 gives for finite x, by an add and a mask
+// on the integer pipes, which issue faster than that conversion.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 // x = big + small, each rounded to TF32 (small carries the next 11 bits).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {

@@ -52,10 +52,10 @@
 // deterministic and batch-invariant.
 //
 // syrk_kernel is BLAS syrk with uplo='L' (the host reads tril only): one
-// CTA per 64x64 tile on or below the diagonal, the same (C) machinery
-// (lower_downdate: cp.async ring, DMMA in f64, FFMA in f32; TF32 would miss
-// the reference's tolerance); strictly-upper tiles hold C, copied through.
-// Half the flops of the full product, the same bytes.
+// CTA per 64x64 tile; those on or below the diagonal run the same (C)
+// machinery (lower_downdate: cp.async ring, DMMA in f64, FFMA in f32; TF32
+// would miss the reference's tolerance), those above copy C through.  Half
+// the flops of the full product, the same bytes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -152,13 +152,13 @@ __device__ __forceinline__ void lower_tile(int t, int nc, int& ti, int& tj) {
 // row-major order over the lower triangle; its (tile, K chunk) pairs form
 // one stream through a ring of NS shared-memory stages of CKT-wide K
 // chunks, filled by cp.async NS-1 chunks ahead, across tile boundaries.  A
-// thread reads its 16 entries of cin when a tile's first chunk is in hand,
-// so that load is under the tile's products.  `prologue()` runs once the
-// first chunks are on their way.  K is a multiple of 16 bytes' worth of
-// elements; a last partial chunk is zero-filled.
-template <typename T, int CKT = CK, typename Prologue>
+// thread reads its 16 entries of cin for the first tile while the first
+// chunks load, and for each later tile when its first chunk is in hand, so
+// that load is under the tile's products.  K is a multiple of 16 bytes'
+// worth of elements; a last partial chunk is zero-filled.
+template <typename T, int CKT = CK>
 __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out, int ldc,
-                               int nr, int nc, int rank, int cs, T* smem, Prologue prologue) {
+                               int nr, int nc, int rank, int cs, T* smem) {
   constexpr int LDT = CKT + 4;       // row stride of a stage's operand tile
   constexpr int STG = 2 * GT * LDT;  // elements per stage
   int nlow = 0;
@@ -216,7 +216,6 @@ __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out
   };
 
   for (int q = 0; q < NS - 1; ++q) fetch(q);
-  prologue();
   T acc[16] = {};
   T cv[16];
   int ti = 0, tj = 0;
@@ -230,11 +229,15 @@ __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out
       r = wr + g + 8 * ((u & 3) >> 1);
       c = wc + 8 * (u >> 2) + 2 * t4 + (u & 1);
     };
+    if (nq) {  // the first tile's cin entries, while its first chunks load
+      lower_tile(rank, nc, ti, tj);
+      load_tile(ti, tj, rc, cv);
+    }
     for (int q = 0; q < nq; ++q) {
       fetch(q + NS - 1);
       cp_async_wait<NS - 1>();
       __syncthreads();
-      if (q % nch == 0) {  // a new tile: its cin entries, under the products
+      if (q % nch == 0 && q) {  // a new tile: its cin entries, under the products
         lower_tile(rank + (q / nch) * cs, nc, ti, tj);
         load_tile(ti, tj, rc, cv);
       }
@@ -261,11 +264,15 @@ __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out
       r = ty + 16 * (u >> 2);
       c = tx + 16 * (u & 3);
     };
+    if (nq) {
+      lower_tile(rank, nc, ti, tj);
+      load_tile(ti, tj, rc, cv);
+    }
     for (int q = 0; q < nq; ++q) {
       fetch(q + NS - 1);
       cp_async_wait<NS - 1>();
       __syncthreads();
-      if (q % nch == 0) {
+      if (q % nch == 0 && q) {
         lower_tile(rank + (q / nch) * cs, nc, ti, tj);
         load_tile(ti, tj, rc, cv);
       }
@@ -306,8 +313,7 @@ template <typename T>
 __device__ void trailing_downdate(T* a, int lda, int off, int t0, int nr, int nc, int rank,
                                   int cs, T* smem) {
   T* c = a + (size_t)t0 * lda + t0;
-  lower_downdate<T>(a + (size_t)t0 * lda + off, lda, TB, c, c, lda, nr, nc, rank, cs, smem,
-                    [] {});
+  lower_downdate<T>(a + (size_t)t0 * lda + off, lda, TB, c, c, lda, nr, nc, rank, cs, smem);
 }
 
 // ----------------------------------------------------------------------
@@ -588,38 +594,37 @@ __host__ __device__ constexpr int syrk_chunk() { return std::is_same<T, double>:
 template <typename T>
 constexpr size_t syrk_smem_bytes() { return (size_t)NS * 2 * GT * (syrk_chunk<T>() + 4) * sizeof(T); }
 
-// BLAS syrk, lower: one CTA per 64x64 tile on or below the diagonal of the
-// (m x m) output (tile t in row-major order over the lower triangle).  It
-// copies the mirror tile above the diagonal from c unchanged, then
-// downdates its own tile, c - a a^T, on the tensor cores in f64.
+// BLAS syrk, lower: one CTA per 64x64 tile of the (m x m) output.  The
+// first n(n+1)/2 CTAs downdate the tiles on or below the diagonal (tile t
+// in row-major order), c - a a^T, on the tensor cores in f64; the others
+// copy the strictly-upper tiles from c unchanged.
 template <typename T>
 __global__ void __launch_bounds__(NT)
     syrk_kernel(const T* c, const T* a, T* out, int m, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const int n = m / GT;
+  const int n = m / GT, nlow = n * (n + 1) / 2;
+  if (blockIdx.x < nlow) {
+    lower_downdate<T, syrk_chunk<T>()>(a, k, k, c, out, m, n, n, blockIdx.x, nlow, smem);
+    return;
+  }
+  // strictly-upper tile (tj, ti + 1): (ti, tj) runs over the lower tiles
+  // of an (n - 1) x (n - 1) grid
   int ti, tj;
-  lower_tile(blockIdx.x, n, ti, tj);
-  // the strictly-upper tile (tj, ti) mirroring this one: c, copied through
-  // while the first operand chunks are on their way
-  auto mirror = [&] {
-    if (ti == tj) return;
-    constexpr int V = 16 / sizeof(T), PER = GT * GT / V / NT;
-    const size_t o = (size_t)(GT * tj) * m + GT * ti;
-    uint4 x[PER];
+  lower_tile(blockIdx.x - nlow, n - 1, ti, tj);
+  constexpr int V = 16 / sizeof(T), PER = GT * GT / V / NT;
+  const size_t o = (size_t)(GT * tj) * m + GT * (ti + 1);
+  uint4 x[PER];
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int e = threadIdx.x + u * NT;
-      x[u] = *reinterpret_cast<const uint4*>(c + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V);
-    }
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * NT;
+    x[u] = *reinterpret_cast<const uint4*>(c + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V);
+  }
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int e = threadIdx.x + u * NT;
-      *reinterpret_cast<uint4*>(out + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V) = x[u];
-    }
-  };
-  lower_downdate<T, syrk_chunk<T>()>(a, k, k, c, out, m, n, n, blockIdx.x, gridDim.x, smem,
-                                     mirror);
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * NT;
+    *reinterpret_cast<uint4*>(out + o + (size_t)(e / (GT / V)) * m + (e % (GT / V)) * V) = x[u];
+  }
 }
 
 // Launch configuration of one cluster per slab: `slabs` clusters of
@@ -728,7 +733,7 @@ int launch_syrk(const void* c, const void* a, void* out, int m, int k, void* str
   cudaError_t e = smem_opt_in<syrk_kernel<T>>(smem);
   if (e != cudaSuccess) return (int)e;
   const int n = m / GT;
-  syrk_kernel<T><<<n * (n + 1) / 2, NT, smem, (cudaStream_t)stream>>>(
+  syrk_kernel<T><<<n * n, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(c), static_cast<const T*>(a), static_cast<T*>(out), m, k);
   return (int)cudaGetLastError();
 }

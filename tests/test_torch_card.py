@@ -121,18 +121,11 @@ def _check_syrk_lower(c, a, tile, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-def test_syrk_downdate_on_card(cuda, dtype, tol, rng):
-    c = torch.from_numpy(rng.normal(size=(384, 384))).to(cuda, dtype)
-    a = torch.from_numpy(rng.normal(size=(384, 128))).to(cuda, dtype)
-    _check_syrk_lower(c, a, 128, tol)
-
-
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-@pytest.mark.parametrize("m,k,tile", [(1024, 128, 256), (896, 256, 128), (640, 512, 128),
-                                      (256, 96, 128)])
-def test_syrk_downdate_shapes_on_card(cuda, dtype, tol, m, k, tile, rng):
-    """chip_smoke's phase-2 shapes, the widest panel (K=512) and a K that
-    leaves a partial 64-wide chunk."""
+@pytest.mark.parametrize("m,k,tile", [(384, 128, 128), (1024, 128, 256), (896, 256, 128),
+                                      (640, 512, 128), (256, 96, 128)])
+def test_syrk_downdate_on_card(cuda, dtype, tol, m, k, tile, rng):
+    """A small front's shape, chip_smoke's phase-2 shapes, the widest panel
+    (K=512) and a K that leaves a partial 64-wide chunk."""
     c = torch.from_numpy(rng.normal(size=(m, m))).to(cuda, dtype)
     a = torch.from_numpy(rng.normal(size=(m, k))).to(cuda, dtype)
     _check_syrk_lower(c, a, tile, tol)

@@ -9,7 +9,6 @@ max-abs, the reference's own (``tests/test_kernels.py``).
 """
 import math
 import shutil
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,7 +153,7 @@ DESIGN_CASES = [(256, 64, True), (512, 128, True), (384, 128, False), (512, 64, 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to TF32 (10 fraction bits), to nearest, ties away from
-    zero (``cvt.rna.tf32.f32``), by bit masks."""
+    zero (``cvt.rna.tf32.f32``), by an add and a mask, as the kernel does."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
@@ -334,30 +333,42 @@ def test_tensor_core_routes_copy_what_tma_cannot_read():
 def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
     """One ``nvcc -c`` per source, all started before any is waited on,
     then one link; the objects are removed and the library lands at
-    ``library_path()``.  A stand-in ``nvcc`` records its calls."""
+    ``library_path()``.  A stand-in ``nvcc`` records its calls: each compile
+    leaves a mark and waits (10 s at most) until every compile has left
+    one, so each logs how many it saw: all of them only if they overlapped."""
     bin_dir = tmp_path / "cuda" / "bin"
     bin_dir.mkdir(parents=True)
-    log = tmp_path / "calls.log"
+    log, marks = tmp_path / "calls.log", tmp_path / "marks"
+    marks.mkdir()
+    n = len(_build.SOURCES)
     fake = bin_dir / "nvcc"
     fake.write_text(
         "#!/bin/sh\n"
-        f'echo "$@" >> {log}\n'
-        'case " $* " in *" -c "*) sleep 1;; esac\n'
+        "for last; do :; done\n"
+        "seen=0\n"
+        'case " $* " in *" -c "*)\n'
+        f'  touch "{marks}/$(basename "$last")"; i=0\n'
+        f'  while [ "$(ls {marks} | wc -l)" -lt {n} ] && [ $i -lt 200 ]; do\n'
+        "    sleep 0.05; i=$((i + 1)); done\n"
+        f'  seen=$(ls {marks} | wc -l);;\n'
+        "esac\n"
+        f'echo "$seen $@" >> {log}\n'
         'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then shift; touch "$1"; fi; shift; done\n'
     )
     fake.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    t0 = time.perf_counter()
     out = _build.build_library()
-    assert time.perf_counter() - t0 < 0.9 + len(_build.SOURCES) / 2  # the compiles overlap
     assert out == _build.library_path() and out.exists()
-    calls = log.read_text().splitlines()
-    assert len(calls) == len(_build.SOURCES) + 1
-    for call, src in zip(calls, _build.SOURCES):
-        assert call.split()[-1] == str(src) and " -c " in f" {call} " and "-shared" not in call
+    calls = [line.split(" ", 1) for line in log.read_text().splitlines()]
+    assert len(calls) == n + 1
+    compiles, (link_seen, link) = calls[:-1], calls[-1]
+    assert sorted(call.split()[-1] for _, call in compiles) == sorted(map(str, _build.SOURCES))
+    for seen, call in compiles:
+        assert int(seen) == n  # every compile was running while this one waited
+        assert " -c " in f" {call} " and "-shared" not in call
         assert "arch=compute_90a,code=sm_90a" in call
-    assert calls[-1].startswith("-shared -o ") and calls[-1].count(".o") == len(_build.SOURCES)
+    assert link_seen == "0" and link.startswith("-shared -o ") and link.count(".o") == n
     assert sorted(p.name for p in out.parent.iterdir()) == [out.name]
     assert _build.build_library() == out  # built once
     assert len(log.read_text().splitlines()) == len(calls)
