@@ -27,10 +27,12 @@ card → ‖LLᵀ−A‖ check.
 6. the flash-attention kernels (their public entry point: nothing in the
    package calls it) at qwen3-4b's attention widths (32 query heads,
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
-   causal bf16 at Dh=64, non-causal f32, causal f32 and bf16 at Dh=96
-   (the simt kernel's route); each through the route its
-   (dtype, Dh) names (the per-route counter is checked), against its plain
-   version, twice bit for bit, with CUDA-event times, the plain version's,
+   causal bf16 and f32 at Dh=64, non-causal f32, causal f32 and bf16 at
+   Dh=96 and at zamba2-2.7b's Dh=80 (both padded to 128 in the tensor-core
+   kernels), causal f32 and bf16 at Dh=192 (the simt kernel's route); each
+   through the route its (dtype, Dh) names (the per-route counter is
+   checked), against its plain version, twice bit for bit, with CUDA-event
+   times, the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
    and the bound;
 7. the facade at full size: ``Session(DeviceMesh(plan_devices=256))
@@ -294,20 +296,24 @@ def phase_kernels(fc) -> dict:
 def phase_flash(fa) -> dict:
     """The flash-attention kernels at qwen3-4b's attention widths and
     train_4k length (and Dh=64, the other head dim of the repo's configs;
-    Dh=96, a head dim the tensor-core kernels are not built for, takes the
-    simt kernel).  For each case the public function runs once with the
-    counters set to 0 (the path run: its route counter must read 1), then
-    against its plain version on the same inputs, then timed.  Returns one
-    record per route: its first case, the others under ``other_cases`` and
-    the path runs' launches of that route."""
+    Dh=80, zamba2-2.7b's (d_model 2560 over 32 heads), and Dh=96 run
+    padded to 128 in the tensor-core kernels; Dh=192, wider than their
+    tiles, takes the simt kernel).  For each case the public function runs
+    once with the counters set to 0 (the path run: its route counter must
+    read 1), then against its plain version on the same inputs, then timed.
+    Returns one record per route: its first case, the others under
+    ``other_cases`` and the path runs' launches of that route."""
     b, t, h = 2, 4096, 32
     gen = torch.Generator().manual_seed(1)
     qkv32 = {dh: [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
-             for dh in (128, 64, 96)}
+             for dh in (128, 64, 96, 80, 192)}
     recs = {}
     for dtype, causal, dh in [(torch.float32, True, 128), (torch.bfloat16, True, 128),
                               (torch.bfloat16, True, 64), (torch.float32, False, 128),
-                              (torch.float32, True, 96), (torch.bfloat16, True, 96)]:
+                              (torch.float32, True, 96), (torch.bfloat16, True, 96),
+                              (torch.float32, True, 80), (torch.bfloat16, True, 80),
+                              (torch.float32, True, 64),
+                              (torch.float32, True, 192), (torch.bfloat16, True, 192)]:
         q, k, v = (x.to(dtype) for x in qkv32[dh])
         route = fa.route(dtype, dh)
         fa.reset_counters()
@@ -338,19 +344,28 @@ def phase_flash(fa) -> dict:
         pairs = t * (t + 1) / 2 if causal else float(t * t)  # query-key pairs visited
         flops = 4.0 * b * h * dh * pairs
         nbytes = 4.0 * b * t * h * dh * (torch.finfo(dtype).bits // 8)
-        # the least time for the same work on the card: bf16 on its tensor
-        # cores; f32 the faster of the CUDA cores and three TF32 products
+        # the least time for the same work on the card (the true Dh): bf16 on
+        # its tensor cores; f32 the faster of the CUDA cores and three TF32
+        # products
         t_ops = (flops / PEAK_BF16_TENSOR if dtype == torch.bfloat16
                  else min(flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_TENSOR))
         t_bytes = nbytes / PEAK_BYTES
         bnd, by = (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
-        # the kernel's own design: wgmma_tma runs PV twice (P split in two),
-        # mma_3xtf32 three TF32 passes, simt f32 math on the CUDA cores
-        design_ms = 1e3 * {"wgmma_tma": 1.5 * flops / PEAK_BF16_TENSOR,
-                           "mma_3xtf32": 3 * flops / PEAK_TF32_TENSOR,
-                           "simt": flops / PEAK_FLOPS[torch.float32]}[route]
+        # the kernel's own design, at the work it issues: the tensor-core
+        # kernels run QK^T over Dh rounded up to their k-step (16 wgmma, 8
+        # mma.sync) and PV at the padded tile width (64 or 128); wgmma_tma
+        # runs PV twice (P split in two), mma_3xtf32 three TF32 passes of
+        # each, simt f32 math on the CUDA cores at the true Dh
+        dh_pad = 64 if dh <= 64 else 128
+        qk_flops = 2.0 * b * h * pairs * {"wgmma_tma": -(-dh // 16) * 16, "mma_3xtf32": dh,
+                                          "simt": dh}[route]
+        pv_flops = 2.0 * b * h * pairs * (dh if route == "simt" else dh_pad)
+        design_ms = 1e3 * {"wgmma_tma": (qk_flops + 2 * pv_flops) / PEAK_BF16_TENSOR,
+                           "mma_3xtf32": 3 * (qk_flops + pv_flops) / PEAK_TF32_TENSOR,
+                           "simt": (qk_flops + pv_flops) / PEAK_FLOPS[torch.float32]}[route]
+        tile = "" if route == "simt" else f" (tile {dh_pad})"
         print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh} "
-              f"route {route}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
+              f"route {route}{tile}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
               f"{tol:.0e}: excess {excess:.3e}; not bit-equal {not_equal:.4f}; deterministic "
               f"{same})  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}  "
               f"bound_ms {bnd:.4f} ({by})  design bound_ms {design_ms:.4f}  "
@@ -359,9 +374,10 @@ def phase_flash(fa) -> dict:
         check(same, f"flash {dtype} Dh={dh} causal={causal}: two calls differ")
         check(ms >= bnd, f"flash {dtype} Dh={dh}: {ms} ms under the bound {bnd} ms")
         case = dict(dtype=str(dtype)[6:], causal=causal, shape=[b, t, h, dh], kernel=route,
-                    max_abs_err=err, rtol=rtol, atol=tol, not_bit_equal=not_equal, ms=ms,
-                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                    design_bound_ms=design_ms, x_library=ms / lib_ms)
+                    dh_tile=dh if route == "simt" else dh_pad, max_abs_err=err, rtol=rtol,
+                    atol=tol, not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bnd, bound_by=by, design_bound_ms=design_ms,
+                    x_library=ms / lib_ms)
         if route not in recs:
             recs[route] = dict(case, launches=0)
         else:

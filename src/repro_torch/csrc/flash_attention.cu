@@ -33,22 +33,35 @@
 // unit.  So every product goes to the tensor cores, in three routes chosen
 // by the wrapper from (dtype, Dh):
 //
-// * flash_wgmma_kernel (bf16, Dh 64 or 128).  One CTA per 128-row query
+// The two tensor-core kernels take every Dh <= 128 (a multiple of 8): each
+// is built for a tile of DHP = 64 columns (Dh <= 64) or 128 (64 < Dh <= 128)
+// and runs a narrower Dh padded with zero columns in shared memory.  Zero
+// columns add exactly 0 to every Q K^T dot product, the k-steps of S that
+// hold only padding are not issued, PV runs at the padded width, and the
+// output columns past Dh are never stored.  The scale is the true Dh's.
+// Dh 64 and 128 run instantiations without padding (PAD false: every bound
+// a compile-time constant, the code of the unpadded kernels).
+//
+// * flash_wgmma_kernel (bf16, Dh <= 128).  One CTA per 128-row query
 //   tile: a producer warpgroup (one thread issues TMA, registers given back
 //   by setmaxnreg) and two consumer warpgroups of 64 query rows each.  TMA
 //   loads Q once and 128-key K and V tiles through a ring of two stages
 //   (mbarriers: full per operand, empty per stage); the tensor is 4-D
-//   (Dh, H, T, B) with its own strides, one box is 64 Dh-columns (128 B) x
-//   128 rows, 128-byte swizzled.  S = Q K^T is wgmma m64n128k16 with both
+//   (Dh, H, T, B) with its own strides and the true Dh, one box is 64
+//   Dh-columns (128 B) x 128 rows, 128-byte swizzled; the box columns past
+//   Dh, like the rows past T, arrive as zeros (and count as delivered bytes
+//   on the mbarrier).  S = Q K^T is wgmma m64n128k16 with both
 //   operands in shared memory (K-major), scaled in f32 afterwards (in the
 //   exponent's FMA; q scale is not representable in bf16).  The
 //   reference keeps P in f32; one rounding of P to bf16 would cost about
 //   2^-9 |v| sqrt(sum p^2) / l, which does not shrink with |O|.  So P is
 //   split in registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and PV
-//   is two register-A wgmmas (m64n{Dh}k16) against the same V tile
+//   is two register-A wgmmas (m64n{DHP}k16) against the same V tile
 //   (MN-major, no transpose), leaving an error of at most 2^-17 of
-//   sum p |v| / l.
-// * flash_tf32_kernel (f32, Dh 64 or 128).  TF32 alone misses the f32
+//   sum p |v| / l.  S takes ceil(Dh/16) k16 steps: one complete wgmma stage
+//   is compiled for each count the tile can need, so no branch falls inside
+//   a stage.
+// * flash_tf32_kernel (f32, Dh <= 128).  TF32 alone misses the f32
 //   tolerance, so both products use the 3xTF32 split a = a_big + a_small
 //   (each rounded to TF32, nearest, ties away from zero, by two integer
 //   operations: the bits of cvt.rna.tf32.f32, which costs more issue time),
@@ -56,12 +69,14 @@
 //   on mma.sync m16n8k8 (8 warps, each 16 query rows), the three products
 //   of a group of independent output blocks issued pass by pass.  Q (scaled
 //   in f32, as the reference does) and 64-key K and V tiles come through a
-//   cp.async double buffer and are split as their fragments are read; S and
-//   P stay in registers.  P's accumulator layout feeds the A operand
+//   cp.async double buffer (the columns past Dh zero-filled, never read from
+//   device memory) and are split as their fragments are read; S takes Dh/8
+//   k8 steps.  S and P stay in registers.  P's accumulator layout feeds the A operand
 //   directly by permuting the keys of each 8-key step (A column t <-> key
 //   2t, t+4 <-> 2t+1; V's rows are read in the same order).
-// * flash_fwd_kernel (the first kernel, any other Dh: 8 to 256 in steps of
-//   8): f32 math on the CUDA cores, operands from shared memory.
+// * flash_fwd_kernel (the first kernel; the wrapper gives it 136 <= Dh <=
+//   256, in steps of 8, which the tensor-core kernels' shared memory does
+//   not hold): f32 math on the CUDA cores, operands from shared memory.
 //
 // No atomics and a fixed summation order: two calls give the same bits.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
@@ -82,7 +97,7 @@ struct Strides {
 // flash_fwd_kernel (route simt): one CTA per (batch*head, 64-row query
 // tile), 64-key KV tiles, Q/K/V/P tiles in f32 shared memory (rows padded
 // to Dh+1 / 65 floats), 256 threads as 16x16 each owning 4x4 scores and
-// 4 x Dh/16 outputs; any strides, Dh 8..256.
+// 4 x Dh/16 outputs; any strides, Dh 136..256 (built for NC = 16).
 // ----------------------------------------------------------------------
 constexpr int BQ = 64;    // query rows per CTA
 constexpr int BKV = 64;   // keys per KV tile
@@ -265,19 +280,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int batch, int seq, int heads, int dh, int causal,
                  float scale, Strides sq, Strides sk, Strides sv,
                  void* stream) {
-  // the wrapper admits 8 <= Dh <= 256 in steps of 8
-  if (dh <= 16)
-    return run_flash<Elem, 1>(q, k, v, out, batch, seq, heads, dh, causal,
-                              scale, sq, sk, sv, stream);
-  if (dh <= 32)
-    return run_flash<Elem, 2>(q, k, v, out, batch, seq, heads, dh, causal,
-                              scale, sq, sk, sv, stream);
-  if (dh <= 64)
-    return run_flash<Elem, 4>(q, k, v, out, batch, seq, heads, dh, causal,
-                              scale, sq, sk, sv, stream);
-  if (dh <= 128)
-    return run_flash<Elem, 8>(q, k, v, out, batch, seq, heads, dh, causal,
-                              scale, sq, sk, sv, stream);
+  // every narrower Dh goes to the tensor-core kernels
+  if (dh <= 128 || dh > 256 || dh % 8) return (int)cudaErrorInvalidValue;
   return run_flash<Elem, 16>(q, k, v, out, batch, seq, heads, dh, causal,
                              scale, sq, sk, sv, stream);
 }
@@ -498,15 +502,44 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = Q K^T over the first N k16 steps of Dh: 64 x 128 per warpgroup, one
+// complete wgmma stage (fence, products, commit, wait).
+template <int N>
+__device__ __forceinline__ void qk_wgmma(float (&s)[64], uint32_t qa, uint32_t kb) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) {
+    const uint32_t off = (kk / 4) * WBOX + (kk % 4) * 32;
+    wgmma_ss_n128(s, sw128_desc(qa + off), sw128_desc(kb + off), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+}
+// The same for a run-time count LO <= nk <= N: the branch picks a whole
+// stage, so none falls between a stage's products.
+template <int N, int LO>
+__device__ __forceinline__ void qk_wgmma_steps(float (&s)[64], uint32_t qa, uint32_t kb, int nk) {
+  if constexpr (N > LO) {
+    if (nk < N) {
+      qk_wgmma_steps<N - 1, LO>(s, qa, kb, nk);
+      return;
+    }
+  }
+  qk_wgmma<N>(s, qa, kb);
+}
 
 // One CTA per (batch*head, 128-row query tile): warpgroup 0 produces (one
 // thread issues every TMA load), warpgroups 1 and 2 each own 64 query rows.
-template <int DH>
+// DH is the tile width; PAD: the head dim dh_arg is narrower (a multiple of
+// 8, 8 <= dh < 64 for DH = 64, 64 < dh < 128 for DH = 128), else it is DH
+// and every bound below is a compile-time constant.
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                       int heads, int seq, int causal, float scale) {
+                       int heads, int seq, int dh_arg, int causal, float scale) {
+  const int dh = PAD ? dh_arg : DH;
   constexpr int NB = DH / 64;  // 64-column boxes per tile
   constexpr int TILE = wg_tile_bytes<DH>();
   extern __shared__ __align__(1024) uint8_t wsmem[];
@@ -567,6 +600,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     const int row[2] = {rbase + 16 * warp + (lane >> 2), rbase + 16 * warp + (lane >> 2) + 8};
     const uint32_t qa = smem_u32(Qs) + 64 * cw * 128;  // the warpgroup's 64 rows of each box
     const float scale_log2 = scale * 1.4426950408889634f;  // p = 2^(s scale log2(e) - m)
+    const int nk = (dh + 15) / 16;  // k16 steps of S that hold some of Dh
 
     float o[DH / 2];
 #pragma unroll
@@ -586,14 +620,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] = 0.f;
       mbar_wait(k_full + st, ph);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const uint32_t off = (kk / 4) * WBOX + (kk % 4) * 32;
-        wgmma_ss_n128(s, sw128_desc(qa + off), sw128_desc(kb + off), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait0();
+      qk_wgmma_steps<DH / 16, DH == 128 ? 5 : 1>(s, qa, kb, nk);
       fence_regs(s);
 
       const bool mask = kv0 + WK > seq || (causal && kv0 + WK - 1 > rbase);
@@ -648,9 +675,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= seq) continue;
       const float den = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = out + (((size_t)b * seq + row[r]) * heads + h) * DH;
+      __nv_bfloat16* orow = out + (((size_t)b * seq + row[r]) * heads + h) * dh;
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i) {
+        if (8 * i >= dh) break;  // padding columns are not stored
         const __nv_bfloat162 v2 =
             __floats2bfloat162_rn(o[4 * i + 2 * r] / den, o[4 * i + 2 * r + 1] / den);
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + c2) = v2;
@@ -721,28 +749,32 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
                : "memory");
 }
 
-// rows [r0, r0 + rows) of one (batch, head)'s (T, Dh) slice into a tile of
-// row stride DH + 4; rows past T are zero.  16-byte copies: the wrapper
-// hands this route only tensors whose rows are 16-byte aligned.
+// rows [r0, r0 + rows) of one (batch, head)'s (T, dh) slice into a tile of
+// DH columns and row stride DH + 4; rows past T and columns past dh are zero
+// (nothing is read for them).  16-byte copies: the wrapper hands this route
+// only tensors whose rows are 16-byte aligned, and dh is a multiple of 8.
 template <int DH>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src, long long st,
-                                                int r0, int rows, int seq) {
-  constexpr int CH = DH / 4;  // 16-byte chunks per row
+                                                int r0, int rows, int seq, int dh) {
+  constexpr int CH = DH / 4;  // 16-byte chunks per padded row
   for (int e = threadIdx.x; e < rows * CH; e += FTHREADS) {
     const int r = e / CH, c = (e % CH) * 4;
     const int t = r0 + r;
-    const bool valid = t < seq;
-    cp_async16_zfill(dst + r * (DH + 4) + c, src + (valid ? (long long)t * st : 0) + c, valid);
+    const bool valid = t < seq && c < dh;  // else nothing is read, from an address in the tensor
+    cp_async16_zfill(dst + r * (DH + 4) + c,
+                     src + (valid ? (long long)t * st : 0) + (c < dh ? c : 0), valid);
   }
 }
 
 // One CTA per (batch*head, 128-row query tile), 8 warps of 16 query rows;
-// 64-key K and V tiles through a cp.async double buffer.
-template <int DH>
+// 64-key K and V tiles through a cp.async double buffer.  DH is the padded
+// tile width, PAD and dh_arg as for flash_wgmma_kernel.
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(FTHREADS, 1)
     flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, int heads, int seq,
-                      int causal, float scale, Strides sq, Strides sk, Strides sv) {
+                      int dh_arg, int causal, float scale, Strides sq, Strides sk, Strides sv) {
+  const int dh = PAD ? dh_arg : DH;
   constexpr int LD = DH + 4;
   extern __shared__ __align__(16) float tsmem[];
   float* Qs = tsmem;           // TQ x LD
@@ -762,9 +794,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   const int wrow = q0 + 16 * warp;  // the warp's first query row
   const int row[2] = {wrow + g, wrow + g + 8};
 
-  load_rows_async<DH>(Qs, qb, sq.t, q0, TQ, seq);
-  load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq);
-  load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq);
+  load_rows_async<DH>(Qs, qb, sq.t, q0, TQ, seq, dh);
+  load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq, dh);
+  load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq, dh);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   float o[DH / 2];
@@ -775,8 +807,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {  // the next tile into the other stage
       const int nx = (it + 1) & 1;
-      load_rows_async<DH>(Kb + nx * FK * LD, kb, sk.t, (it + 1) * FK, FK, seq);
-      load_rows_async<DH>(Vb + nx * FK * LD, vb, sv.t, (it + 1) * FK, FK, seq);
+      load_rows_async<DH>(Kb + nx * FK * LD, kb, sk.t, (it + 1) * FK, FK, seq, dh);
+      load_rows_async<DH>(Vb + nx * FK * LD, vb, sv.t, (it + 1) * FK, FK, seq, dh);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -795,8 +827,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 8; ++ks) {
+      auto qk = [&](int ks) {  // k8 step ks: Dh columns 8ks + [0, 8)
         const float* qa = Qs + (16 * warp + g) * LD + 8 * ks + t4;
         uint32_t ab[4], as[4];
         split_tf32(qa[0], ab[0], as[0]);
@@ -805,6 +836,13 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         split_tf32(qa[8 * LD + 4], ab[3], as[3]);
         const float* kp = Ks + g * LD + 8 * ks + t4;  // key 8j + g at kp + 8j LD
         mma_3xtf32<FK / 8>(s, ab, as, kp, kp + 4, 8 * LD);
+      };
+      if constexpr (PAD) {  // the steps that hold some of Dh
+#pragma unroll 2
+        for (int ks = 0; ks < dh / 8; ++ks) qk(ks);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < DH / 8; ++ks) qk(ks);
       }
       const bool mask = kv0 + FK > seq || (causal && kv0 + FK - 1 > wrow);
       float corr[2];
@@ -840,11 +878,13 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= seq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* orow = out + (((size_t)b * seq + row[r]) * heads + h) * DH;
+    float* orow = out + (((size_t)b * seq + row[r]) * heads + h) * dh;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n) {
+      if (8 * n >= dh) break;  // padding columns are not stored
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t4) =
           make_float2(o[4 * n + 2 * r] / den, o[4 * n + 2 * r + 1] / den);
+    }
   }
 }
 
@@ -878,8 +918,9 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // The 4-D map of a bf16 (B, T, H, Dh) tensor with strides s (elements; Dh's
-// is 1): dims innermost first (Dh, H, T, B), box (64, 1, 128, 1), 128-byte
-// swizzle, rows past T read as zeros.
+// is 1): dims innermost first (Dh, H, T, B) with the true Dh, box (64, 1,
+// 128, 1), 128-byte swizzle; columns past Dh and rows past T read as zeros
+// (FLOAT_OOB_FILL_NONE fills with zeros, not NaN).
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int dh,
                      Strides s) {
   EncodeTiled fn;
@@ -897,37 +938,37 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int run_wgmma(const void* q, const void* k, const void* v, void* out, int batch, int seq,
-              int heads, int causal, float scale, Strides sq, Strides sk, Strides sv,
+              int heads, int dh, int causal, float scale, Strides sq, Strides sk, Strides sv,
               void* stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t e;
-  if ((e = make_map(&mq, q, batch, seq, heads, DH, sq)) != cudaSuccess) return (int)e;
-  if ((e = make_map(&mk, k, batch, seq, heads, DH, sk)) != cudaSuccess) return (int)e;
-  if ((e = make_map(&mv, v, batch, seq, heads, DH, sv)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mq, q, batch, seq, heads, dh, sq)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mk, k, batch, seq, heads, dh, sk)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mv, v, batch, seq, heads, dh, sv)) != cudaSuccess) return (int)e;
   constexpr int smem = wg_smem_bytes<DH>();
-  e = cudaFuncSetAttribute(flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  e = cudaFuncSetAttribute(flash_wgmma_kernel<DH, PAD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
-  flash_wgmma_kernel<DH><<<grid, WTHREADS, smem, (cudaStream_t)stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), heads, seq, causal, scale);
+  flash_wgmma_kernel<DH, PAD><<<grid, WTHREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), heads, seq, dh, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int run_tf32(const void* q, const void* k, const void* v, void* out, int batch, int seq,
-             int heads, int causal, float scale, Strides sq, Strides sk, Strides sv,
+             int heads, int dh, int causal, float scale, Strides sq, Strides sk, Strides sv,
              void* stream) {
   constexpr int smem = tf32_smem_bytes<DH>();
-  cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH>,
+  cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH, PAD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
-  flash_tf32_kernel<DH><<<grid, FTHREADS, smem, (cudaStream_t)stream>>>(
+  flash_tf32_kernel<DH, PAD><<<grid, FTHREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), heads, seq, causal, scale, sq, sk, sv);
+      static_cast<float*>(out), heads, seq, dh, causal, scale, sq, sk, sv);
   return (int)cudaGetLastError();
 }
 
@@ -939,7 +980,8 @@ extern "C" {
 // the error that refused the launch).  Strides are in elements, in (B, T,
 // H, Dh) order, for q, k and v; the output is contiguous (B, T, H, Dh).
 //
-// The CUDA-core kernel: f32 or bf16, 8 <= Dh <= 256 in steps of 8, any strides.
+// The CUDA-core kernel: f32 or bf16, 136 <= Dh <= 256 in steps of 8 (anything
+// else: cudaErrorInvalidValue), any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int seq, int heads, int dh,
                         int causal, float scale, long long qb, long long qt,
@@ -963,9 +1005,11 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
       Strides{qb, qt, qh, qd}, Strides{kb, kt, kh, kd},
       Strides{vb, vt, vh, vd}, stream);
 }
-// Tensor-core routes: Dh 64 or 128 (anything else: cudaErrorInvalidValue);
-// the innermost stride 1, the others multiples of 16 bytes, pointers
-// 16-byte aligned (TMA's and cp.async's rule; the wrapper checks it).
+// Tensor-core routes: 8 <= Dh <= 128 in steps of 8 (anything else:
+// cudaErrorInvalidValue), run in a tile of 64 columns (Dh <= 64) or 128,
+// padded when Dh is narrower; the innermost stride 1, the others multiples
+// of 16 bytes, pointers 16-byte aligned (TMA's and cp.async's rule; the
+// wrapper checks it).
 int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int batch,
                                int seq, int heads, int dh, int causal, float scale, long long qb,
                                long long qt, long long qh, long long qd, long long kb,
@@ -973,11 +1017,13 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
                                long long vt, long long vh, long long vd, void* stream) {
   const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
   if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
-  if (dh == 64)
-    return run_wgmma<64>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
-  if (dh == 128)
-    return run_wgmma<128>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
-  return (int)cudaErrorInvalidValue;
+  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
+  // Dh 64 and 128 as they are; a narrower Dh padded to the next of them
+  if (dh == 64 || dh == 128)
+    return (dh == 64 ? run_wgmma<64, false> : run_wgmma<128, false>)(
+        q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
+  return (dh < 64 ? run_wgmma<64, true> : run_wgmma<128, true>)(
+      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
 }
 int flash_attention_3xtf32_f32(const void* q, const void* k, const void* v, void* out, int batch,
                                int seq, int heads, int dh, int causal, float scale, long long qb,
@@ -986,11 +1032,13 @@ int flash_attention_3xtf32_f32(const void* q, const void* k, const void* v, void
                                long long vt, long long vh, long long vd, void* stream) {
   const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
   if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
-  if (dh == 64)
-    return run_tf32<64>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
-  if (dh == 128)
-    return run_tf32<128>(q, k, v, out, batch, seq, heads, causal, scale, sq, sk, sv, stream);
-  return (int)cudaErrorInvalidValue;
+  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
+  // Dh 64 and 128 as they are; a narrower Dh padded to the next of them
+  if (dh == 64 || dh == 128)
+    return (dh == 64 ? run_tf32<64, false> : run_tf32<128, false>)(
+        q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
+  return (dh < 64 ? run_tf32<64, true> : run_tf32<128, true>)(
+      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
 }
 
 }  // extern "C"

@@ -18,10 +18,16 @@ launches a kernel for CUDA tensors (f32 or bf16, 8 ≤ Dh ≤ 256 in steps
 of 8, any strides); it raises on anything else.  Which kernel is a pure
 function of the dtype and Dh (:func:`route`):
 
-* ``"wgmma_tma"``: bf16 with Dh 64 or 128, warpgroup MMA fed by TMA;
-* ``"mma_3xtf32"``: f32 with Dh 64 or 128, ``mma.sync`` in TF32 with the
+* ``"wgmma_tma"``: bf16 with Dh ≤ 128, warpgroup MMA fed by TMA;
+* ``"mma_3xtf32"``: f32 with Dh ≤ 128, ``mma.sync`` in TF32 with the
   three-product split (about f32 accuracy);
-* ``"simt"``: every other Dh, the first kernel (f32 math on the CUDA cores).
+* ``"simt"``: 136 ≤ Dh ≤ 256, the first kernel (f32 math on the CUDA
+  cores), whose tiles the tensor-core kernels' shared memory does not hold.
+
+The tensor-core kernels are built for tiles of 64 and 128 Dh-columns; a
+narrower Dh runs in the next of the two, padded with zero columns in
+shared memory (exact: they add 0 to every dot product, and the output's
+padding columns are not stored), with the scale of the true Dh.
 
 The two tensor-core routes read q, k and v by TMA or 16-byte ``cp.async``:
 a tensor whose innermost stride is not 1, whose other strides are not
@@ -46,7 +52,7 @@ DH_MAX = 256
 
 KERNELS = ("flash_attention",)
 ROUTES = ("wgmma_tma", "mma_3xtf32", "simt")
-TC_HEAD_DIMS = (64, 128)  # the tensor-core kernels' instantiations
+TC_DH_MAX = 128  # the widest Dh the tensor-core kernels' tiles hold
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in ROUTES}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -79,10 +85,11 @@ def _count(table: Dict[str, int], route: str = "") -> None:
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel that takes (dtype, Dh) on the card: ``"wgmma_tma"`` for
-    bf16 and ``"mma_3xtf32"`` for f32 when Dh is 64 or 128, else ``"simt"``."""
+    bf16 and ``"mma_3xtf32"`` for f32 when Dh ≤ ``TC_DH_MAX``, else
+    ``"simt"``."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: kernel takes float32 or bfloat16, got {dtype}")
-    if dh in TC_HEAD_DIMS:
+    if dh <= TC_DH_MAX:
         return "wgmma_tma" if dtype == torch.bfloat16 else "mma_3xtf32"
     return "simt"
 
@@ -193,9 +200,9 @@ def flash_attention(
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     b, t, h, dh = q.shape
-    rt = route(dtype, dh)
     if dh > DH_MAX or dh % 8:
         raise ValueError(f"flash_attention: Dh={dh} must be a multiple of 8 and <= {DH_MAX}")
+    rt = route(dtype, dh)
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H={b * h} exceeds the grid's 65535")
     out = torch.empty((b, t, h, dh), dtype=dtype, device=dev)

@@ -203,14 +203,23 @@ FLASH_TC_SHAPES = [
     (1, 4096, 4, 128, True), (1, 4096, 4, 128, False),
     (1, 96, 2, 64, True), (1, 96, 2, 128, False),  # T below one 128-row tile
     (2, 200, 3, 128, True), (1, 200, 2, 64, False),  # a ragged last tile
+    # head dims padded to the 64- or 128-column tile
+    (1, 96, 2, 8, True), (1, 200, 2, 8, False),
+    (1, 96, 2, 16, False), (2, 200, 3, 16, True),
+    (1, 96, 2, 40, True), (1, 200, 2, 40, False),
+    (1, 96, 2, 72, False), (2, 200, 3, 72, True),
+    (1, 96, 2, 80, True), (1, 200, 2, 80, False), (1, 4096, 4, 80, True),
+    (1, 96, 2, 96, False), (2, 200, 3, 96, True),
+    (1, 96, 2, 120, True), (1, 200, 2, 120, False),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,dh,causal", FLASH_TC_SHAPES)
 def test_flash_tensor_core_routes_on_card(cuda, dtype, b, t, h, dh, causal, rng):
-    """Dh 64 and 128 go through the tensor-core kernel of their dtype, meet
-    the bar against the plain version and give the same bits twice."""
+    """Every Dh up to 128 goes through the tensor-core kernel of its dtype
+    (64 and 128 as they are, the others padded), meets the bar against the
+    plain version and gives the same bits twice."""
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
     blk = 128 if t % 128 == 0 else 8
@@ -242,11 +251,38 @@ def test_flash_tensor_core_routes_take_strided_inputs(cuda, dtype, rng):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_flash_other_head_dims_take_the_simt_kernel(cuda):
-    q = torch.randn(1, 128, 2, 32, device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_nothing_past_dh(cuda, dtype, rng):
+    """q, k and v as the first 80 columns of (..., 128) tensors whose other
+    columns hold NaN: read in place (no copy), they give the bits of
+    contiguous inputs, so neither kernel reads past Dh."""
+    views = []
+    for _ in range(3):
+        wide = torch.full((2, 200, 3, 128), float("nan"), device=cuda, dtype=dtype)
+        wide[..., :80] = torch.from_numpy(
+            rng.standard_normal((2, 200, 3, 80)).astype(np.float32)).to(cuda, dtype)
+        views.append(wide[..., :80])
+    assert all(fa.tma_ready(x) and not x.is_contiguous() for x in views)
+    want = fa.flash_attention(*(x.contiguous() for x in views), True, 8, 8)
     fa.reset_counters()
-    fa.flash_attention(q, q, q)
+    got = fa.flash_attention(*views, True, 8, 8)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {r: int(r == TC_ROUTE[dtype]) for r in fa.ROUTES}
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dh,causal", [(200, 136, True), (96, 192, False)])
+def test_flash_other_head_dims_take_the_simt_kernel(cuda, dtype, t, dh, causal, rng):
+    """Dh above 128 goes through the CUDA-core kernel and meets the bar."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, t, 2, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    fa.reset_counters()
+    got = fa.flash_attention(q, k, v, causal, 8, 8)
+    torch.cuda.synchronize()
     assert fa.ROUTE_LAUNCHES == {"wgmma_tma": 0, "mma_3xtf32": 0, "simt": 1}
+    _flash_check(got, fa.flash_attention_plain(q, k, v, causal, 8, 8), dtype)
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):

@@ -24,6 +24,8 @@ CASES = [
     (2, 128, 3, 32, 32, 64, True),
     (1, 64, 2, 16, 32, 16, False),
     (1, 96, 1, 8, 32, 32, True),
+    (1, 64, 2, 80, 32, 16, True),  # zamba2-2.7b's head dim (2560 / 32)
+    (2, 96, 2, 96, 32, 32, False),
 ]
 
 
@@ -146,9 +148,13 @@ def test_library_hash_covers_every_source(tmp_path):
 # base 2) with torch on the CPU, and are held to the card's bars against the
 # JAX reference in interpret mode and against the plain version: element by
 # element |err| <= eps_bf16 * |ref| + 2e-5 in bf16, 2e-5 max-abs in f32.
+# A Dh below the kernels' tile widths (64, 128) runs padded with zero columns
+# to the next of them, with the scale of the true Dh; the emulations do the
+# same and slice the output back to Dh.
 # ----------------------------------------------------------------------
 EPS_BF16 = torch.finfo(torch.bfloat16).eps
-DESIGN_CASES = [(256, 64, True), (512, 128, True), (384, 128, False), (512, 64, False)]
+DESIGN_CASES = [(256, 64, True), (512, 128, True), (384, 128, False), (512, 64, False),
+                (256, 80, True), (384, 96, False)]
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -200,8 +206,17 @@ def _emulate(q, k, v, causal, bkv, scores, pv, exp2_scale=None):
 NEG_INF_F32 = -1e30
 
 
+def _padded(q, k, v):
+    """q, k, v with Dh padded by zero columns to the kernels' tile width
+    (64 for Dh <= 64, else 128), and the true Dh."""
+    dh = q.shape[-1]
+    dhp = 64 if dh <= 64 else 128
+    return [torch.nn.functional.pad(x, (0, dhp - dh)) for x in (q, k, v)], dh
+
+
 def _bf16_design(q, k, v, causal, passes=2):
-    scale = q.shape[-1] ** -0.5
+    (q, k, v), dh = _padded(q, k, v)
+    scale = dh**-0.5
 
     def pv(p, vt):
         out, rest = 0, p
@@ -214,14 +229,15 @@ def _bf16_design(q, k, v, causal, passes=2):
     # (q . k) in f32 (exact products of bf16); the scale, with log2(e),
     # goes into the base-2 exponent
     return _emulate(q, k, v, causal, 128, lambda qh, kt: qh @ kt.mT, pv,
-                    exp2_scale=scale * math.log2(math.e))
+                    exp2_scale=scale * math.log2(math.e))[..., :dh]
 
 
 def _tf32_design(q, k, v, causal):
-    scale = q.shape[-1] ** -0.5
+    (q, k, v), dh = _padded(q, k, v)
+    scale = dh**-0.5
     # q scaled in f32 first, as the reference does; the exponent in base 2
     return _emulate(q, k, v, causal, 64, lambda qh, kt: _mm_3xtf32(qh * scale, kt.mT),
-                    _mm_3xtf32, exp2_scale=math.log2(math.e))
+                    _mm_3xtf32, exp2_scale=math.log2(math.e))[..., :dh]
 
 
 def _jax_ref(q, k, v, causal, dtype):
@@ -289,11 +305,13 @@ def test_one_pass_bf16_p_misses_the_bar_documenting_the_split():
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 128, "wgmma_tma"), (torch.bfloat16, 64, "wgmma_tma"),
     (torch.float32, 128, "mma_3xtf32"), (torch.float32, 64, "mma_3xtf32"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 256, "simt"), (torch.float32, 8, "simt"),
-    (torch.bfloat16, 96, "simt"),
+    (torch.bfloat16, 32, "wgmma_tma"), (torch.float32, 256, "simt"),
+    (torch.float32, 8, "mma_3xtf32"), (torch.bfloat16, 96, "wgmma_tma"),
+    (torch.bfloat16, 136, "simt"), (torch.float32, 80, "mma_3xtf32"),
 ])
 def test_route_rule(dtype, dh, want):
-    """The card's kernel is a pure function of (dtype, Dh)."""
+    """The card's kernel is a pure function of (dtype, Dh): the tensor-core
+    kernel of the dtype up to Dh 128 (padded to 64 or 128), simt above."""
     assert fa.route(dtype, dh) == want
     assert want in fa.ROUTES and dtype in fa._ENTRY[want]
 
