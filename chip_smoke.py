@@ -15,9 +15,10 @@ card → ‖LLᵀ−A‖ check.
    bound, and each row's kernel/library ratio (``syrk_downdate`` also
    with both calls issued to an idle card, and its time against K); the
    factor kernels' cluster size and how many such clusters the card holds
-   at once.  ``syrk_downdate`` is BLAS syrk
-   with uplo='L' on the card: its lower triangle is compared, its
-   strictly-upper part must equal C;
+   at once.  ``syrk_downdate`` with uplo='L' (BLAS syrk, what the main
+   path calls: its lower triangle is compared, its strictly-upper part
+   must equal C) and with the default uplo=None (the reference's full
+   result, compared on both triangles, also at K=40);
 3. main path, 2-D Poisson 200×200 (nested dissection), f64, async runner;
 4. large-front route, random SPD n=2500 (minimum degree), f64, then
    ``syrk_downdate`` alone at the (M, K) this run launched; then phase 3's
@@ -29,22 +30,34 @@ card → ‖LLᵀ−A‖ check.
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
    causal bf16 and f32 at Dh=64, non-causal f32, causal f32 and bf16 at
    Dh=96 and at zamba2-2.7b's Dh=80 (both padded to 128 in the tensor-core
-   kernels), causal f32 and bf16 at Dh=192 (the simt kernel's route); each
+   kernels), causal f32 and bf16 at Dh=192 (the simt kernel's route),
+   causal f16 and f64 at Dh=128 (computed in f32), causal f32 and bf16 at
+   Dh=76 (padded to 80) and at Dh=320 (the simt kernel by 128-column
+   chunks of O), causal f32 and bf16 at Dh=192 with B*H = 65600, T=64; each
    through the route its (dtype, Dh) names (the per-route counter is
    checked), against its plain version, twice bit for bit, with CUDA-event
    times, the plain version's,
-   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls;
+   on f16 and f64 inputs converted to f32 and back, the port's function)
    and the bound;
 7. the facade at full size: ``Session(DeviceMesh(plan_devices=256))
    .analyze(Poisson 200).plan("greedy").execute(dtype=float64)``, its
    panels bit-identical to phase 3's; ``.optimize(max_front=64)`` on
-   Poisson 60, bit-identical to the unoptimized run; ``repro_torch.demo``.
+   Poisson 60, bit-identical to the unoptimized run; ``repro_torch.demo``;
+8. the online path: ``execute_online(phase 4's matrix, 256, 0.9,
+   dtype=float64)`` (online run, projected plan, executor; its panels bit
+   for bit phase 4's, the online run's host seconds apart from the rest
+   of the call); ``Session(...).analyze(Poisson 60).plan("online")``
+   executed async and waves (bit for bit each other and phase 5's);
+   ``Session.simulate()`` and ``Session.serve`` of three Poisson arrivals
+   of that Problem, two trees at once and the third queued (virtual time,
+   on the host).
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6 and 7, whose
-executors skip the warmup in the process phases 3-5 warmed) and read just
-after: every kernel must have run on the main path, and no plain
-version.  Any failed check raises.  The line before the last is the
+4 after the executor's untimed warmup; each run of phases 6, 7 and 8,
+whose executors skip the warmup in the process phases 3-5 warmed) and
+read just after: every kernel must have run on the main path, and no
+plain version.  Any failed check raises.  The line before the last is the
 kernels' JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device.
 """
@@ -155,38 +168,49 @@ def kernel_row(rows: dict, name: str, dtype, shape: dict, err: float, ms: float,
         rec.setdefault("other_cases", []).append(row)
 
 
-def syrk_case(fc, gen, dtype, m: int, k: int, tile: int) -> tuple:
-    """``syrk_downdate`` (BLAS syrk, uplo='L', on the card) at (M, K): the
-    lower triangle against the plain version's full product and an f64
-    product, the strictly-upper part equal to C, two calls bit for bit;
-    returns (err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+def syrk_case(fc, gen, dtype, m: int, k: int, tile: int, uplo="L") -> tuple:
+    """``syrk_downdate`` at (M, K), uplo='L' (BLAS syrk: what the main path
+    calls) or None (the reference's full result): the lower triangle (and,
+    full, the strictly-upper part) against the plain version of the same
+    ``uplo`` and an f64 product; uplo='L': the strictly-upper part equal to
+    C; two calls bit for bit; returns (err, ms, plain_ms, library_ms,
+    bound_ms, bound_by)."""
     size = torch.finfo(dtype).bits // 8
     c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
     a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
-    got = fc.syrk_downdate(c, a, tile)
+    got = fc.syrk_downdate(c, a, tile, uplo=uplo)
     torch.cuda.synchronize()
-    err, rel = rel_err(torch.tril(got), torch.tril(fc.syrk_downdate_plain(c, a)))
-    _, rel64 = rel_err(torch.tril(got).double(),
-                       torch.tril(c.double() - a.double() @ a.double().T))
-    upper_is_c = torch.equal(torch.triu(got, 1), torch.triu(c, 1))
-    same = torch.equal(fc.syrk_downdate(c, a, tile), got)
-    ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile))
-    plain_ms = cuda_ms(lambda: fc.syrk_downdate_plain(c, a))
+    want = fc.syrk_downdate_plain(c, a, uplo=uplo)
+    want64 = c.double() - a.double() @ a.double().T
+    err, rel = rel_err(torch.tril(got), torch.tril(want))
+    _, rel64 = rel_err(torch.tril(got).double(), torch.tril(want64))
+    if uplo == "L":
+        upper_ok = torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+        upper = f"upper == C {upper_ok}"
+    else:
+        err_u, rel_u = rel_err(torch.triu(got, 1), torch.triu(want, 1))
+        _, rel64_u = rel_err(torch.triu(got, 1).double(), torch.triu(want64, 1))
+        err, upper_ok = max(err, err_u), max(rel_u, rel64_u) <= TOL_LARGE[dtype]
+        upper = f"upper max_abs_err {err_u:.3e} rel {rel_u:.3e} (vs f64 product {rel64_u:.3e})"
+    same = torch.equal(fc.syrk_downdate(c, a, tile, uplo=uplo), got)
+    ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile, uplo=uplo))
+    plain_ms = cuda_ms(lambda: fc.syrk_downdate_plain(c, a, uplo=uplo))
     lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
     # the same calls each issued to an idle card: what a lone caller waits
-    call_ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile), queued=False)
+    call_ms = cuda_ms(lambda: fc.syrk_downdate(c, a, tile, uplo=uplo), queued=False)
     lib_call_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1), queued=False)
-    # the function's least work: read C and A, write C; m(m+1)/2 entries of K products
+    # the function's least work (either uplo: A A^T is symmetric): read C
+    # and A, write C; m(m+1)/2 entries of K products
     bnd, by = bound((2.0 * m * m + m * k) * size, float(m) * (m + 1) * k, dtype)
-    print(f"syrk_downdate {str(dtype)[6:]} M={m} K={k} tile={tile}: lower max_abs_err {err:.3e} "
-          f"rel {rel:.3e} (vs f64 product {rel64:.3e}), upper == C {upper_is_c}, "
+    print(f"syrk_downdate {str(dtype)[6:]} M={m} K={k} tile={tile} uplo={uplo}: lower max_abs_err "
+          f"{err:.3e} rel {rel:.3e} (vs f64 product {rel64:.3e}), {upper}, "
           f"deterministic {same}  ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
           f"bound_ms {bnd:.5f} ({by})  idle-card call: ms {call_ms:.4f} library_ms "
           f"{lib_call_ms:.4f}", flush=True)
-    check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m}: rel err {rel}")
-    check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} vs f64: {rel64}")
-    check(upper_is_c, f"syrk_downdate {dtype} M={m}: strictly-upper part differs from C")
-    check(same, f"syrk_downdate {dtype} M={m}: two calls differ")
+    check(rel <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} K={k}: rel err {rel}")
+    check(rel64 <= TOL_LARGE[dtype], f"syrk_downdate {dtype} M={m} K={k} vs f64: {rel64}")
+    check(upper_ok, f"syrk_downdate {dtype} M={m} K={k} uplo={uplo}: strictly-upper part wrong")
+    check(same, f"syrk_downdate {dtype} M={m} K={k}: two calls differ")
     return err, ms, plain_ms, lib_ms, bnd, by
 
 
@@ -198,7 +222,7 @@ def syrk_sweep(fc, gen, dtype) -> None:
     for m, k in [(128, 32), (1024, 32), (1024, 128), (1024, 512)]:
         c = torch.randn(m, m, generator=gen, dtype=torch.float64).to(dtype).cuda()
         a = torch.randn(m, k, generator=gen, dtype=torch.float64).to(dtype).cuda()
-        ms = cuda_ms(lambda: fc.syrk_downdate(c, a, 128))
+        ms = cuda_ms(lambda: fc.syrk_downdate(c, a, 128, uplo="L"))
         lib_ms = cuda_ms(lambda: torch.addmm(c, a, a.T, alpha=-1))
         clone_ms = cuda_ms(c.clone)
         print(f"syrk_downdate sweep {str(dtype)[6:]} M={m} K={k}: ms {ms:.4f}  library_ms "
@@ -286,35 +310,58 @@ def phase_kernels(fc) -> dict:
                        lib_ms, bnd, by, dtype == torch.float64 and nb == 256)
         for m, k, tile in [(1024, 128, 256), (896, 256, 128)]:
             row = syrk_case(fc, gen, dtype, m, k, tile)
-            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile), *row,
-                       dtype == torch.float64 and m == 1024)
+            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile, uplo="L"),
+                       *row, dtype == torch.float64 and m == 1024)
+        # the default, the reference's full result (off the main path), at
+        # the same shapes and at a K that is not a multiple of 32
+        for m, k, tile in [(1024, 128, 256), (896, 256, 128), (1024, 40, 256)]:
+            row = syrk_case(fc, gen, dtype, m, k, tile, uplo=None)
+            kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile, uplo="full"),
+                       *row, False)
         syrk_sweep(fc, gen, dtype)
     rec["front_factor"]["clusters"] = clusters
     return rec
 
 
+# phase 6's cases: (dtype, causal, Dh, (B, T, H)); B=2, T=4096, H=32 unless
+# given
+FLASH_CASES = [
+    (torch.float32, True, 128), (torch.bfloat16, True, 128), (torch.bfloat16, True, 64),
+    (torch.float32, False, 128), (torch.float32, True, 96), (torch.bfloat16, True, 96),
+    (torch.float32, True, 80), (torch.bfloat16, True, 80), (torch.float32, True, 64),
+    (torch.float32, True, 192), (torch.bfloat16, True, 192),
+    # f16 and f64 run in f32 (the reference's semantics); Dh=76 padded to
+    # 80; Dh=320 on the simt kernel's column chunks; B*H past 65535
+    (torch.float16, True, 128), (torch.float64, True, 128),
+    (torch.float32, True, 76), (torch.bfloat16, True, 76),
+    (torch.float32, True, 320), (torch.bfloat16, True, 320),
+    (torch.float32, True, 192, (2, 64, 32800)), (torch.bfloat16, True, 192, (2, 64, 32800)),
+]
+
+
 def phase_flash(fa) -> dict:
     """The flash-attention kernels at qwen3-4b's attention widths and
     train_4k length (and Dh=64, the other head dim of the repo's configs;
-    Dh=80, zamba2-2.7b's (d_model 2560 over 32 heads), and Dh=96 run
-    padded to 128 in the tensor-core kernels; Dh=192, wider than their
-    tiles, takes the simt kernel).  For each case the public function runs
-    once with the counters set to 0 (the path run: its route counter must
-    read 1), then against its plain version on the same inputs, then timed.
-    Returns one record per route: its first case, the others under
-    ``other_cases`` and the path runs' launches of that route."""
-    b, t, h = 2, 4096, 32
+    Dh=80, zamba2-2.7b's (d_model 2560 over 32 heads), Dh=96 and Dh=76 run
+    padded in the tensor-core kernels; Dh=192 and 320, wider than their
+    tiles, take the simt kernel, 320 by 128-column chunks of O; f16 and
+    f64 run in f32; B*H = 65600 at T=64).  For each case the public
+    function runs once with the counters set to 0 (the path run: its route
+    counter must read 1), then against its plain version on the same
+    inputs, then timed.  Returns one record per route: its first case, the
+    others under ``other_cases`` and the path runs' launches of that
+    route."""
     gen = torch.Generator().manual_seed(1)
-    qkv32 = {dh: [torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
-             for dh in (128, 64, 96, 80, 192)}
+    gen_card = torch.Generator(device="cuda").manual_seed(2)  # the large-B*H inputs (GBs)
+    qkv32 = {}
     recs = {}
-    for dtype, causal, dh in [(torch.float32, True, 128), (torch.bfloat16, True, 128),
-                              (torch.bfloat16, True, 64), (torch.float32, False, 128),
-                              (torch.float32, True, 96), (torch.bfloat16, True, 96),
-                              (torch.float32, True, 80), (torch.bfloat16, True, 80),
-                              (torch.float32, True, 64),
-                              (torch.float32, True, 192), (torch.bfloat16, True, 192)]:
-        q, k, v = (x.to(dtype) for x in qkv32[dh])
+    for dtype, causal, dh, *shape in FLASH_CASES:
+        b, t, h = shape[0] if shape else (2, 4096, 32)
+        if (b, t, h, dh) not in qkv32:
+            qkv32[(b, t, h, dh)] = [
+                torch.randn(b, t, h, dh, generator=gen_card, device="cuda") if shape
+                else torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
+        q, k, v = (x.to(dtype) for x in qkv32[(b, t, h, dh)])
         route = fa.route(dtype, dh)
         fa.reset_counters()
         got = fa.flash_attention(q, k, v, causal)
@@ -325,64 +372,88 @@ def phase_flash(fa) -> dict:
         check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
         check(routes == {r: int(r == route) for r in fa.ROUTES},
               f"flash {dtype} Dh={dh}: routes {routes}, expected {route}")
+        check(got.dtype == dtype and got.shape == q.shape, f"flash {dtype} Dh={dh}: output")
         want = fa.flash_attention_plain(q, k, v, causal)
-        diff = (got.float() - want.float()).abs()
+        diff = (got.double() - want.double()).abs()
         err = float(diff.max())
         not_equal = float((got != want).float().mean())  # share of elements not bit-equal
-        # f32: the reference's attention tolerance.  bf16: the same f32 math
+        # f32 math (f32; f64, computed in f32 as the reference does): the
+        # reference's attention tolerance.  bf16, f16: the same f32 math
         # (within that tolerance), then one rounding each, so element by
-        # element at most 2 bf16 ulps of the element: eps * |want| + 2e-5
-        rtol = 0.0 if dtype == torch.float32 else torch.finfo(torch.bfloat16).eps
+        # element at most 2 ulps of the element: eps * |want| + 2e-5
+        rtol = (torch.finfo(dtype).eps if dtype in (torch.bfloat16, torch.float16) else 0.0)
         tol = 2e-5
-        excess = float((diff - rtol * want.float().abs()).max())  # must stay <= tol
+        excess = float((diff - rtol * want.double().abs()).max())  # must stay <= tol
         same = torch.equal(fa.flash_attention(q, k, v, causal), got)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, warm=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        # the library call of the same function: f16 and f64 inputs converted
+        # to f32 on the way in and back on the way out, as the port does
+        # (SDPA in the input type itself computes another function: kept
+        # apart as library_native_ms)
+        lib_native_ms = None
+        if dtype in (torch.float16, torch.float64):
+            lib_ms = cuda_ms(lambda: sdpa(qt.float(), kt.float(), vt.float(),
+                                          is_causal=causal).to(dtype))
+            lib_native_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+        else:
+            lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
         pairs = t * (t + 1) / 2 if causal else float(t * t)  # query-key pairs visited
         flops = 4.0 * b * h * dh * pairs
         nbytes = 4.0 * b * t * h * dh * (torch.finfo(dtype).bits // 8)
-        # the least time for the same work on the card (the true Dh): bf16 on
-        # its tensor cores; f32 the faster of the CUDA cores and three TF32
-        # products
-        t_ops = (flops / PEAK_BF16_TENSOR if dtype == torch.bfloat16
+        # the least time for the same work on the card (the true Dh): bf16
+        # and f16 inputs on the 16-bit tensor cores (an f32-accurate result
+        # is reachable there: the bf16 route splits P in two terms); f32
+        # math on f32 and f64 inputs (as the reference computes) the faster
+        # of the CUDA cores and three TF32 products
+        t_ops = (flops / PEAK_BF16_TENSOR if dtype in (torch.bfloat16, torch.float16)
                  else min(flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_TENSOR))
         t_bytes = nbytes / PEAK_BYTES
         bnd, by = (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
-        # the kernel's own design, at the work it issues: the tensor-core
-        # kernels run QK^T over Dh rounded up to their k-step (16 wgmma, 8
-        # mma.sync) and PV at the padded tile width (64 or 128); wgmma_tma
-        # runs PV twice (P split in two), mma_3xtf32 three TF32 passes of
-        # each, simt f32 math on the CUDA cores at the true Dh
-        dh_pad = 64 if dh <= 64 else 128
-        qk_flops = 2.0 * b * h * pairs * {"wgmma_tma": -(-dh // 16) * 16, "mma_3xtf32": dh,
-                                          "simt": dh}[route]
-        pv_flops = 2.0 * b * h * pairs * (dh if route == "simt" else dh_pad)
+        # the kernel's own design, at the work it issues: Dh padded to a
+        # multiple of 8; the tensor-core kernels run QK^T over it rounded up
+        # to their k-step (16 wgmma, 8 mma.sync) and PV at the padded tile
+        # width (64 or 128); wgmma_tma runs PV twice (P split in two),
+        # mma_3xtf32 three TF32 passes of each, simt f32 math on the CUDA
+        # cores, QK^T once per 128-column chunk of O past Dh 256
+        dhp = fa.padded_dh(dh)
+        dh_tile = 64 if dhp <= 64 else 128
+        chunks = 1 if dhp <= 256 else -(-dhp // 128)
+        qk_flops = 2.0 * b * h * pairs * {"wgmma_tma": -(-dhp // 16) * 16, "mma_3xtf32": dhp,
+                                          "simt": dhp * chunks}[route]
+        pv_flops = 2.0 * b * h * pairs * (dhp if route == "simt" else dh_tile)
         design_ms = 1e3 * {"wgmma_tma": (qk_flops + 2 * pv_flops) / PEAK_BF16_TENSOR,
                            "mma_3xtf32": 3 * (qk_flops + pv_flops) / PEAK_TF32_TENSOR,
                            "simt": (qk_flops + pv_flops) / PEAK_FLOPS[torch.float32]}[route]
-        tile = "" if route == "simt" else f" (tile {dh_pad})"
+        tile = (f" ({chunks} chunks of O)" if chunks > 1 else "") if route == "simt" \
+            else f" (tile {dh_tile})"
         print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh} "
               f"route {route}{tile}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
               f"{tol:.0e}: excess {excess:.3e}; not bit-equal {not_equal:.4f}; deterministic "
-              f"{same})  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}  "
+              f"{same})  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.4f}"
+              + (f" (in f32; SDPA in {str(dtype)[6:]} {lib_native_ms:.4f})"
+                 if lib_native_ms is not None else "") + "  "
               f"bound_ms {bnd:.4f} ({by})  design bound_ms {design_ms:.4f}  "
               f"x_library {ms / lib_ms:.2f}  launches {path_launches}", flush=True)
-        check(excess <= tol, f"flash {dtype} causal={causal}: err beyond {rtol}*|ref| {excess} > {tol}")
+        check(excess <= tol, f"flash {dtype} Dh={dh} causal={causal}: err beyond {rtol}*|ref| "
+              f"{excess} > {tol}")
         check(same, f"flash {dtype} Dh={dh} causal={causal}: two calls differ")
         check(ms >= bnd, f"flash {dtype} Dh={dh}: {ms} ms under the bound {bnd} ms")
         case = dict(dtype=str(dtype)[6:], causal=causal, shape=[b, t, h, dh], kernel=route,
-                    dh_tile=dh if route == "simt" else dh_pad, max_abs_err=err, rtol=rtol,
-                    atol=tol, not_bit_equal=not_equal, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bnd, bound_by=by, design_bound_ms=design_ms,
-                    x_library=ms / lib_ms)
+                    dh_tile=dhp if route == "simt" else dh_tile, o_chunks=chunks,
+                    max_abs_err=err, rtol=rtol, atol=tol, not_bit_equal=not_equal, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                    design_bound_ms=design_ms, x_library=ms / lib_ms)
+        if lib_native_ms is not None:
+            case["library_native_ms"] = lib_native_ms
         if route not in recs:
             recs[route] = dict(case, launches=0)
         else:
             recs[route].setdefault("other_cases", []).append(case)
         recs[route]["launches"] += path_launches
+        del q, k, v, qt, kt, vt, got, want, diff
     return recs
 
 
@@ -466,6 +537,26 @@ def profile_run(name: str, ap, symb, plan, dtype) -> dict:
             "device_s_by_name": {k[:60]: v for k, v in top}}
 
 
+def counted(fc, what: str, run, kernels=("front_factor",)):
+    """``run()`` with the frontal kernels' counters set to 0 just before and
+    read just after: each of ``kernels`` must have launched, no plain
+    version may have run.  Returns (run's result, launches)."""
+    fc.reset_counters()
+    out = run()
+    torch.cuda.synchronize()
+    launches, plain = dict(fc.LAUNCHES), dict(fc.PLAIN_RUNS)
+    for k in kernels:
+        check(launches[k] > 0, f"{what}: {k} never launched")
+    check(all(v == 0 for v in plain.values()), f"{what}: plain versions ran: {plain}")
+    return out, launches
+
+
+def same_panels(f1, f2) -> bool:
+    """Two factors of one symbolic analysis, bit for bit."""
+    return len(f1.panels) == len(f2.panels) and all(
+        np.array_equal(x, y) for x, y in zip(f1.panels, f2.panels))
+
+
 def phase_facade(fc, fact3, report3, wall3: float) -> dict:
     """The facade at full size (Poisson 200, f64), then optimize on Poisson
     60, then the demo; counters set to 0 just before each run, read just
@@ -473,15 +564,6 @@ def phase_facade(fc, fact3, report3, wall3: float) -> dict:
     from repro_torch import demo
     from repro_torch.api import DeviceMesh, Session
     from repro_torch.sparse import grid_laplacian_2d, nested_dissection_2d
-
-    def counted(what: str, run):
-        fc.reset_counters()
-        out = run()
-        torch.cuda.synchronize()
-        launches, plain = dict(fc.LAUNCHES), dict(fc.PLAIN_RUNS)
-        check(launches["front_factor"] > 0, f"{what}: front_factor never launched")
-        check(all(v == 0 for v in plain.values()), f"{what}: plain versions ran: {plain}")
-        return out, launches
 
     g, g_opt = 200, 60
     t0 = time.perf_counter()
@@ -491,11 +573,11 @@ def phase_facade(fc, fact3, report3, wall3: float) -> dict:
     # the process is warm from phases 3-5 (library loaded, every shape class
     # run), so each counted execute skips the executor's warmup: the counts
     # are the runs' own dispatches, and the wall compares with phase 3's
-    rep, launches = counted("phase 7", lambda: sess.execute(dtype=torch.float64, warmup=False))
+    rep, launches = counted(fc, "phase 7",
+                            lambda: sess.execute(dtype=torch.float64, warmup=False))
     wall = time.perf_counter() - t1
     res = residual(rep.artifact, sess.problem.matrix)
-    same = len(rep.artifact.panels) == len(fact3.panels) and all(
-        np.array_equal(x, y) for x, y in zip(rep.artifact.panels, fact3.panels))
+    same = same_panels(rep.artifact, fact3)
     print(f"[7 session poisson200 f64] analyze+plan {t1 - t0:.2f} s, execute wall {wall:.3f} s "
           f"(warmup skipped; phase 3: {wall3:.3f} s), measured makespan {rep.makespan:.3f} s (phase 3: "
           f"{report3.measured_makespan:.3f} s), n_dispatches {rep.metrics['n_dispatches']:.0f}, "
@@ -511,12 +593,11 @@ def phase_facade(fc, fact3, report3, wall3: float) -> dict:
     plain_sess = session60().plan("greedy")
     n_fronts = plain_sess.problem.n
     base, base_launches = counted(
-        "phase 7 unoptimized", lambda: plain_sess.execute(dtype=torch.float64, warmup=False))
+        fc, "phase 7 unoptimized", lambda: plain_sess.execute(dtype=torch.float64, warmup=False))
     opt_sess = session60().optimize(max_front=64).plan("greedy")
     opt, opt_launches = counted(
-        "phase 7 optimized", lambda: opt_sess.execute(dtype=torch.float64, warmup=False))
-    same60 = len(base.artifact.panels) == len(opt.artifact.panels) and all(
-        np.array_equal(x, y) for x, y in zip(base.artifact.panels, opt.artifact.panels))
+        fc, "phase 7 optimized", lambda: opt_sess.execute(dtype=torch.float64, warmup=False))
+    same60 = same_panels(base.artifact, opt.artifact)
     n_opt = opt.metrics["n_dispatches"]
     # a finding, not a check: the unoptimized async runner already batches
     # same-shape fronts across the tree, so the optimized plan may dispatch more
@@ -527,7 +608,7 @@ def phase_facade(fc, fact3, report3, wall3: float) -> dict:
           f"bit-identical: {same60}", flush=True)
     check(same60, "phase 7: optimized factor differs from the unoptimized one")
 
-    demo_res, demo_launches = counted("phase 7 demo", lambda: demo.main(warmup=False))
+    demo_res, demo_launches = counted(fc, "phase 7 demo", lambda: demo.main(warmup=False))
     print(f"[7 demo] residual {demo_res:.3e}, launches {demo_launches}", flush=True)
     return {
         "session_poisson200_f64": {"wall_s": wall, "makespan_s": rep.makespan,
@@ -540,6 +621,118 @@ def phase_facade(fc, fact3, report3, wall3: float) -> dict:
                                    "makespan_unopt_s": base.makespan,
                                    "launches_opt": opt_launches, "launches_unopt": base_launches},
         "demo": {"residual": demo_res, "launches": demo_launches},
+    }
+
+
+def phase_online(fc, ap4, symb4, fact4, fact5) -> dict:
+    """The online path on the card (f64, planned for 256 devices; the
+    executors skip their warmup: phases 4-5 ran every shape class):
+    (a) ``execute_online`` on phase 4's matrix and symbolic analysis, the
+    online run's host seconds (its report's ``host_s``) and the rest of
+    the call (projected plan and executor) apart, its L panels
+    bit for bit phase 4's; (b) ``Session.analyze(Poisson 60)
+    .plan("online")`` then ``execute`` in async and waves mode, bit for bit
+    each other and phase 5's factor; (c) ``Session.simulate()`` and
+    ``Session.serve`` of a Poisson-arrival stream of the same Problem, at
+    most two trees admitted at once (the host, in virtual time: two trees
+    share the capacity and the third waits in the admission queue).  Counters set to 0 before each run on the
+    card, read after: every frontal kernel of the path launched, no plain
+    version ran."""
+    from repro_torch.api import DeviceMesh, Session
+    from repro_torch.online import execute_online, poisson_arrivals
+    from repro_torch.sparse import grid_laplacian_2d, nested_dissection_2d
+
+    t0 = time.perf_counter()
+    (fact, rep, online), launches_a = counted(
+        fc, "phase 8a", lambda: execute_online(ap4, symb4, 256, 0.9, dtype=torch.float64,
+                                               warmup=False), kernels=fc.KERNELS)
+    wall = time.perf_counter() - t0
+    online.validate()
+    res = residual(fact, ap4)
+    same4 = same_panels(fact, fact4)
+    print(f"[8a execute_online random_spd2500 f64] wall {wall:.3f} s: online run (host) "
+          f"{online.host_s:.3f} s, projected plan + executor {wall - online.host_s:.3f} s "
+          f"(executor's measured makespan {rep.measured_makespan:.3f} s); events "
+          f"{online.n_events}, re-shares {online.n_reshares}, dispatches {rep.n_dispatches}, "
+          f"residual {res:.3e}, launches {launches_a}, panels == "
+          f"phase 4 bit for bit: {same4}", flush=True)
+    check(res <= 1e-12, f"phase 8a residual {res}")
+    check(same4, "phase 8a: execute_online panels differ from phase 4's")
+
+    g = 60
+    t0 = time.perf_counter()
+    sess = Session(DeviceMesh(plan_devices=256)).analyze(
+        grid_laplacian_2d(g), alpha=0.9, ordering=nested_dissection_2d(g))
+    analyze_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess.plan("online")
+    plan_s = time.perf_counter() - t0
+    runs, launches_b, walls = {}, {}, {}
+    for mode in ("async", "waves"):
+        t3 = time.perf_counter()
+        runs[mode], launches_b[mode] = counted(
+            fc, f"phase 8b {mode}",
+            lambda: sess.execute(dtype=torch.float64, mode=mode, warmup=False))
+        walls[mode] = time.perf_counter() - t3
+    res_b = residual(runs["async"].artifact, sess.problem.matrix)
+    modes_same = same_panels(runs["async"].artifact, runs["waves"].artifact)
+    same5 = same_panels(runs["async"].artifact, fact5)
+    print(f"[8b session poisson60 online f64] analyze {analyze_s:.3f} s, plan('online') (host) "
+          f"{plan_s:.3f} s, execute wall async {walls['async']:.3f} s / waves "
+          f"{walls['waves']:.3f} s, makespan {runs['async'].makespan:.3f} / "
+          f"{runs['waves'].makespan:.3f} s, dispatches "
+          f"{runs['async'].metrics['n_dispatches']:.0f} / {runs['waves'].metrics['n_dispatches']:.0f}, "
+          f"residual {res_b:.3e}, launches {launches_b}, async == waves {modes_same}, "
+          f"== phase 5 {same5}", flush=True)
+    check(res_b <= 1e-12, f"phase 8b residual {res_b}")
+    check(modes_same, "phase 8b: async and waves panels differ")
+    check(same5, "phase 8b: online-planned panels differ from phase 5's")
+
+    t0 = time.perf_counter()
+    sim = sess.simulate()
+    sim_s = time.perf_counter() - t0
+    arrivals = poisson_arrivals(3, 0.5 * sim.makespan, seed=8)
+    t0 = time.perf_counter()
+    served = sess.serve([(sess.problem, float(a)) for a in arrivals], max_concurrent=2)
+    serve_s = time.perf_counter() - t0
+    sim.detail.validate()
+    served.detail.validate()
+    futs = list(served.detail.futures.values())
+    done = all(f.state == "done" for f in futs)
+    overlap = any(f.t_admit < g.t_done and g.t_admit < f.t_done
+                  for i, f in enumerate(futs) for g in futs[i + 1:])
+    waited = sum(f.t_admit > f.t_submit for f in futs)
+    print(f"[8c simulate + serve poisson60] simulate (host) {sim_s:.3f} s: makespan "
+          f"{sim.makespan:.6g}, fluid ratio {sim.metrics['fluid_ratio']:.12f}, events "
+          f"{sim.metrics['n_events']:.0f}; serve of 3 Poisson arrivals, two trees at a time "
+          f"(host) {serve_s:.3f} s: makespan {served.makespan:.6g}, fluid ratio "
+          f"{served.metrics['fluid_ratio']:.6f}, mean latency {served.metrics['mean_latency']:.6g}, "
+          f"mean service {served.metrics['mean_service']:.6g}; all done {done}, two trees at "
+          f"once {overlap}, queued {waited}", flush=True)
+    check(sim.makespan == sess.schedule.makespan, "phase 8c: simulate differs from plan('online')")
+    check(abs(sim.metrics["fluid_ratio"] - 1.0) <= 1e-9, "phase 8c: simulate off the fluid bound")
+    check(done and served.metrics["mean_latency"] >= served.metrics["mean_service"],
+          "phase 8c: serve")
+    check(overlap and waited > 0, "phase 8c: the requests never shared the card or queued")
+    total = {k: launches_a[k] + sum(launches_b[m][k] for m in launches_b) for k in fc.KERNELS}
+    return {
+        "launches": total,
+        "execute_online_random_spd2500_f64": {
+            "wall_s": wall, "online_host_s": online.host_s,
+            "plan_and_executor_s": wall - online.host_s, "makespan_s": rep.measured_makespan,
+            "n_events": online.n_events, "n_reshares": online.n_reshares,
+            "n_dispatches": rep.n_dispatches, "residual": res, "launches": launches_a},
+        "session_online_poisson60_f64": {
+            "plan_online_host_s": plan_s, "residual": res_b,
+            "execute_wall_s": walls, "launches": launches_b,
+            "makespan_s": {m: runs[m].makespan for m in runs},
+            "n_dispatches": {m: runs[m].metrics["n_dispatches"] for m in runs}},
+        "simulate_serve_poisson60": {
+            "simulate_host_s": sim_s, "simulate_makespan": sim.makespan,
+            "simulate_fluid_ratio": sim.metrics["fluid_ratio"], "serve_host_s": serve_s,
+            "serve_makespan": served.makespan, "serve_fluid_ratio": served.metrics["fluid_ratio"],
+            "serve_mean_latency": served.metrics["mean_latency"],
+            "serve_overlap": overlap, "serve_queued": waited},
     }
 
 
@@ -561,6 +754,14 @@ def main() -> int:
         random_spd,
     )
 
+    start = time.perf_counter()
+    phase_s = {}
+
+    def stamp(phase: str) -> None:
+        """Print and keep the seconds since the start at each phase."""
+        phase_s[phase] = time.perf_counter() - start
+        print(f"[t+{phase_s[phase]:.1f} s] phase {phase}", flush=True)
+
     smi = nvidia_smi()
     print(f"[1] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
@@ -569,9 +770,11 @@ def main() -> int:
     print(f"[1] built {lib.relative_to(_build.BUILD_DIR.parents[1])} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    stamp("2")
     rec = phase_kernels(fc)
 
     # ---- main path: each run with its counters set to 0 just before ----
+    stamp("3")
     g = 200
     ap = permute_symmetric(grid_laplacian_2d(g), nested_dissection_2d(g))
     fact, report, wall, (symb, plan) = drive("3 poisson200 f64", ap, torch.float64, counters=fc)
@@ -583,6 +786,7 @@ def main() -> int:
     check(launches3["front_factor"] > 0, "phase 3: front_factor never launched")
     check(all(v == 0 for v in plain3.values()), f"phase 3: plain versions ran: {plain3}")
 
+    stamp("4")
     t0 = time.perf_counter()
     a = random_spd(2500, 8.0, np.random.default_rng(0))
     ap4 = permute_symmetric(a, min_degree(a))
@@ -616,6 +820,7 @@ def main() -> int:
     prof3 = profile_run("3 poisson200 f64", ap, symb, plan, torch.float64)
 
     # ---- modes on the card -------------------------------------------
+    stamp("5")
     g = 60
     ap5 = permute_symmetric(grid_laplacian_2d(g), nested_dissection_2d(g))
     fa, *_ = drive("5 poisson60 f64 async", ap5, torch.float64, "async")
@@ -631,9 +836,15 @@ def main() -> int:
     check(res6 <= 1e-5, f"phase 5 f32 residual {res6}")
 
     # ---- the flash-attention kernel, then the facade -------------------
+    stamp("6")
     rec["flash_attention"] = phase_flash(flash)
+    stamp("7")
     e2e7 = phase_facade(fc, fact, report, wall)
     launches7 = e2e7["session_poisson200_f64"]["launches"]
+    stamp("8")
+    e2e8 = phase_online(fc, ap4, symb4, fact4, fa)
+    stamp("end")
+    launches8 = e2e8.pop("launches")
 
     replaces = {
         "front_factor": "src/repro/kernels/frontal_cholesky.py:98",
@@ -646,8 +857,11 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/frontal_cholesky.cu",
             "replaces": replaces[k],
-            "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200)",
-            "launches": launches[k] + launches7[k],
+            "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200) + 8 "
+                    "(execute_online, random SPD 2500; plan('online') Poisson 60, async and waves)",
+            "launches": launches[k] + launches7[k] + launches8[k],
+            "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],
+                                  "8": launches8[k]},
             **rec[k],
         }
         for k in fc.KERNELS
@@ -671,7 +885,9 @@ def main() -> int:
             "random_spd2500_f64_async": {"wall_s": wall4, "makespan_s": report4.measured_makespan,
                                          "n_dispatches": report4.n_dispatches, "residual": res4},
             **e2e7,
-        }
+            **e2e8,
+        },
+        "phase_start_s": phase_s,
     }), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,9 +12,8 @@ Three concepts, one result type:
   the :func:`register_policy` decorator in their own file.
 * :class:`Session`   — the fluent driver:
   ``Session(platform).analyze(A, alpha=0.9).plan(policy="greedy")`` then
-  ``.execute(dtype=...)`` on the platform's devices.  ``.simulate`` and
-  ``.serve`` (and the ``static``/``online`` policies) raise
-  ``NotImplementedError`` until the online modules are ported.
+  ``.execute(dtype=...)`` on the platform's devices, ``.simulate(noise=...)``
+  (event loop) or ``.serve(stream)`` (request serving, in virtual time).
 
 Every path produces the same :class:`Schedule` (§4 validation, fluid
 lower bound, JSON round-trip, Gantt/trace export) and, when run, a

@@ -287,17 +287,25 @@ class GreedyProportionalPolicy(_ListSchedulePolicy):
 
 # ----------------------------------------------------------------------
 class _OnlinePolicy(Policy):
-    """Plan by running the deterministic (zero-noise) online loop.
-
-    Registered under the reference's names so the registry matches it;
-    planning needs ``repro_torch.online.scheduler``, not ported yet."""
+    """Plan by running the deterministic (zero-noise) online loop."""
 
     share_policy = "pm"
 
     def plan(self, problem: Problem, platform: Platform) -> Schedule:
-        raise NotImplementedError(
-            f"policy {self.name!r} needs repro_torch.online.scheduler, not "
-            f"ported yet (ROADMAP queue 1 item 7)"
+        from repro_torch.online.scheduler import OnlineScheduler
+
+        self._require_constant(platform, "the online planner")
+        sched = OnlineScheduler(
+            platform.to_pool(), problem.alpha, policy=self.share_policy
+        )
+        sched.submit(problem)
+        report = sched.run()
+        return Schedule.from_online(
+            report,
+            policy=self.name,
+            platform=platform.describe(),
+            fluid_makespan=self._fluid(problem, platform),
+            tree_id=0,
         )
 
 

@@ -1,7 +1,7 @@
 """The fluent facade: ``Session(platform).analyze(A).plan().execute()``.
 
 One object strings the whole pipeline together — tree of `p^α` malleable
-tasks → policy plan → executed run — over any
+tasks → policy plan → (simulated | executed | served) run — over any
 :class:`~repro_torch.api.platform.Platform` and any registered
 :class:`~repro_torch.api.policy.Policy`.  Every step returns ``self`` until
 a terminal verb produces a :class:`~repro_torch.api.schedule.RunReport`:
@@ -20,15 +20,21 @@ Terminal verbs:
   passes them); needs a problem that came from a matrix (``analyze``) and
   converts the current schedule to an ExecutionPlan (exact when
   discretized).
-* ``simulate`` and ``serve`` (the online event loop and request serving)
-  raise :class:`NotImplementedError`: their modules are not ported yet
-  (ROADMAP queue 1 items 7 and 8).
+* ``simulate(noise=..., events=...)`` — the discrete-event online loop
+  (duration noise, capacity edits, failures) on the planned problem.
+* ``serve(stream)`` — multi-tenant request serving through the admission
+  queue, in virtual time.  ``serve(cluster=...)`` (a scheduler/worker
+  cluster) and ``serve(dashboard_port=...)`` (the live dashboard) raise
+  :class:`NotImplementedError`: ``repro_torch.cluster`` and
+  ``repro_torch.obs.dashboard`` are not ported yet (ROADMAP queue 1 item 8
+  and item 4's gap).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .platform import Platform, as_platform
@@ -203,11 +209,85 @@ class Session:
         return self.schedule
 
     # -- terminal verbs -------------------------------------------------
-    def simulate(self, **kwargs) -> RunReport:
-        """The discrete-event online loop: not ported yet."""
-        raise NotImplementedError(
-            "Session.simulate needs repro_torch.online.scheduler, not ported "
-            "yet (ROADMAP queue 1 item 7)"
+    def _memory_capacity(self, memory_budget: Optional[float]) -> float:
+        """The byte pool online admission gates on: an explicit budget,
+        else the platform's real memory."""
+        if memory_budget is not None:
+            return float(memory_budget)
+        return self.platform.resources().total_memory()
+
+    def simulate(
+        self,
+        *,
+        noise=None,
+        events: Sequence[Tuple[float, object]] = (),
+        policy: Optional[str] = None,
+        speedup_floor: bool = False,
+        until: float = np.inf,
+        memory_budget: Optional[float] = None,
+    ) -> RunReport:
+        """Run the problem through the discrete-event online scheduler.
+
+        ``policy`` is the share rule (``pm`` / ``proportional`` /
+        ``static`` / ``static-proportional``); defaults to the planned
+        policy when that is a share rule, else ``pm``.  ``events`` are
+        ``(time, payload)`` pairs of online events (SetCapacity,
+        SetNodeSpeed, TaskFailure); a non-constant platform profile is
+        injected automatically as SetCapacity steps.  Admission is
+        memory-aware: a problem whose minimal peak cannot fit the
+        platform's memory (or the ``memory_budget`` override) is
+        refused.
+        """
+        from repro_torch.online.events import SetCapacity
+        from repro_torch.online.scheduler import SHARE_POLICIES, OnlineScheduler
+
+        problem = self._require_problem()
+        if policy is None:
+            planned = self.schedule.policy if self.schedule else "pm"
+            policy = planned if planned in SHARE_POLICIES else "pm"
+        steps = self.platform.profile().steps
+        sched = OnlineScheduler(
+            self.platform.to_pool(),
+            problem.alpha,
+            policy=policy,
+            noise=noise,
+            speedup_floor=speedup_floor,
+            memory_capacity=self._memory_capacity(memory_budget),
+        )
+        profile = self.platform.profile()
+        t_acc = 0.0
+        for d, p in steps[:-1]:
+            t_acc += d
+            sched.inject(t_acc, SetCapacity(float(profile.p_at(t_acc))))
+        for t, payload in events:
+            sched.inject(t, payload)
+        sched.submit(problem)
+        report = sched.run(until=until)
+        realized = Schedule.from_online(
+            report,
+            policy=f"online-{policy}",
+            platform=self.platform.describe(),
+            tree_id=0,
+        )
+        realized.attach_memory(problem)
+        fluid = realized.fluid_makespan
+        return RunReport(
+            kind="simulated",
+            schedule=realized,
+            makespan=report.makespan,
+            fluid_makespan=fluid,
+            planned=self.schedule,
+            metrics=_clean_metrics(
+                {
+                    "utilization": report.utilization,
+                    "n_events": float(report.n_events),
+                    "n_reshares": float(report.n_reshares),
+                    "fluid_ratio": (
+                        report.makespan / fluid if fluid > 0 else None
+                    ),
+                }
+            ),
+            detail=report,
         )
 
     def execute(
@@ -303,11 +383,130 @@ class Session:
             artifact=fact,
         )
 
-    def serve(self, stream, **kwargs) -> RunReport:
-        """Multi-tenant request serving: not ported yet."""
-        raise NotImplementedError(
-            "Session.serve needs repro_torch.online.queue (and .cluster for "
-            "cluster=), not ported yet (ROADMAP queue 1 items 7 and 8)"
+    def serve(
+        self,
+        stream: Iterable,
+        *,
+        policy: str = "pm",
+        admission: str = "fifo",
+        max_concurrent: Optional[int] = None,
+        qos_weights: Optional[dict] = None,
+        noise=None,
+        speedup_floor: bool = False,
+        alpha: Optional[float] = None,
+        memory_budget: Optional[float] = None,
+        dashboard_port: Optional[int] = None,
+        cluster=None,
+        time_scale: float = 0.0,
+    ) -> RunReport:
+        """Serve a stream of tree requests on this platform.
+
+        Stream items: ``TreeRequest``, ``Problem`` (arrival 0), or
+        ``(tree_or_problem, arrival)`` / ``(tree_or_problem, arrival,
+        tenant)`` tuples.  α comes from the loaded problem, the
+        ``alpha`` argument, or the first Problem in the stream.
+
+        Admission is memory-aware: the platform's memory (or the
+        ``memory_budget`` override) is a pool; a tree is only admitted
+        when its minimal peak fits next to the already-admitted trees'
+        peaks (delayed otherwise), and a tree that can never fit is
+        refused at submission.
+
+        ``qos_weights`` maps tenant id → relative share weight for the
+        ``admission="fair"`` policy (a weight-2 tenant is admitted as if
+        it had consumed half its actual service); tenants without an
+        entry weigh 1.
+
+        ``cluster`` (a scheduler/worker cluster backend, with
+        ``time_scale`` pacing its submissions) and ``dashboard_port`` (the
+        live observability dashboard) are the reference's; both raise
+        :class:`NotImplementedError` here until ``repro_torch.cluster``
+        (ROADMAP queue 1 item 8) and ``repro_torch.obs.dashboard`` (item
+        4's gap) are ported.
+        """
+        from repro_torch.online.queue import TreeRequest, serve_trees
+
+        if cluster is not None:
+            raise NotImplementedError(
+                "Session.serve(cluster=) needs repro_torch.cluster, not ported "
+                "yet (ROADMAP queue 1 item 8)"
+            )
+        if dashboard_port is not None:
+            raise NotImplementedError(
+                "Session.serve(dashboard_port=) needs repro_torch.obs.dashboard, "
+                "not ported yet (ROADMAP queue 1 item 4's gap)"
+            )
+
+        items = list(stream)
+        if alpha is None and self.problem is not None:
+            alpha = self.problem.alpha
+        if alpha is None:  # pre-scan: any Problem in the stream fixes α
+            for item in items:
+                inner = item[0] if isinstance(item, tuple) and item else item
+                if isinstance(inner, Problem):
+                    alpha = inner.alpha
+                    break
+        if alpha is None:
+            raise ValueError(
+                "serve() could not determine alpha; load a problem, pass "
+                "alpha=, or put a Problem in the stream"
+            )
+        reqs: List[TreeRequest] = []
+        for item in items:
+            if isinstance(item, TreeRequest):
+                reqs.append(item)
+                continue
+            arrival, tenant = 0.0, 0
+            if isinstance(item, tuple):
+                if len(item) == 3:
+                    item, arrival, tenant = item[0], float(item[1]), int(item[2])
+                elif len(item) == 2:
+                    item, arrival = item[0], float(item[1])
+                else:
+                    raise ValueError(
+                        "stream tuples are (problem, arrival[, tenant])"
+                    )
+            prob = as_problem(item, alpha)
+            reqs.append(
+                TreeRequest(
+                    tree=prob, arrival=arrival, tenant=tenant, rid=len(reqs)
+                )
+            )
+        report = serve_trees(
+            reqs,
+            self.platform.to_pool(),
+            alpha,
+            policy=policy,
+            admission=admission,
+            max_concurrent=max_concurrent,
+            weights=qos_weights,
+            noise=noise,
+            speedup_floor=speedup_floor,
+            memory_capacity=self._memory_capacity(memory_budget),
+        )
+        realized = Schedule.from_online(
+            report,
+            policy=f"serve-{policy}",
+            platform=self.platform.describe(),
+        )
+        fluid = realized.fluid_makespan
+        return RunReport(
+            kind="served",
+            schedule=realized,
+            makespan=report.makespan,
+            fluid_makespan=fluid,
+            planned=self.schedule,
+            metrics=_clean_metrics(
+                {
+                    "mean_latency": report.mean_latency(),
+                    "mean_service": report.mean_service(),
+                    "utilization": report.utilization,
+                    "fluid_ratio": (
+                        report.makespan / fluid if fluid > 0 else None
+                    ),
+                }
+            ),
+            detail=report,
         )
 
     # ------------------------------------------------------------------

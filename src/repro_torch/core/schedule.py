@@ -67,27 +67,27 @@ class ExplicitSchedule:
                 assert w >= tree.lengths[i] * (1 - rtol), (
                     f"task {i}: work {w} < length {tree.lengths[i]}"
                 )
-        # (iii) precedence: children complete before parent starts
+        # (iii) precedence: children complete before parent starts (the
+        # slack is the reference's, computed once: makespan() scans every
+        # piece)
+        slack = rtol * max(1.0, self.makespan())
         for i in range(tree.n):
             p = int(tree.parent[i])
             if p >= 0 and tree.lengths[p] > 0:
-                assert self.completion_time(i) <= self.start_time(p) + rtol * max(
-                    1.0, self.makespan()
-                ), f"task {p} starts before child {i} completes"
+                assert self.completion_time(i) <= self.start_time(p) + slack, (
+                    f"task {p} starts before child {i} completes"
+                )
         # (i) resource constraint at piece boundaries (shares are
         # piecewise-constant so checking midpoints of the event grid suffices)
-        events = sorted(
-            {p.t0 for ps in self.pieces.values() for p in ps}
-            | {p.t1 for ps in self.pieces.values() for p in ps}
-        )
+        flat = [p for ps in self.pieces.values() for p in ps]
+        t0 = np.array([p.t0 for p in flat], dtype=np.float64)
+        t1 = np.array([p.t1 for p in flat], dtype=np.float64)
+        events = sorted({p.t0 for p in flat} | {p.t1 for p in flat})
         for a, b in zip(events[:-1], events[1:]):
             mid = 0.5 * (a + b)
-            used = sum(
-                p.share
-                for ps in self.pieces.values()
-                for p in ps
-                if p.t0 <= mid < p.t1
-            )
+            # the pieces running at mid, summed in the reference's order
+            # (the mask only finds them: the same floats, the same sum)
+            used = sum(flat[j].share for j in np.flatnonzero((t0 <= mid) & (mid < t1)))
             cap = profile.p_at(mid)
             assert used <= cap * (1 + rtol) + 1e-9, (
                 f"resource violation at t={mid}: {used} > {cap}"

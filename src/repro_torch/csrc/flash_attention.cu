@@ -19,7 +19,8 @@
 // CTA owns one (batch*head, query tile) and loops over the KV tiles itself.
 // Causal: the tensor-core kernels schedule query tiles longest first across
 // every (batch, head) (the grid's fast axis is batch*head, its slow axis
-// runs from the last query tile; the CUDA-core kernel, within each head), KV
+// runs from the last query tile; the CUDA-core kernel, within each head,
+// batch*head on its y axis, one launch per 65535 of them), KV
 // tiles wholly in the future are not visited, and the mask is applied only
 // on tiles that cross the diagonal or the end of T.
 // Keys past T get probability exactly 0 (-inf), query rows past T are not
@@ -74,9 +75,14 @@
 //   k8 steps.  S and P stay in registers.  P's accumulator layout feeds the A operand
 //   directly by permuting the keys of each 8-key step (A column t <-> key
 //   2t, t+4 <-> 2t+1; V's rows are read in the same order).
-// * flash_fwd_kernel (the first kernel; the wrapper gives it 136 <= Dh <=
-//   256, in steps of 8, which the tensor-core kernels' shared memory does
-//   not hold): f32 math on the CUDA cores, operands from shared memory.
+// * flash_fwd_kernel (the first kernel; the wrapper gives it every Dh > 128,
+//   in steps of 8, which the tensor-core kernels' shared memory does not
+//   hold): f32 math on the CUDA cores, operands from shared memory.  Up to
+//   Dh 256 a CTA holds its Q tile and whole rows of K and V.  Past that
+//   (WIDE) a CTA owns one 128-column chunk of O (grid.z): it computes S
+//   over the full Dh by streaming Q and K through shared memory in
+//   128-column chunks, in the same order (the same bits as one pass), and
+//   reads only its chunk of V.  S is recomputed by every chunk of O.
 //
 // No atomics and a fixed summation order: two calls give the same bits.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
@@ -97,7 +103,9 @@ struct Strides {
 // flash_fwd_kernel (route simt): one CTA per (batch*head, 64-row query
 // tile), 64-key KV tiles, Q/K/V/P tiles in f32 shared memory (rows padded
 // to Dh+1 / 65 floats), 256 threads as 16x16 each owning 4x4 scores and
-// 4 x Dh/16 outputs; any strides, Dh 136..256 (built for NC = 16).
+// 4 x Dh/16 outputs; any strides, Dh 136..256 (built for NC = 16).  WIDE
+// (Dh > 256, built for NC = 8): one CTA per (batch*head, query tile,
+// 16*NC-column chunk of O), Q and K tiles of 16*NC columns at a time.
 // ----------------------------------------------------------------------
 constexpr int BQ = 64;    // query rows per CTA
 constexpr int BKV = 64;   // keys per KV tile
@@ -132,15 +140,16 @@ __device__ void load_tile(const Elem* base, Strides s, int r0, int rows,
 }
 
 // NC: 16-wide column chunks of Dh a thread's accumulator covers
-// (Dh <= 16 * NC).
-template <typename Elem, int NC>
+// (Dh <= 16 * NC; WIDE: the CTA's chunk of O is 16 * NC columns).
+template <typename Elem, int NC, bool WIDE>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                      const Elem* __restrict__ v, Elem* __restrict__ out,
                      int heads, int seq, int dh, int causal, float scale,
-                     Strides sq, Strides sk, Strides sv) {
+                     Strides sq, Strides sk, Strides sv, int bh0) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = dh + 1;
+  constexpr int DC = 16 * NC;  // WIDE: columns of a Q/K chunk and of O
+  const int ld = WIDE ? DC + 1 : dh + 1;
   float* Qs = smem;            // BQ  x ld
   float* Ks = Qs + BQ * ld;    // BKV x ld
   float* Vs = Ks + BKV * ld;   // BKV x ld
@@ -149,12 +158,16 @@ __global__ void __launch_bounds__(NT)
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int bh = bh0 + blockIdx.y;  // this launch's batch*head block
+  const int b = bh / heads, h = bh % heads;
+  const int c0 = WIDE ? blockIdx.z * DC : 0;  // the CTA's columns of O
+  const int dc = WIDE ? min(DC, dh - c0) : dh;
   const float neg_inf_f32 = __int_as_float(0xff800000);
 
-  load_tile(q + b * sq.b + h * sq.h, sq, q0, BQ, seq, dh, ld, scale, Qs);
+  const Elem* qb = q + b * sq.b + h * sq.h;
+  if constexpr (!WIDE) load_tile(qb, sq, q0, BQ, seq, dh, ld, scale, Qs);
   const Elem* kb = k + b * sk.b + h * sk.h;
-  const Elem* vb = v + b * sv.b + h * sv.h;
+  const Elem* vb = v + b * sv.b + h * sv.h + c0 * sv.d;
 
   float acc[4][NC];
   float m[4], l[4];
@@ -170,9 +183,11 @@ __global__ void __launch_bounds__(NT)
   const int kv_end = causal ? min(seq, q0 + BQ) : seq;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile(kb, sk, kv0, BKV, seq, dh, ld, 1.f, Ks);
-    load_tile(vb, sv, kv0, BKV, seq, dh, ld, 1.f, Vs);
-    __syncthreads();
+    if constexpr (!WIDE) {
+      load_tile(kb, sk, kv0, BKV, seq, dh, ld, 1.f, Ks);
+      load_tile(vb, sv, kv0, BKV, seq, dh, ld, 1.f, Vs);
+      __syncthreads();
+    }
 
     // S = (scale Q) K^T for the thread's 4 x 4 entries
     float s[4][4];
@@ -180,16 +195,40 @@ __global__ void __launch_bounds__(NT)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float a[4], bk[4];
+    if constexpr (WIDE) {
+      // Q and K by DC-column chunks, in column order (the same sums as one
+      // pass); V's chunk of O rides with the first
+      for (int d0 = 0; d0 < dh; d0 += DC) {
+        const int w = min(DC, dh - d0);
+        if (d0) __syncthreads();  // the previous chunk's readers are done
+        load_tile(qb + d0 * sq.d, sq, q0, BQ, seq, w, ld, scale, Qs);
+        load_tile(kb + d0 * sk.d, sk, kv0, BKV, seq, w, ld, 1.f, Ks);
+        if (!d0) load_tile(vb, sv, kv0, BKV, seq, dc, ld, 1.f, Vs);
+        __syncthreads();
+        for (int d = 0; d < w; ++d) {
+          float a[4], bk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
+          for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
+          for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        }
+      }
+    } else {
+      for (int d = 0; d < dh; ++d) {
+        float a[4], bk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+      }
     }
 
     // online softmax, row by row; the 16 lanes of a row reduce by shuffles
@@ -228,7 +267,7 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
 
-    // acc += P V
+    // acc += P V (the CTA's dc columns)
     for (int j = 0; j < BKV; ++j) {
       float p[4];
 #pragma unroll
@@ -236,7 +275,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = tx + 16 * c;
-        const float vv = d < dh ? Vs[j * ld + d] : 0.f;
+        const float vv = d < dc ? Vs[j * ld + d] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
@@ -248,31 +287,40 @@ __global__ void __launch_bounds__(NT)
     const int t = q0 + ty + 16 * i;
     if (t >= seq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    Elem* o = out + (((long long)b * seq + t) * heads + h) * dh;
+    Elem* o = out + (((long long)b * seq + t) * heads + h) * dh + c0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < dh) o[d] = from_f32<Elem>(acc[i][c] / den);
+      if (d < dc) o[d] = from_f32<Elem>(acc[i][c] / den);
     }
   }
 }
 
-template <typename Elem, int NC>
+template <typename Elem, int NC, bool WIDE>
 int run_flash(const void* q, const void* k, const void* v, void* out,
               int batch, int seq, int heads, int dh, int causal, float scale,
               Strides sq, Strides sk, Strides sv, void* stream) {
+  constexpr int DC = 16 * NC;
+  const int ld = WIDE ? DC + 1 : dh + 1;
   const size_t smem =
-      ((size_t)(BQ + 2 * BKV) * (dh + 1) + (size_t)BQ * PLD) * sizeof(float);
+      ((size_t)(BQ + 2 * BKV) * ld + (size_t)BQ * PLD) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<Elem, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<Elem, NC, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((seq + BQ - 1) / BQ, batch * heads);
-  flash_fwd_kernel<Elem, NC><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k),
-      static_cast<const Elem*>(v), static_cast<Elem*>(out), heads, seq, dh,
-      causal, scale, sq, sk, sv);
-  return (int)cudaGetLastError();
+  // query tiles on x (each head's longest first), batch*head on y, split
+  // into launches of at most 65535 (the y extent); WIDE: the chunks of O
+  // on z
+  const int bh = batch * heads;
+  for (int bh0 = 0; bh0 < bh; bh0 += 65535) {
+    dim3 grid((seq + BQ - 1) / BQ, min(65535, bh - bh0), WIDE ? (dh + DC - 1) / DC : 1);
+    flash_fwd_kernel<Elem, NC, WIDE><<<grid, NT, smem, (cudaStream_t)stream>>>(
+        static_cast<const Elem*>(q), static_cast<const Elem*>(k),
+        static_cast<const Elem*>(v), static_cast<Elem*>(out), heads, seq, dh,
+        causal, scale, sq, sk, sv, bh0);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 template <typename Elem>
@@ -281,9 +329,9 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                  float scale, Strides sq, Strides sk, Strides sv,
                  void* stream) {
   // every narrower Dh goes to the tensor-core kernels
-  if (dh <= 128 || dh > 256 || dh % 8) return (int)cudaErrorInvalidValue;
-  return run_flash<Elem, 16>(q, k, v, out, batch, seq, heads, dh, causal,
-                             scale, sq, sk, sv, stream);
+  if (dh <= 128 || dh % 8) return (int)cudaErrorInvalidValue;
+  return (dh <= 256 ? run_flash<Elem, 16, false> : run_flash<Elem, 8, true>)(
+      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
 }
 
 
@@ -980,8 +1028,8 @@ extern "C" {
 // the error that refused the launch).  Strides are in elements, in (B, T,
 // H, Dh) order, for q, k and v; the output is contiguous (B, T, H, Dh).
 //
-// The CUDA-core kernel: f32 or bf16, 136 <= Dh <= 256 in steps of 8 (anything
-// else: cudaErrorInvalidValue), any strides.
+// The CUDA-core kernel: f32 or bf16, Dh > 128 in steps of 8 (anything else:
+// cudaErrorInvalidValue), any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int seq, int heads, int dh,
                         int causal, float scale, long long qb, long long qt,

@@ -51,11 +51,16 @@
 // 132 SMs busy per front; then the row solves of (B).  No atomics and a fixed summation order everywhere: results are
 // deterministic and batch-invariant.
 //
-// syrk_kernel is BLAS syrk with uplo='L' (the host reads tril only): one
-// CTA per 64x64 tile; those on or below the diagonal run the same (C)
-// machinery (lower_downdate: cp.async ring, DMMA in f64, FFMA in f32; TF32
-// would miss the reference's tolerance), those above copy C through.  Half
-// the flops of the full product, the same bytes.
+// syrk_kernel computes C - A A^T over the lower 64x64 tiles with the same
+// (C) machinery (lower_downdate: cp.async ring, DMMA in f64, FFMA in f32;
+// TF32 would miss the reference's tolerance), one CTA per tile: half the
+// flops of the full product, the same bytes.  Two forms:
+//   * uplo='L' (BLAS syrk, what the large-front route reads): CTAs of their
+//     own copy the strictly-upper tiles of C through;
+//   * full (the reference's result): A A^T is symmetric, so the CTA of a
+//     lower tile (i, j) also writes the upper tile (j, i) as C(j, i) less
+//     the transpose of the product it holds, and a diagonal tile writes its
+//     entries above the diagonal from the full 64x64 product it computes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -155,8 +160,11 @@ __device__ __forceinline__ void lower_tile(int t, int nc, int& ti, int& tj) {
 // thread reads its 16 entries of cin for the first tile while the first
 // chunks load, and for each later tile when its first chunk is in hand, so
 // that load is under the tile's products.  K is a multiple of 16 bytes'
-// worth of elements; a last partial chunk is zero-filled.
-template <typename T, int CKT = CK>
+// worth of elements; a last partial chunk is zero-filled.  MIRROR (out !=
+// cin): every entry of a diagonal tile is downdated, and an off-diagonal
+// tile (ti, tj) also writes tile (tj, ti) of out as cin's (tj, ti) less the
+// transposed product.
+template <typename T, int CKT = CK, bool MIRROR = false>
 __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out, int ldc,
                                int nr, int nc, int rank, int cs, T* smem) {
   constexpr int LDT = CKT + 4;       // row stride of a stage's operand tile
@@ -199,15 +207,32 @@ __device__ void lower_downdate(const T* op, int lda, int K, const T* cin, T* out
     for (int u = 0; u < 16; ++u) {
       int r, c;
       rc(u, r, c);
-      cv[u] = (ti != tj || r >= c || copy) ? ldcg(cin + offset(ti, tj, r, c)) : T(0);
+      cv[u] = (MIRROR || ti != tj || r >= c || copy) ? ldcg(cin + offset(ti, tj, r, c)) : T(0);
     }
   };
   auto write_tile = [&](int ti, int tj, auto rc, const T (&cv)[16], T (&acc)[16]) {
+    if constexpr (MIRROR) {
+      if (ti != tj) {  // tile (tj, ti): cin's entries less the transposed product
+        T mv[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          int r, c;
+          rc(u, r, c);
+          mv[u] = ldcg(cin + offset(tj, ti, c, r));
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          int r, c;
+          rc(u, r, c);
+          out[offset(tj, ti, c, r)] = mv[u] - acc[u];
+        }
+      }
+    }
 #pragma unroll
     for (int u = 0; u < 16; ++u) {
       int r, c;
       rc(u, r, c);
-      if (ti != tj || r >= c)
+      if (MIRROR || ti != tj || r >= c)
         out[offset(ti, tj, r, c)] = cv[u] - acc[u];
       else if (copy)
         out[offset(ti, tj, r, c)] = cv[u];
@@ -594,18 +619,20 @@ __host__ __device__ constexpr int syrk_chunk() { return std::is_same<T, double>:
 template <typename T>
 constexpr size_t syrk_smem_bytes() { return (size_t)NS * 2 * GT * (syrk_chunk<T>() + 4) * sizeof(T); }
 
-// BLAS syrk, lower: one CTA per 64x64 tile of the (m x m) output.  The
-// first n(n+1)/2 CTAs downdate the tiles on or below the diagonal (tile t
-// in row-major order), c - a a^T, on the tensor cores in f64; the others
-// copy the strictly-upper tiles from c unchanged.
-template <typename T>
+// C - A A^T: the first n(n+1)/2 CTAs downdate the 64x64 tiles on or below
+// the diagonal (tile t in row-major order), on the tensor cores in f64.
+// FULL false (BLAS syrk, lower): one CTA per tile of the (m x m) output,
+// the others copy the strictly-upper tiles from c unchanged.  FULL true: no
+// more CTAs; each lower one writes its mirror tile too (lower_downdate's
+// MIRROR).
+template <typename T, bool FULL>
 __global__ void __launch_bounds__(NT)
     syrk_kernel(const T* c, const T* a, T* out, int m, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int n = m / GT, nlow = n * (n + 1) / 2;
-  if (blockIdx.x < nlow) {
-    lower_downdate<T, syrk_chunk<T>()>(a, k, k, c, out, m, n, n, blockIdx.x, nlow, smem);
+  if (FULL || blockIdx.x < nlow) {
+    lower_downdate<T, syrk_chunk<T>(), FULL>(a, k, k, c, out, m, n, n, blockIdx.x, nlow, smem);
     return;
   }
   // strictly-upper tile (tj, ti + 1): (ti, tj) runs over the lower tiles
@@ -727,15 +754,21 @@ cudaError_t smem_opt_in(size_t smem) {
   return e;
 }
 
-template <typename T>
-int launch_syrk(const void* c, const void* a, void* out, int m, int k, void* stream) {
+template <typename T, bool FULL>
+int run_syrk(const void* c, const void* a, void* out, int m, int k, void* stream) {
   constexpr size_t smem = syrk_smem_bytes<T>();
-  cudaError_t e = smem_opt_in<syrk_kernel<T>>(smem);
+  cudaError_t e = smem_opt_in<syrk_kernel<T, FULL>>(smem);
   if (e != cudaSuccess) return (int)e;
   const int n = m / GT;
-  syrk_kernel<T><<<n * n, NT, smem, (cudaStream_t)stream>>>(
+  syrk_kernel<T, FULL><<<FULL ? n * (n + 1) / 2 : n * n, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(c), static_cast<const T*>(a), static_cast<T*>(out), m, k);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_syrk(const void* c, const void* a, void* out, int m, int k, int lower,
+                void* stream) {
+  return (lower ? run_syrk<T, false> : run_syrk<T, true>)(c, a, out, m, k, stream);
 }
 
 }  // namespace
@@ -756,11 +789,14 @@ int panel_factor_f32(void* a, int mp, int nb, void* stream) {
 int panel_factor_f64(void* a, int mp, int nb, void* stream) {
   return launch_panel<double>(a, mp, nb, stream);
 }
-int syrk_downdate_f32(const void* c, const void* a, void* out, int m, int k, void* stream) {
-  return launch_syrk<float>(c, a, out, m, k, stream);
+// lower != 0: uplo='L' (the strictly-upper part is c's); 0: the full result.
+int syrk_downdate_f32(const void* c, const void* a, void* out, int m, int k, int lower,
+                      void* stream) {
+  return launch_syrk<float>(c, a, out, m, k, lower, stream);
 }
-int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k, void* stream) {
-  return launch_syrk<double>(c, a, out, m, k, stream);
+int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k, int lower,
+                      void* stream) {
+  return launch_syrk<double>(c, a, out, m, k, lower, stream);
 }
 // The cluster that factors an (mp x mp) front (panel_factor: an mp-row
 // slab): its CTA count, and how many such clusters the card holds at once

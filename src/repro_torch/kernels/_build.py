@@ -41,7 +41,8 @@ SIGNATURES = {
         for name, args in (
             ("front_factor", [_VP, _CI, _CI, _CI, _VP]),
             ("panel_factor", [_VP, _CI, _CI, _VP]),
-            ("syrk_downdate", [_VP, _VP, _VP, _CI, _CI, _VP]),
+            # c, a, out, m, k, lower (uplo='L' when not 0), stream
+            ("syrk_downdate", [_VP, _VP, _VP, _CI, _CI, _CI, _VP]),
             # mp, out: CTAs per cluster, out: clusters resident at once, stream
             ("front_cluster_room", [_CI, _PI, _PI, _VP]),
         )

@@ -14,15 +14,22 @@ this function on its main path, as nothing in ``repro`` calls the TPU
 kernel: it is a public kernel entry point.
 
 The wrapper takes the plain version when q, k and v lie on the CPU and
-launches a kernel for CUDA tensors (f32 or bf16, 8 ≤ Dh ≤ 256 in steps
-of 8, any strides); it raises on anything else.  Which kernel is a pure
-function of the dtype and Dh (:func:`route`):
+launches a kernel for CUDA tensors of any Dh, any B·H and any strides, in
+f32, bf16, f16 or f64; it raises on anything else.  As the reference
+does, f16 and f64 are computed in f32: they are converted to f32 on the
+way in and the f32 kernel's output is rounded once to q's dtype on the
+way out.  A Dh that is not a multiple of 8 is padded with zero columns to
+the next one (exact: they add 0 to every dot product and to the padded
+output columns, which are sliced off), with the true Dh's scale.  Which
+kernel runs is a pure function of the dtype and Dh (:func:`route`):
 
 * ``"wgmma_tma"``: bf16 with Dh ≤ 128, warpgroup MMA fed by TMA;
-* ``"mma_3xtf32"``: f32 with Dh ≤ 128, ``mma.sync`` in TF32 with the
-  three-product split (about f32 accuracy);
-* ``"simt"``: 136 ≤ Dh ≤ 256, the first kernel (f32 math on the CUDA
-  cores), whose tiles the tensor-core kernels' shared memory does not hold.
+* ``"mma_3xtf32"``: f32 (f16, f64) with Dh ≤ 128, ``mma.sync`` in TF32
+  with the three-product split (about f32 accuracy);
+* ``"simt"``: Dh > 128, the first kernel (f32 math on the CUDA cores),
+  whose tiles the tensor-core kernels' shared memory does not hold; past
+  Dh 256 each block computes one 128-column chunk of the output and
+  recomputes S for it.
 
 The tensor-core kernels are built for tiles of 64 and 128 Dh-columns; a
 narrower Dh runs in the next of the two, padded with zero columns in
@@ -48,7 +55,6 @@ import torch
 from ._build import launch
 
 NEG_INF = -1e30
-DH_MAX = 256
 
 KERNELS = ("flash_attention",)
 ROUTES = ("wgmma_tma", "mma_3xtf32", "simt")
@@ -83,14 +89,27 @@ def _count(table: Dict[str, int], route: str = "") -> None:
             ROUTE_LAUNCHES[route] += 1
 
 
+# the type each input type is computed in on the card (the reference
+# computes in f32 and rounds once to q's type)
+KERNEL_DTYPE = {torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
+                torch.float16: torch.float32, torch.float64: torch.float32}
+
+
+def padded_dh(dh: int) -> int:
+    """The Dh the kernels run: ``dh`` rounded up to a multiple of 8."""
+    return -(-dh // 8) * 8
+
+
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel that takes (dtype, Dh) on the card: ``"wgmma_tma"`` for
-    bf16 and ``"mma_3xtf32"`` for f32 when Dh ≤ ``TC_DH_MAX``, else
-    ``"simt"``."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: kernel takes float32 or bfloat16, got {dtype}")
-    if dh <= TC_DH_MAX:
-        return "wgmma_tma" if dtype == torch.bfloat16 else "mma_3xtf32"
+    bf16 and ``"mma_3xtf32"`` for f32, f16 and f64 (run in f32) when the
+    padded Dh is at most ``TC_DH_MAX``, else ``"simt"``."""
+    if dtype not in KERNEL_DTYPE:
+        raise TypeError(
+            f"flash_attention: takes float32, bfloat16, float16 or float64, got {dtype}"
+        )
+    if padded_dh(dh) <= TC_DH_MAX:
+        return "wgmma_tma" if KERNEL_DTYPE[dtype] == torch.bfloat16 else "mma_3xtf32"
     return "simt"
 
 
@@ -114,6 +133,24 @@ def kernel_inputs(q, k, v, rt: str):
         return q, k, v
     return tuple(x if tma_ready(x) else x.clone(memory_format=torch.contiguous_format)
                  for x in (q, k, v))
+
+
+def kernel_operands(q, k, v):
+    """(q, k, v, scale) as the kernels take them: in :data:`KERNEL_DTYPE`
+    of q's type, Dh padded with zero columns to :func:`padded_dh` (new
+    tensors where either changes), and the scale of the true Dh.  Any
+    device: the CPU tests hold it against the plain version."""
+    dh = q.shape[-1]
+    kdtype, dhp = KERNEL_DTYPE[q.dtype], padded_dh(dh)
+
+    def operand(x):
+        if dhp == dh:
+            return x.to(kdtype)  # x itself when the type is already right
+        out = x.new_zeros((*x.shape[:-1], dhp), dtype=kdtype)
+        out[..., :dh] = x  # converted and padded in one copy
+        return out
+
+    return operand(q), operand(k), operand(v), dh**-0.5
 
 
 def _blocks(q, k, v, block_q: int, block_kv: int) -> Tuple[int, int]:
@@ -187,7 +224,8 @@ def flash_attention(
     ``block_q``/``block_kv`` are the reference kernel's tiles: they set the
     plain version's blocking and the reference's rule that they divide T
     (``ValueError`` otherwise); the CUDA kernels tile by their own sizes
-    and mask the ragged edge.  On the card the route is :func:`route`'s."""
+    and mask the ragged edge.  On the card the route is :func:`route`'s;
+    f16 and f64 run in f32, and Dh is padded to :func:`padded_dh`."""
     _blocks(q, k, v, block_q, block_kv)
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_plain(q, k, v, causal, block_q, block_kv)
@@ -199,20 +237,19 @@ def flash_attention(
             raise TypeError(f"flash_attention: mixed dtypes {dtype} and {x.dtype}")
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    b, t, h, dh = q.shape
-    if dh > DH_MAX or dh % 8:
-        raise ValueError(f"flash_attention: Dh={dh} must be a multiple of 8 and <= {DH_MAX}")
+    dh = q.shape[-1]
     rt = route(dtype, dh)
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: B*H={b * h} exceeds the grid's 65535")
-    out = torch.empty((b, t, h, dh), dtype=dtype, device=dev)
+    q, k, v, scale = kernel_operands(q, k, v)
+    b, t, h, dhp = q.shape
+    out = torch.empty((b, t, h, dhp), dtype=q.dtype, device=dev)
     if out.numel():
         q, k, v = kernel_inputs(q, k, v, rt)
         launch(
-            _ENTRY[rt][dtype], dev,
+            _ENTRY[rt][q.dtype], dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, h, dh, int(bool(causal)), dh**-0.5,
+            b, t, h, dhp, int(bool(causal)), scale,
             *q.stride(), *k.stride(), *v.stride(),
         )
         _count(LAUNCHES, rt)
-    return out
+    # the padding columns off, one rounding to the input type
+    return out[..., :dh].to(dtype).contiguous()

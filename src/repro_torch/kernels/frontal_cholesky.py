@@ -8,10 +8,10 @@ Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
   of padded fronts, one thread-block cluster per front.
 * ``panel_factor``  ← ``panel_factor``: ``[L11; A21·L11⁻ᵀ]`` of an (mp, nb)
   slab, for the large-front path (one cluster, the same device routine).
-* ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ``.  On the card it is
-  BLAS ``syrk`` with ``uplo='L'``: the lower triangle holds ``C − A·Aᵀ``,
-  the strictly-upper part holds C unchanged (the large-front route reads
-  ``tril`` only); its plain version computes the full product.
+* ``syrk_downdate`` ← ``syrk_downdate``: ``C − A·Aᵀ``, the full result by
+  default, as the reference returns it; ``uplo='L'`` is BLAS ``syrk``: the
+  lower triangle holds ``C − A·Aᵀ``, the strictly-upper part holds C
+  unchanged (what the large-front route reads: ``tril`` only).
 
 The CUDA source is ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
 and what bounds each kernel on the card are there).  It is built into the
@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -150,10 +150,16 @@ def panel_factor_plain(slab: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def syrk_downdate_plain(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`syrk_downdate`."""
+def syrk_downdate_plain(
+    c: torch.Tensor, a: torch.Tensor, uplo: Optional[str] = None
+) -> torch.Tensor:
+    """Plain version of :func:`syrk_downdate` (the same ``uplo`` rule)."""
+    _check_uplo(uplo)
     _count(PLAIN_RUNS, "syrk_downdate")
-    return c - a @ a.T
+    out = c - a @ a.T
+    if uplo == "L":
+        out = torch.tril(out) + torch.triu(c, 1)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -196,13 +202,30 @@ def panel_factor(slab: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def syrk_downdate(c: torch.Tensor, a: torch.Tensor, tile: int = 256) -> torch.Tensor:
-    """C − A·Aᵀ with C (M, M), A (M, K).
+def syrk_operand(a: torch.Tensor) -> torch.Tensor:
+    """A as the SYRK kernel reads it, 32 columns at a time: K padded with
+    zero columns (which add nothing to A·Aᵀ) to a multiple of 32, at least
+    one chunk (a new tensor where K changes).  Any device."""
+    k = a.shape[1]
+    kp = max(32, -(-k // 32) * 32)
+    return a if kp == k else torch.nn.functional.pad(a, (0, kp - k))
 
-    On the card only the lower triangle is computed (BLAS ``syrk``,
-    ``uplo='L'``: what the large-front route reads); the entries above the
-    diagonal are C's, copied through.  The plain version (CPU tensors)
-    computes the full product, as the reference kernel does.
+
+def _check_uplo(uplo: Optional[str]) -> None:
+    if uplo not in (None, "L"):
+        raise ValueError(f"syrk_downdate: uplo must be None or 'L', got {uplo!r}")
+
+
+def syrk_downdate(
+    c: torch.Tensor, a: torch.Tensor, tile: int = 256, uplo: Optional[str] = None
+) -> torch.Tensor:
+    """C − A·Aᵀ with C (M, M), A (M, K), any K.
+
+    ``uplo=None`` returns the full result, as the reference kernel does.
+    ``uplo='L'`` (BLAS ``syrk``) computes the lower triangle only, and the
+    entries above the diagonal are C's, copied through: what the
+    large-front route reads, at half the products.  On the card A is
+    padded by :func:`syrk_operand` (exact).
 
     ``tile`` (128 or 256) is the reference kernel's C tile.  It is only
     checked, for the reference's rule that M be a multiple of it; neither
@@ -212,16 +235,16 @@ def syrk_downdate(c: torch.Tensor, a: torch.Tensor, tile: int = 256) -> torch.Te
     m, k = a.shape
     if tile % TILE or m % tile:
         raise ValueError(f"syrk_downdate: M={m} is not a multiple of tile={tile}")
+    _check_uplo(uplo)
     if c.device.type == "cpu" and a.device.type == "cpu":
-        return syrk_downdate_plain(c, a)
+        return syrk_downdate_plain(c, a, uplo)
     suffix = _check_cuda("syrk_downdate", c, a)
-    if k % 32:
-        raise ValueError(f"syrk_downdate: K={k} must be a multiple of 32")
     # the kernel reads rows by 16-byte copies: a view off that alignment is
     # copied first
+    a = syrk_operand(a)
     c, a = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (c, a))
     out = torch.empty_like(c)
     if m:
         _launch("syrk_downdate", suffix, c.device, c.data_ptr(), a.data_ptr(), out.data_ptr(),
-                m, k)
+                m, a.shape[1], int(uplo == "L"))
     return out

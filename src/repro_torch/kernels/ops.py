@@ -58,12 +58,14 @@ def partial_cholesky(front: torch.Tensor, nb: int) -> Tuple[torch.Tensor, torch.
             trail = mp - k - pw
             if trail > 0:
                 # the reference's tile rule: syrk_downdate checks M % tile
-                # and otherwise ignores it (its CUDA kernel tiles C by 64)
+                # and otherwise ignores it (its CUDA kernel tiles C by 64);
+                # only the lower triangle is read, so uplo='L'
                 tile = 256 if trail % 256 == 0 else TILE
                 c = syrk_downdate(
                     out[k + pw :, k + pw :].contiguous(),
                     lp[pw:].contiguous(),
                     tile=tile,
+                    uplo="L",
                 )
                 out[k + pw :, k + pw :] = c
 

@@ -1,9 +1,15 @@
-"""Online scheduling — the part of ``repro.online`` ported so far.
+"""Online scheduling: the paper's profile-invariance (Lemma 4 / Thm 6)
+turned into an event-driven control layer that serves trees of malleable
+tasks as a service (port of ``repro.online``).
 
 events     discrete-event core: heap, virtual clock, pool, noise models
+state      dask-style task state machine + per-tree root futures
+scheduler  OnlineScheduler: O(n) PM re-share on every event, §4-valid
+queue      multi-tenant admission (FIFO / SJF-by-𝓛 / fair-share)
+replay     bridge an online run onto the plan executor (the card)
 
-``state``, ``scheduler``, ``queue`` and ``replay`` are not ported yet
-(ROADMAP queue 1 item 7).
+``OnlineScheduler`` is exported directly: the reference's PEP-562
+deprecation shim for it is not ported (ROADMAP queue 1, item 6's gap).
 """
 from .events import (
     Arrival,
@@ -17,5 +23,9 @@ from .events import (
     UniformNoise,
     VirtualClock,
 )
+from .queue import AdmissionQueue, TreeRequest, poisson_arrivals, serve_trees
+from .replay import execute_online, plan_from_online, run_online_plan
+from .scheduler import SHARE_POLICIES, OnlineReport, OnlineScheduler
+from .state import OnlineFailure, TreeFuture, TreeRun, combined_tree
 
 __all__ = [k for k in dir() if not k.startswith("_")]

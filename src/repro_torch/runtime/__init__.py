@@ -1,3 +1,10 @@
+from .elastic import (
+    ElasticController,
+    ElasticEvent,
+    HeartbeatMonitor,
+    run_elastic_online,
+    run_elastic_schedule,
+)
 from .executor import (
     ExecutionReport,
     PlanExecutor,

@@ -9,13 +9,7 @@ inside the port.
 
 Twins waiting for modules not ported yet (each listed here by name):
 
-* ROADMAP queue 1 item 7 (``online.{state,scheduler,queue,replay}``):
-  ``test_simulate_equals_online_scheduler``,
-  ``test_problem_alpha_mismatch_refused``,
-  ``test_replay_routes_through_problem``,
-  ``test_simulate_attaches_memory_timeline``,
-  ``test_serve_memory_admission_delays_and_refuses``;
-* ROADMAP queue 1 items 7 and 9 (``serve.pod_scheduler``, ``configs``):
+* ROADMAP queue 1 item 9 (``serve.pod_scheduler``, ``configs``):
   ``test_serve_equals_serve_online``;
 * not ported in this slice (the PEP-562 shims of ``api/_deprecate.py`` and
   the top-level lazy facade): ``test_top_level_lazy_facade``,
@@ -165,6 +159,53 @@ def test_at_least_six_policies_resolve_by_name():
         get_policy("no-such-policy")
 
 
+def test_simulate_equals_online_scheduler(rng):
+    from repro_torch.online.scheduler import OnlineScheduler
+
+    tree = random_assembly_tree(80, rng)
+    rep = Session(SharedMemory(24)).load(tree, ALPHA).simulate(policy="pm")
+    sched = OnlineScheduler(24, ALPHA)
+    sched.submit(tree)
+    legacy = sched.run()
+    assert rep.makespan == legacy.makespan
+    fluid = tree_equivalent_lengths(tree, ALPHA)[tree.root] / 24**ALPHA
+    assert rep.makespan == pytest.approx(fluid, rel=1e-12)
+    # and the reference's Session on the same tree: the same run, number
+    # for number
+    ref = rapi.Session(rapi.SharedMemory(24)).load(_ref_tree(tree), ALPHA).simulate(policy="pm")
+    assert rep.makespan == ref.makespan
+    assert rep.metrics == ref.metrics
+    assert rep.schedule.to_json() == ref.schedule.to_json()
+
+
+@pytest.mark.parametrize("policy", ["static", "online"])
+def test_online_policies_plan_as_the_reference(policy, rng):
+    """``plan("static")`` and ``plan("online")`` run the zero-noise online
+    loop: the same schedule JSON as the reference's, on a tree and on a
+    matrix problem."""
+    tree = random_assembly_tree(60, rng)
+    port = Session(SharedMemory(16)).load(tree, ALPHA).plan(policy).schedule
+    ref = rapi.Session(rapi.SharedMemory(16)).load(_ref_tree(tree), ALPHA).plan(policy).schedule
+    assert port.to_json() == ref.to_json()
+    port = Session(SharedMemory(16)).load(grid_problem(9)).plan(policy).schedule
+    ref = rapi.Session(rapi.SharedMemory(16)).load(grid_problem(9, rapi)).plan(policy).schedule
+    assert port.to_json() == ref.to_json()
+
+
+def test_online_plan_executes_on_cpu_lanes(x64):
+    """``plan("online")`` then ``execute``: async equal to waves bit for
+    bit, both within 1e-11 of the reference's execution in x64."""
+    sess = Session(DeviceMesh(CPU4, plan_devices=8)).load(grid_problem(9)).plan("online")
+    runs = {m: sess.execute(dtype=torch.float64, mode=m, warmup=False) for m in ("async", "waves")}
+    ref = rapi.Session(rapi.DeviceMesh(plan_devices=8)).load(grid_problem(9, rapi)).plan(
+        "online").execute(warmup=False)
+    for pa, pw, pr in zip(runs["async"].artifact.panels, runs["waves"].artifact.panels,
+                          ref.artifact.panels):
+        np.testing.assert_array_equal(pa, pw)
+        assert np.abs(pa - pr).max() / max(1.0, np.abs(pr).max()) < 1e-11
+    assert rel_residual(runs["async"].artifact, sess.problem.matrix) < 1e-12
+
+
 def test_policy_ordering_on_shared_memory(rng):
     """PM ≤ proportional ≤ divisible and PM ≤ greedy (all §4-valid)."""
     tree = random_assembly_tree(150, rng)
@@ -312,15 +353,18 @@ def test_device_mesh_without_cuda_raises(monkeypatch):
 
 
 def test_unported_verbs_raise():
+    """What is still unported raises, naming its ROADMAP item:
+    ``analyze_workload`` (item 9), ``serve(cluster=)`` (item 8),
+    ``serve(dashboard_port=)`` and ``RunReport.save_html`` (item 4's
+    gap)."""
     tree = random_assembly_tree(20, np.random.default_rng(0))
     sess = Session(SharedMemory(8)).load(tree, ALPHA)
-    for verb, args in ((sess.simulate, ()), (sess.serve, ([],)),
-                       (sess.analyze_workload, ("qwen3-4b",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            verb(*args)
-    for policy in ("static", "online"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            sess.plan(policy)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sess.analyze_workload("qwen3-4b")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        sess.serve([(sess.problem, 0.0)], cluster=2)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        sess.serve([(sess.problem, 0.0)], dashboard_port=0)
     rep = tapi.RunReport(kind="planned", schedule=sess.plan("pm").schedule,
                          makespan=1.0, fluid_makespan=1.0)
     with pytest.raises(NotImplementedError, match="dashboard"):
@@ -453,6 +497,34 @@ def test_facade_exports_match_reference():
 # ----------------------------------------------------------------------
 # Problem: the single source of α and lengths
 # ----------------------------------------------------------------------
+def test_problem_alpha_mismatch_refused(rng):
+    """A problem whose α differs from the scheduler's is refused, by both
+    packages."""
+    from repro.online.scheduler import OnlineScheduler as RefScheduler
+    from repro_torch.online.scheduler import OnlineScheduler
+
+    tree = random_assembly_tree(20, rng)
+    for sched, prob in ((OnlineScheduler(8, 0.7), Problem.from_tree(tree, 0.9)),
+                        (RefScheduler(8, 0.7), rapi.Problem.from_tree(_ref_tree(tree), 0.9))):
+        with pytest.raises(ValueError, match="alpha"):
+            sched.submit(prob)
+
+
+def test_replay_routes_through_problem():
+    from repro.online.replay import run_online_plan as ref_run_online_plan
+    from repro_torch.online.replay import run_online_plan
+
+    prob = grid_problem(9)
+    plan, report = run_online_plan(prob, 8)
+    assert plan.alpha == prob.alpha
+    assert plan.fluid_makespan == pytest.approx(prob.eq_root / 8**prob.alpha, rel=1e-12)
+    ref_plan, ref_report = ref_run_online_plan(grid_problem(9, rapi), 8)
+    assert repr(plan.tasks) == repr(ref_plan.tasks)
+    assert (plan.makespan, plan.fluid_makespan, plan.strategy) == (
+        ref_plan.makespan, ref_plan.fluid_makespan, ref_plan.strategy)
+    assert report.n_events == ref_report.n_events
+
+
 def test_problem_eq_cached_and_shared(rng):
     tree = random_assembly_tree(50, rng)
     prob = Problem.from_tree(tree, ALPHA)
@@ -585,6 +657,47 @@ def test_schedule_json_version1_still_loads():
     assert Schedule.from_json(old.to_json()).makespan == old.makespan
     with pytest.raises(ValueError):
         Schedule.from_dict({**doc, "version": 99})
+
+
+def test_serve_memory_admission_delays_and_refuses(rng):
+    from repro.core.memory import Footprints as RefFootprints
+
+    tree = random_assembly_tree(30, rng)
+    fp = synthetic_footprints(tree.n)
+    p1 = Problem.from_tree(tree, ALPHA, name="t1", footprints=fp)
+    p2 = Problem.from_tree(tree, ALPHA, name="t2", footprints=fp)
+    peak = p1.min_peak_memory()
+    # pool fits one tree at a time: the second is delayed, not refused
+    rep = Session(SharedMemory(8)).serve([(p1, 0.0), (p2, 0.0)], memory_budget=1.5 * peak)
+    fut = rep.detail.futures
+    assert fut[0].t_admit == 0.0
+    assert fut[1].t_admit >= fut[0].t_done - 1e-9
+    rep2 = Session(SharedMemory(8)).serve([(p1, 0.0), (p2, 0.0)])
+    assert rep2.detail.futures[1].t_admit == 0.0
+    assert rep2.makespan < rep.makespan
+    with pytest.raises(ValueError):
+        Session(SharedMemory(8)).serve([(p1, 0.0)], memory_budget=0.5 * peak)
+    with pytest.raises(ValueError):
+        Session(SharedMemory(8)).load(p1).simulate(memory_budget=0.5 * peak)
+    # the reference on the same problems: the same served run
+    rt = _ref_tree(tree)
+    rfp = RefFootprints(fp.front_bytes, fp.factor_bytes, fp.cb_bytes)
+    r1 = rapi.Problem.from_tree(rt, ALPHA, name="t1", footprints=rfp)
+    r2 = rapi.Problem.from_tree(rt, ALPHA, name="t2", footprints=rfp)
+    ref = rapi.Session(rapi.SharedMemory(8)).serve([(r1, 0.0), (r2, 0.0)],
+                                                   memory_budget=1.5 * peak)
+    assert (rep.makespan, rep.metrics) == (ref.makespan, ref.metrics)
+    assert rep.schedule.to_json() == ref.schedule.to_json()
+
+
+def test_simulate_attaches_memory_timeline():
+    prob = grid_problem(11)
+    rep = Session(SharedMemory(16)).load(prob).simulate(policy="pm")
+    assert rep.schedule.peak_memory() > 0
+    rep.schedule.validate(prob)
+    ref = rapi.Session(rapi.SharedMemory(16)).load(grid_problem(11, rapi)).simulate(policy="pm")
+    assert rep.schedule.peak_memory() == ref.schedule.peak_memory()
+    assert rep.schedule.to_json() == ref.schedule.to_json()
 
 
 def test_execute_reports_measured_vs_projected_peak():

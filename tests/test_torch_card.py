@@ -8,12 +8,13 @@ runs where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 5e-5 relative for f32 fronts, 1e-4 for the panel + SYRK route, 1e-11 for
-f64 (the JAX package's tolerances); ``syrk_downdate`` is BLAS syrk with
-uplo='L' on the card, so its lower triangle is compared and its
-strictly-upper part must equal C; 2e-5 max-abs for f32 attention and,
-for bf16 attention, element by element |got - ref| <= eps_bf16 * |ref| +
-2e-5 (the same f32 math within the f32 tolerance, then one rounding each:
-at most 2 bf16 ulps of the element).  The frontal kernels are also held
+f64 (the JAX package's tolerances); ``syrk_downdate`` is compared on both
+triangles by default and, with uplo='L' (BLAS syrk), on its lower triangle
+with its strictly-upper part equal to C; 2e-5 max-abs for f32 attention
+(and f64, computed in f32 as the reference does) and, for bf16 and f16
+attention, element by element |got - ref| <= eps * |ref| + 2e-5 (the same
+f32 math within the f32 tolerance, then one rounding each: at most 2 ulps
+of the element).  The frontal kernels are also held
 to determinism and batch invariance bit for bit.
 """
 import numpy as np
@@ -26,6 +27,7 @@ import repro_torch.sparse as tsparse
 from repro_torch.api import DeviceMesh, Session
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import partial_cholesky_ref
+from repro_torch.online import LognormalNoise, execute_online
 from repro_torch.runtime import PlanExecutor
 
 pytestmark = pytest.mark.gpu
@@ -113,11 +115,25 @@ def _check_syrk_lower(c, a, tile, tol):
     """BLAS syrk, uplo='L': the lower triangle against the plain version's
     full product, the strictly-upper part exactly C, two calls bit for bit."""
     before = fc.LAUNCHES["syrk_downdate"]
-    got = fc.syrk_downdate(c, a, tile=tile)
+    got = fc.syrk_downdate(c, a, tile=tile, uplo="L")
     assert fc.LAUNCHES["syrk_downdate"] == before + 1
     assert _rel(torch.tril(got), torch.tril(fc.syrk_downdate_plain(c, a))) < tol
     assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    torch.testing.assert_close(fc.syrk_downdate(c, a, tile=tile, uplo="L"), got, rtol=0, atol=0)
+    return got
+
+
+def _check_syrk_full(c, a, tile, tol):
+    """The default, the reference's full C − A·Aᵀ: both triangles against
+    the plain version, two calls bit for bit."""
+    before = fc.LAUNCHES["syrk_downdate"]
+    got = fc.syrk_downdate(c, a, tile=tile)
+    assert fc.LAUNCHES["syrk_downdate"] == before + 1
+    want = fc.syrk_downdate_plain(c, a)
+    assert _rel(torch.tril(got), torch.tril(want)) < tol
+    assert _rel(torch.triu(got, 1), torch.triu(want, 1)) < tol
     torch.testing.assert_close(fc.syrk_downdate(c, a, tile=tile), got, rtol=0, atol=0)
+    return got
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
@@ -125,10 +141,25 @@ def _check_syrk_lower(c, a, tile, tol):
                                       (640, 512, 128), (256, 96, 128)])
 def test_syrk_downdate_on_card(cuda, dtype, tol, m, k, tile, rng):
     """A small front's shape, chip_smoke's phase-2 shapes, the widest panel
-    (K=512) and a K that leaves a partial 64-wide chunk."""
+    (K=512) and a K that leaves a partial 64-wide chunk: uplo='L' and the
+    full result, whose lower triangles are the same bits."""
     c = torch.from_numpy(rng.normal(size=(m, m))).to(cuda, dtype)
     a = torch.from_numpy(rng.normal(size=(m, k))).to(cuda, dtype)
-    _check_syrk_lower(c, a, tile, tol)
+    lower = _check_syrk_lower(c, a, tile, tol)
+    full = _check_syrk_full(c, a, tile, tol)
+    assert torch.equal(torch.tril(full), torch.tril(lower))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("m,k", [(128, 1), (256, 40), (384, 128), (128, 0)])
+def test_syrk_downdate_full_any_k_on_card(cuda, dtype, tol, m, k, rng):
+    """Any K (padded with zero columns to a multiple of 32 in the wrapper,
+    K=0 included): the full result on both triangles, and uplo='L'."""
+    c = torch.from_numpy(rng.normal(size=(m, m))).to(cuda, dtype)
+    a = torch.from_numpy(rng.normal(size=(m, k))).to(cuda, dtype)
+    full = _check_syrk_full(c, a, 128, tol)
+    lower = _check_syrk_lower(c, a, 128, tol)
+    assert torch.equal(torch.tril(full), torch.tril(lower))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -190,11 +221,14 @@ def test_flash_attention_on_card(cuda, dtype, b, t, h, dh, bq, bkv, causal, rng)
 
 
 def _flash_check(got, want, dtype):
-    if dtype == torch.float32:
+    """f32 math: 2e-5 max-abs (f32, and f64 computed in f32); bf16 and f16:
+    element by element within eps·|ref| + 2e-5, one rounding each."""
+    assert got.dtype == want.dtype == dtype
+    if dtype in (torch.float32, torch.float64):
         assert float((got - want).abs().max()) < 2e-5
     else:
         torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=torch.finfo(torch.bfloat16).eps, atol=2e-5)
+                                   rtol=torch.finfo(dtype).eps, atol=2e-5)
 
 
 TC_ROUTE = {torch.bfloat16: "wgmma_tma", torch.float32: "mma_3xtf32"}
@@ -286,14 +320,87 @@ def test_flash_other_head_dims_take_the_simt_kernel(cuda, dtype, t, dh, causal, 
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 12, device=cuda)
-    with pytest.raises(ValueError, match="Dh"):
-        fa.flash_attention(q, q, q)
-    q = torch.zeros(1, 64, 2, 16, device=cuda, dtype=torch.float16)
+    """Types no route computes, mixed types and mixed devices; every Dh, B·H
+    and float type is taken (the tests below)."""
+    q = torch.zeros(1, 64, 2, 16, device=cuda, dtype=torch.int32)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 2, 16, device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.half(), q)
     with pytest.raises(ValueError):
-        fa.flash_attention(q.float(), q.float().cpu(), q.float())
+        fa.flash_attention(q, q.cpu(), q)
+
+
+FLASH_ANY_CASES = [  # (dtype, b, t, h, dh, causal)
+    (torch.float16, 1, 200, 3, 128, True), (torch.float64, 1, 200, 3, 128, False),
+    (torch.float16, 2, 96, 2, 64, False), (torch.float64, 1, 96, 2, 192, True),
+    (torch.float32, 1, 200, 2, 20, True), (torch.bfloat16, 1, 200, 2, 20, False),
+    (torch.float32, 1, 200, 2, 76, False), (torch.bfloat16, 2, 96, 2, 76, True),
+    (torch.float16, 1, 96, 2, 76, True), (torch.float64, 1, 96, 2, 20, False),
+    (torch.float32, 1, 200, 2, 264, True), (torch.bfloat16, 1, 96, 2, 264, False),
+    (torch.float32, 1, 200, 2, 320, False), (torch.bfloat16, 1, 200, 2, 320, True),
+    (torch.float16, 1, 96, 2, 330, True), (torch.float32, 1, 64, 1, 1000, True),
+]
+
+
+@pytest.mark.parametrize("dtype,b,t,h,dh,causal", FLASH_ANY_CASES)
+def test_flash_takes_every_type_and_head_dim(cuda, dtype, b, t, h, dh, causal, rng):
+    """f16 and f64 through the f32 route of their Dh, Dh not a multiple of
+    8 padded, Dh past 256 on the simt kernel's column chunks: against the
+    plain version at the unchanged bars, the same bits twice, and through
+    the route :func:`route` names."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    fa.reset_counters()
+    got = fa.flash_attention(q, k, v, causal, 8, 8)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {r: int(r == fa.route(dtype, dh)) for r in fa.ROUTES}
+    assert fa.PLAIN_RUNS["flash_attention"] == 0
+    assert got.shape == q.shape and got.is_contiguous()
+    _flash_check(got, fa.flash_attention_plain(q, k, v, causal, 8, 8), dtype)
+    torch.testing.assert_close(fa.flash_attention(q, k, v, causal, 8, 8), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 192), (torch.bfloat16, 136),
+                                      (torch.float32, 64), (torch.bfloat16, 128),
+                                      (torch.float32, 264)])
+def test_flash_takes_more_than_65535_heads(cuda, dtype, dh, rng):
+    """B·H = 65536 (more than a grid's y or z extent) on every route, the
+    simt kernel included, at a short T."""
+    b, t, h = 2, 16, 32768
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    fa.reset_counters()
+    got = fa.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {r: int(r == fa.route(dtype, dh)) for r in fa.ROUTES}
+    _flash_check(got, fa.flash_attention_plain(q, k, v, True), dtype)
+
+
+def test_execute_online_on_card(cuda):
+    """The online path in f64: online run → projected plan → executor on
+    the card; every front through the kernels (no plain run), the residual,
+    and async equal to waves bit for bit."""
+    g = 23
+    a = tsparse.grid_laplacian_2d(g)
+    ap = tsparse.permute_symmetric(a, tsparse.nested_dissection_2d(g))
+    symb = tsparse.analyze(ap, relax=1)
+    runs = {}
+    for mode in ("async", "waves"):
+        fc.reset_counters()
+        fact, rep, online = execute_online(ap, symb, 8, 0.9, noise=LognormalNoise(0.3, seed=3),
+                                           mode=mode, dtype=torch.float64)
+        assert fc.LAUNCHES["front_factor"] > 0
+        assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+        assert not rep.interpret and len(rep.trace) == symb.n_supernodes
+        online.validate()
+        runs[mode] = fact
+    dense = ap.toarray()
+    l = runs["async"].to_dense_l()
+    assert np.abs(l @ l.T - dense).max() / np.abs(dense).max() < 1e-12
+    for pa, pw in zip(runs["async"].panels, runs["waves"].panels):
+        np.testing.assert_array_equal(pa, pw)
 
 
 def test_session_execute_on_card(cuda):

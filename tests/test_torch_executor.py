@@ -193,7 +193,8 @@ def test_executor_contracts(grid23):
 
 def test_import_isolation():
     """Every port module (the facade, the optimizer, the straggler module,
-    the demo and the flash kernel's wrapper among them), chip_smoke and the
+    the online scheduler and its replay bridge, the elastic module, the
+    demo and the flash kernel's wrapper among them), chip_smoke and the
     card tests import neither jax nor repro."""
     code = """
 import importlib, pkgutil, sys
@@ -207,7 +208,10 @@ assert not bad, bad
 need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo",
         "repro_torch.kernels.flash_attention", "repro_torch.kernels._build",
         "repro_torch.sparse.optimize", "repro_torch.runtime.straggler",
-        "repro_torch.online.events", "repro_torch.core.hetero"}
+        "repro_torch.online.events", "repro_torch.core.hetero",
+        "repro_torch.online.state", "repro_torch.online.queue",
+        "repro_torch.online.scheduler", "repro_torch.online.replay",
+        "repro_torch.runtime.elastic"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """

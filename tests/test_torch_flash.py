@@ -308,17 +308,23 @@ def test_one_pass_bf16_p_misses_the_bar_documenting_the_split():
     (torch.bfloat16, 32, "wgmma_tma"), (torch.float32, 256, "simt"),
     (torch.float32, 8, "mma_3xtf32"), (torch.bfloat16, 96, "wgmma_tma"),
     (torch.bfloat16, 136, "simt"), (torch.float32, 80, "mma_3xtf32"),
+    # f16 and f64 run in f32; Dh is padded to a multiple of 8 first
+    (torch.float16, 128, "mma_3xtf32"), (torch.float64, 128, "mma_3xtf32"),
+    (torch.float32, 76, "mma_3xtf32"), (torch.bfloat16, 125, "wgmma_tma"),
+    (torch.float32, 121, "mma_3xtf32"), (torch.float32, 129, "simt"), (torch.float16, 320, "simt"), (torch.bfloat16, 264, "simt"),
 ])
 def test_route_rule(dtype, dh, want):
     """The card's kernel is a pure function of (dtype, Dh): the tensor-core
-    kernel of the dtype up to Dh 128 (padded to 64 or 128), simt above."""
+    kernel of the type it runs in up to a padded Dh of 128 (padded to 64 or
+    128), simt above."""
     assert fa.route(dtype, dh) == want
-    assert want in fa.ROUTES and dtype in fa._ENTRY[want]
+    assert want in fa.ROUTES and fa.KERNEL_DTYPE[dtype] in fa._ENTRY[want]
 
 
 def test_route_rule_rejects_other_dtypes():
-    with pytest.raises(TypeError):
-        fa.route(torch.float16, 128)
+    for dtype in (torch.int32, torch.complex64, torch.float8_e4m3fn):
+        with pytest.raises(TypeError):
+            fa.route(dtype, 128)
 
 
 def test_tensor_core_routes_copy_what_tma_cannot_read():
@@ -390,3 +396,61 @@ def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
     assert sorted(p.name for p in out.parent.iterdir()) == [out.name]
     assert _build.build_library() == out  # built once
     assert len(log.read_text().splitlines()) == len(calls)
+
+
+# ----------------------------------------------------------------------
+# What the wrapper hands a kernel on the card: types and padded Dh
+# ----------------------------------------------------------------------
+PAD_CASES = [  # (dtype, Dh, causal)
+    (torch.float16, 20, True), (torch.float32, 76, False), (torch.float64, 128, True),
+    (torch.float32, 264, True), (torch.bfloat16, 125, False), (torch.float16, 131, False),
+]
+
+
+def _plain_at_scale(q, k, v, scale, causal, bq):
+    """The plain version on padded operands with the kernels' ``scale``:
+    it scales q by Dh**-0.5 of the Dh it is given, so q comes in f32 with
+    that factor taken back out."""
+    q = q.float() * (scale * q.shape[-1] ** 0.5)
+    return fa.flash_attention_plain(q, k.float(), v.float(), causal, bq, bq)
+
+
+@pytest.mark.parametrize("dtype,dh,causal", PAD_CASES)
+def test_kernel_operands_keep_the_reference_semantics(dtype, dh, causal):
+    """The card's recipe, run here through the plain version: inputs in the
+    type they run in (f16 and f64 in f32), Dh padded with zero columns to
+    a multiple of 8 with the scale of the true Dh, the padding sliced off
+    and one rounding to the input type.  It must give the JAX kernel's
+    result (interpret mode) on the same inputs: 2e-5 max-abs for f32 math
+    (f32, and f64, which the reference also computes in f32), element by
+    element within eps·|ref| + 2e-5 for f16 and bf16 (one rounding)."""
+    t, h, bq = 64, 2, 32
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(1, t, h, dh, seed=dh))
+    qp, kp, vp, scale = fa.kernel_operands(q, k, v)
+    assert qp.dtype == fa.KERNEL_DTYPE[dtype] and qp.shape[-1] == fa.padded_dh(dh)
+    assert qp.shape[-1] % 8 == 0 and scale == dh**-0.5
+    assert not qp[..., dh:].any() and not kp[..., dh:].any() and not vp[..., dh:].any()
+    got = _plain_at_scale(qp, kp, vp, scale, causal, bq)[..., :dh].to(dtype)
+    assert got.dtype == dtype and got.shape == q.shape
+    # the reference in the input type (f64 as f32: its f64 run needs x64
+    # and casts to f32 all the same)
+    jdt = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}.get(dtype, jnp.float32)
+    want = torch.from_numpy(np.asarray(ref_flash(
+        *(jnp.asarray(x.float().numpy(), dtype=jdt) for x in (q, k, v)),
+        causal=causal, block_q=bq, block_kv=bq, interpret=True)).astype(np.float32))
+    eps = torch.finfo(dtype).eps if dtype in (torch.float16, torch.bfloat16) else 0.0
+    assert float(((got.float() - want).abs() - eps * want.abs()).max()) <= 2e-5
+    # and the port's unpadded plain version: the same function
+    plain = fa.flash_attention_plain(q, k, v, causal, bq, bq).float()
+    assert float(((got.float() - plain).abs() - eps * plain.abs()).max()) <= 2e-5
+
+
+def test_padding_with_the_padded_scale_would_show():
+    """The scale must be the true Dh's: the padded Dh's moves the result
+    far past the bar, so the test above tells the two apart."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 64, 2, 76, seed=3))
+    qp, kp, vp, scale = fa.kernel_operands(q, k, v)
+    right = _plain_at_scale(qp, kp, vp, scale, True, 32)[..., :76]
+    wrong = fa.flash_attention_plain(qp, kp, vp, True, 32, 32)[..., :76]  # Dh 80's scale
+    assert float((right - fa.flash_attention_plain(q, k, v, True, 32, 32)).abs().max()) < 2e-5
+    assert float((wrong - right).abs().max()) > 1e-3

@@ -111,6 +111,46 @@ def test_syrk_downdate_kernel(m, k, tile, rng):
     assert np.abs(got.numpy() - ref.numpy()).max() < 1e-2
 
 
+@pytest.mark.parametrize("k", [1, 40, 128])
+def test_syrk_downdate_uplo_rule(k, rng):
+    """``uplo=None`` is the reference's full C − A·Aᵀ (any K); ``uplo='L'``
+    keeps the lower triangle of it and C above the diagonal; the K padding
+    the card applies (``syrk_operand``) changes neither."""
+    m = 256
+    c = rng.normal(size=(m, m))
+    a = rng.normal(size=(m, k))
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(jsyrk_downdate(jnp.asarray(c), jnp.asarray(a), tile=128,
+                                         interpret=True))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    tc, ta = torch.from_numpy(c), torch.from_numpy(a)
+    full = fc.syrk_downdate(tc, ta, tile=128)
+    assert np.abs(full.numpy() - want).max() / max(1.0, np.abs(want).max()) < 1e-11
+    lower = fc.syrk_downdate(tc, ta, tile=128, uplo="L")
+    torch.testing.assert_close(torch.tril(lower), torch.tril(full), rtol=0, atol=0)
+    torch.testing.assert_close(torch.triu(lower, 1), torch.triu(tc, 1), rtol=0, atol=0)
+    padded = fc.syrk_operand(ta)
+    assert padded.shape == (m, max(32, -(-k // 32) * 32)) and not padded[:, k:].any()
+    torch.testing.assert_close(fc.syrk_downdate_plain(tc, padded), full, rtol=1e-14, atol=1e-12)
+    with pytest.raises(ValueError, match="uplo"):
+        fc.syrk_downdate(tc, ta, tile=128, uplo="U")
+
+
+def test_large_front_route_reads_the_lower_triangle(rng, monkeypatch):
+    """``partial_cholesky``'s large-front loop asks for ``uplo='L'``, so the
+    card does the lower triangle's work only."""
+    seen = []
+    real = tops.syrk_downdate
+    monkeypatch.setattr(tops, "syrk_downdate",
+                        lambda *a, **kw: seen.append(kw.get("uplo")) or real(*a, **kw))
+    monkeypatch.setattr(tops, "VMEM_FRONT_MAX", 256)
+    monkeypatch.setattr(tops, "OUTER_PANEL", 256)
+    tops.partial_cholesky(torch.from_numpy(_spd(520, rng, np.float64)), 384)
+    assert seen == ["L", "L"]
+
+
 def test_padding_pivots_are_inert(rng):
     """nb not a multiple of 128: padded pivots must not change results."""
     _both(160, 37, _spd(160, rng), 5e-5)

@@ -7,6 +7,7 @@ port: it is held against the reference within tolerance, and against the
 matrix by its residual.
 """
 import dataclasses
+import itertools
 import math
 
 import jax
@@ -137,8 +138,23 @@ def test_make_plan_matches(devices, alpha, strategy):
     )
 
 
+def _align_sp_ids() -> None:
+    """Start both packages' SP-node id counters at one value past every id
+    either has issued.  Ids come from a counter per package and process, so
+    earlier tests in the same worker that built more SP trees in one package
+    than in the other would give the same tree other ids; aligned, the
+    comparison below stays exact, ids included, and ids stay unique."""
+    import repro.core.graph as rgraph
+    import repro_torch.core.graph as tgraph
+
+    start = max(next(rgraph._fresh_id), next(tgraph._fresh_id))
+    rgraph._fresh_id = itertools.count(start)
+    tgraph._fresh_id = itertools.count(start)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_core_functions_match_on_random_trees(seed):
+    _align_sp_ids()
     tree = random_assembly_tree(60, np.random.default_rng(seed))
     tt = _twin_tree(tree)
     alpha, p = 0.85, 16.0
