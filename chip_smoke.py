@@ -30,12 +30,13 @@ card → ‖LLᵀ−A‖ check.
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
    causal bf16 and f32 at Dh=64, non-causal f32, causal f32 and bf16 at
    Dh=96 and at zamba2-2.7b's Dh=80 (both padded to 128 in the tensor-core
-   kernels), causal f32 and bf16 at Dh=192 (the simt kernel's route),
-   causal f16 and f64 at Dh=128 (computed in f32), causal f32 and bf16 at
-   Dh=76 (padded to 80) and at Dh=320 (the simt kernel by 128-column
-   chunks of O), causal f32 and bf16 at Dh=192 with B*H = 65600, T=64; each
-   through the route its (dtype, Dh) names (the per-route counter is
-   checked), against its plain version, twice bit for bit, with CUDA-event
+   kernels), causal f32 and bf16 at Dh=192 and 256 (the tensor-core
+   kernels' wide tiles), causal f16 and f64 at Dh=128 (computed in f32),
+   causal f32 and bf16 at Dh=76 (padded to 80) and at Dh=320 (the simt
+   kernel by 128-column chunks of O), causal f32 and bf16 at Dh=192 with
+   B*H = 65600, T=64; each through the route its (dtype, Dh) names (the
+   per-route counter is checked; every Dh up to 256 on a tensor-core
+   route), against its plain version, twice bit for bit, with CUDA-event
    times, the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    on f16 and f64 inputs converted to f32 and back, the port's function)
@@ -330,6 +331,7 @@ FLASH_CASES = [
     (torch.float32, False, 128), (torch.float32, True, 96), (torch.bfloat16, True, 96),
     (torch.float32, True, 80), (torch.bfloat16, True, 80), (torch.float32, True, 64),
     (torch.float32, True, 192), (torch.bfloat16, True, 192),
+    (torch.float32, True, 256), (torch.bfloat16, True, 256),
     # f16 and f64 run in f32 (the reference's semantics); Dh=76 padded to
     # 80; Dh=320 on the simt kernel's column chunks; B*H past 65535
     (torch.float16, True, 128), (torch.float64, True, 128),
@@ -343,9 +345,9 @@ def phase_flash(fa) -> dict:
     """The flash-attention kernels at qwen3-4b's attention widths and
     train_4k length (and Dh=64, the other head dim of the repo's configs;
     Dh=80, zamba2-2.7b's (d_model 2560 over 32 heads), Dh=96 and Dh=76 run
-    padded in the tensor-core kernels; Dh=192 and 320, wider than their
-    tiles, take the simt kernel, 320 by 128-column chunks of O; f16 and
-    f64 run in f32; B*H = 65600 at T=64).  For each case the public
+    padded in the tensor-core kernels; Dh=192 and 256 in their wide tiles;
+    Dh=320, wider than those, takes the simt kernel by 128-column chunks of
+    O; f16 and f64 run in f32; B*H = 65600 at T=64).  For each case the public
     function runs once with the counters set to 0 (the path run: its route
     counter must read 1), then against its plain version on the same
     inputs, then timed.  Returns one record per route: its first case, the
@@ -372,6 +374,8 @@ def phase_flash(fa) -> dict:
         check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
         check(routes == {r: int(r == route) for r in fa.ROUTES},
               f"flash {dtype} Dh={dh}: routes {routes}, expected {route}")
+        check((route == "simt") == (fa.padded_dh(dh) > 256),
+              f"flash {dtype} Dh={dh}: route {route}, tensor cores take every Dh up to 256")
         check(got.dtype == dtype and got.shape == q.shape, f"flash {dtype} Dh={dh}: output")
         want = fa.flash_attention_plain(q, k, v, causal)
         diff = (got.double() - want.double()).abs()
@@ -415,11 +419,11 @@ def phase_flash(fa) -> dict:
         # the kernel's own design, at the work it issues: Dh padded to a
         # multiple of 8; the tensor-core kernels run QK^T over it rounded up
         # to their k-step (16 wgmma, 8 mma.sync) and PV at the padded tile
-        # width (64 or 128); wgmma_tma runs PV twice (P split in two),
-        # mma_3xtf32 three TF32 passes of each, simt f32 math on the CUDA
-        # cores, QK^T once per 128-column chunk of O past Dh 256
+        # width (64, 128, 192 or 256); wgmma_tma runs PV twice (P split in
+        # two), mma_3xtf32 three TF32 passes of each, simt f32 math on the
+        # CUDA cores, QK^T once per 128-column chunk of O (Dh past 256)
         dhp = fa.padded_dh(dh)
-        dh_tile = 64 if dhp <= 64 else 128
+        dh_tile = next((w for w in (64, 128, 192, 256) if dhp <= w), dhp)
         chunks = 1 if dhp <= 256 else -(-dhp // 128)
         qk_flops = 2.0 * b * h * pairs * {"wgmma_tma": -(-dhp // 16) * 16, "mma_3xtf32": dhp,
                                           "simt": dhp * chunks}[route]

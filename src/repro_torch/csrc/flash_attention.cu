@@ -34,55 +34,62 @@
 // unit.  So every product goes to the tensor cores, in three routes chosen
 // by the wrapper from (dtype, Dh):
 //
-// The two tensor-core kernels take every Dh <= 128 (a multiple of 8): each
-// is built for a tile of DHP = 64 columns (Dh <= 64) or 128 (64 < Dh <= 128)
-// and runs a narrower Dh padded with zero columns in shared memory.  Zero
-// columns add exactly 0 to every Q K^T dot product, the k-steps of S that
-// hold only padding are not issued, PV runs at the padded width, and the
-// output columns past Dh are never stored.  The scale is the true Dh's.
-// Dh 64 and 128 run instantiations without padding (PAD false: every bound
-// a compile-time constant, the code of the unpadded kernels).
+// The two tensor-core kernels take every Dh <= 256 (a multiple of 8): each
+// is built for tiles of DHP = 64, 128, 192 and 256 columns and runs a Dh
+// padded with zero columns in shared memory to the narrowest tile that
+// holds it.  Zero columns add exactly 0 to every Q K^T dot product, the
+// k-steps of S that hold only padding are not issued, PV runs at the padded
+// width, and the output columns past Dh are never stored.  The scale is the
+// true Dh's.  Dh 64, 128, 192 and 256 run instantiations without padding
+// (PAD false: every bound a compile-time constant).  Past 128 columns the
+// tiles of Q and two K/V stages no longer fit a CTA's 227 KiB at the narrow
+// widths' key counts, so both kernels take fewer keys per K/V tile there.
 //
-// * flash_wgmma_kernel (bf16, Dh <= 128).  One CTA per 128-row query
+// * flash_wgmma_kernel (bf16, Dh <= 256).  One CTA per 128-row query
 //   tile: a producer warpgroup (one thread issues TMA, registers given back
 //   by setmaxnreg) and two consumer warpgroups of 64 query rows each.  TMA
-//   loads Q once and 128-key K and V tiles through a ring of two stages
-//   (mbarriers: full per operand, empty per stage); the tensor is 4-D
-//   (Dh, H, T, B) with its own strides and the true Dh, one box is 64
-//   Dh-columns (128 B) x 128 rows, 128-byte swizzled; the box columns past
-//   Dh, like the rows past T, arrive as zeros (and count as delivered bytes
-//   on the mbarrier).  S = Q K^T is wgmma m64n128k16 with both
-//   operands in shared memory (K-major), scaled in f32 afterwards (in the
-//   exponent's FMA; q scale is not representable in bf16).  The
-//   reference keeps P in f32; one rounding of P to bf16 would cost about
-//   2^-9 |v| sqrt(sum p^2) / l, which does not shrink with |O|.  So P is
-//   split in registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and PV
-//   is two register-A wgmmas (m64n{DHP}k16) against the same V tile
-//   (MN-major, no transpose), leaving an error of at most 2^-17 of
-//   sum p |v| / l.  S takes ceil(Dh/16) k16 steps: one complete wgmma stage
-//   is compiled for each count the tile can need, so no branch falls inside
-//   a stage.
-// * flash_tf32_kernel (f32, Dh <= 128).  TF32 alone misses the f32
+//   loads Q once and K and V tiles of WK keys (128 up to DHP 128, 64 past
+//   it: Q + 2 (K + V) is 144 KiB at DHP 192, 192 KiB at 256) through a ring
+//   of two stages (mbarriers: full per operand, empty per stage); the
+//   tensor is 4-D (Dh, H, T, B) with its own strides and the true Dh, one
+//   box is 64 Dh-columns (128 B) x 128 (Q) or WK (K, V) rows, 128-byte
+//   swizzled; the box columns past Dh, like the rows past T, arrive as
+//   zeros (and count as delivered bytes on the mbarrier).  S = Q K^T is
+//   wgmma m64n{WK}k16 with both operands in shared memory (K-major), scaled
+//   in f32 afterwards (in the exponent's FMA; q scale is not representable
+//   in bf16).  The reference keeps P in f32; one rounding of P to bf16 would
+//   cost about 2^-9 |v| sqrt(sum p^2) / l, which does not shrink with |O|.
+//   So P is split in registers into P_hi = bf16(P) and P_lo = bf16(P -
+//   P_hi), and PV is two register-A wgmmas per k16 step against the same V
+//   tile (MN-major, no transpose): m64n{DHP}k16 up to DHP 128, past it one
+//   n128 over V's boxes 0-1 and one n64 (DHP 192) or n128 (256) over the
+//   rest, leaving an error of at most 2^-17 of sum p |v| / l.  O takes DHP/2
+//   f32 registers per consumer thread (128 at DHP 256), within the 232 that
+//   setmaxnreg gives them.  S takes ceil(Dh/16) k16 steps: one complete
+//   wgmma stage is compiled for each count the tile can need, so no branch
+//   falls inside a stage.  With 64-key tiles the first warpgroup skips the
+//   CTA's last tile under the causal mask (wholly past its rows).
+// * flash_tf32_kernel (f32, Dh <= 256).  TF32 alone misses the f32
 //   tolerance, so both products use the 3xTF32 split a = a_big + a_small
 //   (each rounded to TF32, nearest, ties away from zero, by two integer
 //   operations: the bits of cvt.rna.tf32.f32, which costs more issue time),
 //   a b ~ a_big b_big + a_big b_small + a_small b_big,
 //   on mma.sync m16n8k8 (8 warps, each 16 query rows), the three products
 //   of a group of independent output blocks issued pass by pass.  Q (scaled
-//   in f32, as the reference does) and 64-key K and V tiles come through a
-//   cp.async double buffer (the columns past Dh zero-filled, never read from
-//   device memory) and are split as their fragments are read; S takes Dh/8
-//   k8 steps.  S and P stay in registers.  P's accumulator layout feeds the A operand
-//   directly by permuting the keys of each 8-key step (A column t <-> key
-//   2t, t+4 <-> 2t+1; V's rows are read in the same order).
-// * flash_fwd_kernel (the first kernel; the wrapper gives it every Dh > 128,
-//   in steps of 8, which the tensor-core kernels' shared memory does not
-//   hold): f32 math on the CUDA cores, operands from shared memory.  Up to
-//   Dh 256 a CTA holds its Q tile and whole rows of K and V.  Past that
-//   (WIDE) a CTA owns one 128-column chunk of O (grid.z): it computes S
-//   over the full Dh by streaming Q and K through shared memory in
-//   128-column chunks, in the same order (the same bits as one pass), and
-//   reads only its chunk of V.  S is recomputed by every chunk of O.
+//   in f32, as the reference does) and K and V tiles of FK keys (64 up to
+//   DHP 128, 32 at 192, 16 at 256: the Q tile takes 100 and 130 KiB there)
+//   come through a cp.async double buffer (the columns past Dh zero-filled,
+//   never read from device memory) and are split as their fragments are
+//   read; S takes Dh/8 k8 steps.  S and P stay in registers.  P's
+//   accumulator layout feeds the A operand directly by permuting the keys
+//   of each 8-key step (A column t <-> key 2t, t+4 <-> 2t+1; V's rows are
+//   read in the same order).
+// * flash_fwd_kernel (the first kernel; the wrapper gives it every Dh > 256,
+//   in steps of 8): f32 math on the CUDA cores, operands from shared memory.
+//   A CTA owns one 128-column chunk of O (grid.z): it computes S over the
+//   full Dh by streaming Q and K through shared memory in 128-column chunks,
+//   in column order, and reads only its chunk of V.  S is recomputed by
+//   every chunk of O.
 //
 // No atomics and a fixed summation order: two calls give the same bits.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
@@ -100,16 +107,19 @@ struct Strides {
 };
 
 // ----------------------------------------------------------------------
-// flash_fwd_kernel (route simt): one CTA per (batch*head, 64-row query
-// tile), 64-key KV tiles, Q/K/V/P tiles in f32 shared memory (rows padded
-// to Dh+1 / 65 floats), 256 threads as 16x16 each owning 4x4 scores and
-// 4 x Dh/16 outputs; any strides, Dh 136..256 (built for NC = 16).  WIDE
-// (Dh > 256, built for NC = 8): one CTA per (batch*head, query tile,
-// 16*NC-column chunk of O), Q and K tiles of 16*NC columns at a time.
+// flash_fwd_kernel (route simt, Dh > 256): one CTA per (batch*head, 64-row
+// query tile, 128-column chunk of O), 64-key KV tiles, 256 threads as 16x16
+// each owning 4x4 scores and 4 x 8 outputs; any strides.  S over the full
+// Dh comes from Q and K streamed through f32 shared memory 128 columns at a
+// time (rows padded to 129 floats), in column order; V's chunk of O and P
+// (rows padded to 65) stay for the tile.
 // ----------------------------------------------------------------------
 constexpr int BQ = 64;    // query rows per CTA
 constexpr int BKV = 64;   // keys per KV tile
 constexpr int NT = 256;   // threads per CTA (16 x 16)
+constexpr int NC = 8;     // 16-wide column chunks of a thread's share of O
+constexpr int DC = 16 * NC;   // columns of a Q/K chunk and of the CTA's O
+constexpr int LDC = DC + 1;   // padded row stride of the Q, K and V tiles
 constexpr int PLD = BKV + 1;  // padded row stride of the probability tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -127,45 +137,41 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
 }
 
-// Copy rows [r0, r0 + rows) of one (batch, head)'s (T, Dh) slice into a
-// (rows x ld) f32 tile, times `mul`; rows past T are zero.
+// Copy rows [r0, r0 + rows) of one (batch, head)'s (T, Dh) slice, `cols`
+// columns of it, into a (rows x LDC) f32 tile, times `mul`; rows past T are
+// zero.
 template <typename Elem>
 __device__ void load_tile(const Elem* base, Strides s, int r0, int rows,
-                          int seq, int dh, int ld, float mul, float* tile) {
-  for (int e = threadIdx.x; e < rows * dh; e += NT) {
-    const int r = e / dh, d = e - r * dh;
+                          int seq, int cols, float mul, float* tile) {
+  for (int e = threadIdx.x; e < rows * cols; e += NT) {
+    const int r = e / cols, d = e - r * cols;
     const int t = r0 + r;
-    tile[r * ld + d] = t < seq ? to_f32(base[t * s.t + d * s.d]) * mul : 0.f;
+    tile[r * LDC + d] = t < seq ? to_f32(base[t * s.t + d * s.d]) * mul : 0.f;
   }
 }
 
-// NC: 16-wide column chunks of Dh a thread's accumulator covers
-// (Dh <= 16 * NC; WIDE: the CTA's chunk of O is 16 * NC columns).
-template <typename Elem, int NC, bool WIDE>
+template <typename Elem>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                      const Elem* __restrict__ v, Elem* __restrict__ out,
                      int heads, int seq, int dh, int causal, float scale,
                      Strides sq, Strides sk, Strides sv, int bh0) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int DC = 16 * NC;  // WIDE: columns of a Q/K chunk and of O
-  const int ld = WIDE ? DC + 1 : dh + 1;
-  float* Qs = smem;            // BQ  x ld
-  float* Ks = Qs + BQ * ld;    // BKV x ld
-  float* Vs = Ks + BKV * ld;   // BKV x ld
-  float* Ps = Vs + BKV * ld;   // BQ  x PLD
+  float* Qs = smem;            // BQ  x LDC
+  float* Ks = Qs + BQ * LDC;   // BKV x LDC
+  float* Vs = Ks + BKV * LDC;  // BKV x LDC
+  float* Ps = Vs + BKV * LDC;  // BQ  x PLD
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
   const int bh = bh0 + blockIdx.y;  // this launch's batch*head block
   const int b = bh / heads, h = bh % heads;
-  const int c0 = WIDE ? blockIdx.z * DC : 0;  // the CTA's columns of O
-  const int dc = WIDE ? min(DC, dh - c0) : dh;
+  const int c0 = blockIdx.z * DC;  // the CTA's columns of O
+  const int dc = min(DC, dh - c0);
   const float neg_inf_f32 = __int_as_float(0xff800000);
 
   const Elem* qb = q + b * sq.b + h * sq.h;
-  if constexpr (!WIDE) load_tile(qb, sq, q0, BQ, seq, dh, ld, scale, Qs);
   const Elem* kb = k + b * sk.b + h * sk.h;
   const Elem* vb = v + b * sv.b + h * sv.h + c0 * sv.d;
 
@@ -183,47 +189,27 @@ __global__ void __launch_bounds__(NT)
   const int kv_end = causal ? min(seq, q0 + BQ) : seq;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile's readers are done
-    if constexpr (!WIDE) {
-      load_tile(kb, sk, kv0, BKV, seq, dh, ld, 1.f, Ks);
-      load_tile(vb, sv, kv0, BKV, seq, dh, ld, 1.f, Vs);
-      __syncthreads();
-    }
 
-    // S = (scale Q) K^T for the thread's 4 x 4 entries
+    // S = (scale Q) K^T for the thread's 4 x 4 entries, Q and K by
+    // DC-column chunks in column order; V's chunk of O rides with the first
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    if constexpr (WIDE) {
-      // Q and K by DC-column chunks, in column order (the same sums as one
-      // pass); V's chunk of O rides with the first
-      for (int d0 = 0; d0 < dh; d0 += DC) {
-        const int w = min(DC, dh - d0);
-        if (d0) __syncthreads();  // the previous chunk's readers are done
-        load_tile(qb + d0 * sq.d, sq, q0, BQ, seq, w, ld, scale, Qs);
-        load_tile(kb + d0 * sk.d, sk, kv0, BKV, seq, w, ld, 1.f, Ks);
-        if (!d0) load_tile(vb, sv, kv0, BKV, seq, dc, ld, 1.f, Vs);
-        __syncthreads();
-        for (int d = 0; d < w; ++d) {
-          float a[4], bk[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-        }
-      }
-    } else {
-      for (int d = 0; d < dh; ++d) {
+    for (int d0 = 0; d0 < dh; d0 += DC) {
+      const int w = min(DC, dh - d0);
+      if (d0) __syncthreads();  // the previous chunk's readers are done
+      load_tile(qb + d0 * sq.d, sq, q0, BQ, seq, w, scale, Qs);
+      load_tile(kb + d0 * sk.d, sk, kv0, BKV, seq, w, 1.f, Ks);
+      if (!d0) load_tile(vb, sv, kv0, BKV, seq, dc, 1.f, Vs);
+      __syncthreads();
+      for (int d = 0; d < w; ++d) {
         float a[4], bk[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LDC + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
+        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * LDC + d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -275,7 +261,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = tx + 16 * c;
-        const float vv = d < dc ? Vs[j * ld + d] : 0.f;
+        const float vv = d < dc ? Vs[j * LDC + d] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
@@ -296,25 +282,25 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename Elem, int NC, bool WIDE>
-int run_flash(const void* q, const void* k, const void* v, void* out,
-              int batch, int seq, int heads, int dh, int causal, float scale,
-              Strides sq, Strides sk, Strides sv, void* stream) {
-  constexpr int DC = 16 * NC;
-  const int ld = WIDE ? DC + 1 : dh + 1;
+template <typename Elem>
+int launch_flash(const void* q, const void* k, const void* v, void* out,
+                 int batch, int seq, int heads, int dh, int causal,
+                 float scale, Strides sq, Strides sk, Strides sv,
+                 void* stream) {
+  // every narrower Dh goes to the tensor-core kernels
+  if (dh <= 256 || dh % 8) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      ((size_t)(BQ + 2 * BKV) * ld + (size_t)BQ * PLD) * sizeof(float);
+      ((size_t)(BQ + 2 * BKV) * LDC + (size_t)BQ * PLD) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<Elem, NC, WIDE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<Elem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   // query tiles on x (each head's longest first), batch*head on y, split
-  // into launches of at most 65535 (the y extent); WIDE: the chunks of O
-  // on z
+  // into launches of at most 65535 (the y extent), the chunks of O on z
   const int bh = batch * heads;
   for (int bh0 = 0; bh0 < bh; bh0 += 65535) {
-    dim3 grid((seq + BQ - 1) / BQ, min(65535, bh - bh0), WIDE ? (dh + DC - 1) / DC : 1);
-    flash_fwd_kernel<Elem, NC, WIDE><<<grid, NT, smem, (cudaStream_t)stream>>>(
+    dim3 grid((seq + BQ - 1) / BQ, min(65535, bh - bh0), (dh + DC - 1) / DC);
+    flash_fwd_kernel<Elem><<<grid, NT, smem, (cudaStream_t)stream>>>(
         static_cast<const Elem*>(q), static_cast<const Elem*>(k),
         static_cast<const Elem*>(v), static_cast<Elem*>(out), heads, seq, dh,
         causal, scale, sq, sk, sv, bh0);
@@ -323,22 +309,11 @@ int run_flash(const void* q, const void* k, const void* v, void* out,
   return (int)cudaSuccess;
 }
 
-template <typename Elem>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int batch, int seq, int heads, int dh, int causal,
-                 float scale, Strides sq, Strides sk, Strides sv,
-                 void* stream) {
-  // every narrower Dh goes to the tensor-core kernels
-  if (dh <= 128 || dh % 8) return (int)cudaErrorInvalidValue;
-  return (dh <= 256 ? run_flash<Elem, 16, false> : run_flash<Elem, 8, true>)(
-      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
-}
-
 
 // ----------------------------------------------------------------------
 // Tensor-core routes: shared pieces
 // ----------------------------------------------------------------------
-constexpr int TQ = 128;  // query rows per CTA (both tensor-core routes)
+constexpr int TQ = 128;  // query rows per CTA of the tensor-core routes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -406,17 +381,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[4 * NJ], float (&m)[2], 
 // ----------------------------------------------------------------------
 // bf16: warpgroup MMA fed by TMA
 // ----------------------------------------------------------------------
-constexpr int WK = 128;                // keys per KV tile
 constexpr int WSTAGES = 2;             // K/V ring stages
-constexpr int WBOX = TQ * 128;         // bytes of one box: 128 rows x 64 bf16
+constexpr int QBOX = TQ * 128;         // bytes of one Q box: 128 rows x 64 bf16
 constexpr int WTHREADS = 384;          // producer warpgroup + 2 consumer warpgroups
 
+// Keys per K/V tile: 128 up to a 128-column tile; 64 past it, where Q and
+// two stages of 128-key K and V tiles would take 240 KiB (192 columns) or
+// 320 KiB (256) of a CTA's 227 KiB.
 template <int DH>
-__host__ __device__ constexpr int wg_tile_bytes() { return (DH / 64) * WBOX; }
+__host__ __device__ constexpr int wg_keys() { return DH <= 128 ? 128 : 64; }
+// bytes of one K or V box: wg_keys rows x 64 bf16
+template <int DH>
+__host__ __device__ constexpr int wg_kv_box() { return wg_keys<DH>() * 128; }
 // Q, the K and V stages, the mbarriers, and slack to align the base to 1 KB
+// (DH 256: 64 + 2 (32 + 32) KiB + 2 KiB)
 template <int DH>
 __host__ __device__ constexpr int wg_smem_bytes() {
-  return (1 + 2 * WSTAGES) * wg_tile_bytes<DH>() + 1024 + 1024;
+  return (DH / 64) * (QBOX + 2 * WSTAGES * wg_kv_box<DH>()) + 1024 + 1024;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -535,6 +516,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (+)= A B, A and B from shared memory (descriptors), m64n64k16, bf16 -> f32.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d += A B, A from registers (bf16 pairs), B from shared memory, MN-major (transposed), m64n64k16.
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -550,37 +546,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// S = Q K^T over the first N k16 steps of Dh: 64 x 128 per warpgroup, one
-// complete wgmma stage (fence, products, commit, wait).
-template <int N>
-__device__ __forceinline__ void qk_wgmma(float (&s)[64], uint32_t qa, uint32_t kb) {
+// S = Q K^T over the first N k16 steps of Dh: 64 x wg_keys per warpgroup,
+// one complete wgmma stage (fence, products, commit, wait).  Step kk reads
+// 32 bytes on in box kk / 4 of Q and of K.
+template <int DH, int N>
+__device__ __forceinline__ void qk_wgmma(float (&s)[wg_keys<DH>() / 2], uint32_t qa, uint32_t kb) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N; ++kk) {
-    const uint32_t off = (kk / 4) * WBOX + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(qa + off), sw128_desc(kb + off), kk > 0);
+    const uint64_t da = sw128_desc(qa + (kk / 4) * QBOX + (kk % 4) * 32);
+    const uint64_t db = sw128_desc(kb + (kk / 4) * wg_kv_box<DH>() + (kk % 4) * 32);
+    if constexpr (wg_keys<DH>() == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
   wgmma_commit();
   wgmma_wait0();
 }
 // The same for a run-time count LO <= nk <= N: the branch picks a whole
 // stage, so none falls between a stage's products.
-template <int N, int LO>
-__device__ __forceinline__ void qk_wgmma_steps(float (&s)[64], uint32_t qa, uint32_t kb, int nk) {
+template <int DH, int N, int LO>
+__device__ __forceinline__ void qk_wgmma_steps(float (&s)[wg_keys<DH>() / 2], uint32_t qa,
+                                               uint32_t kb, int nk) {
   if constexpr (N > LO) {
     if (nk < N) {
-      qk_wgmma_steps<N - 1, LO>(s, qa, kb, nk);
+      qk_wgmma_steps<DH, N - 1, LO>(s, qa, kb, nk);
       return;
     }
   }
-  qk_wgmma<N>(s, qa, kb);
+  qk_wgmma<DH, N>(s, qa, kb);
 }
 
 // One CTA per (batch*head, 128-row query tile): warpgroup 0 produces (one
 // thread issues every TMA load), warpgroups 1 and 2 each own 64 query rows.
-// DH is the tile width; PAD: the head dim dh_arg is narrower (a multiple of
-// 8, 8 <= dh < 64 for DH = 64, 64 < dh < 128 for DH = 128), else it is DH
-// and every bound below is a compile-time constant.
+// DH is the tile width (64, 128, 192 or 256 columns); PAD: the head dim
+// dh_arg is narrower (a multiple of 8 above the next narrower tile), else
+// it is DH and every bound below is a compile-time constant.
 template <int DH, bool PAD>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -589,13 +591,15 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                        int heads, int seq, int dh_arg, int causal, float scale) {
   const int dh = PAD ? dh_arg : DH;
   constexpr int NB = DH / 64;  // 64-column boxes per tile
-  constexpr int TILE = wg_tile_bytes<DH>();
+  constexpr int WK = wg_keys<DH>();
+  constexpr int KVBOX = wg_kv_box<DH>();
+  constexpr int KVTILE = NB * KVBOX;
   extern __shared__ __align__(1024) uint8_t wsmem[];
   uint8_t* base = wsmem + ((1024 - (smem_u32(wsmem) & 1023)) & 1023);
   uint8_t* Qs = base;
-  uint8_t* Ks = Qs + TILE;
-  uint8_t* Vs = Ks + WSTAGES * TILE;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WSTAGES * TILE);
+  uint8_t* Ks = Qs + NB * QBOX;
+  uint8_t* Vs = Ks + WSTAGES * KVTILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WSTAGES * KVTILE);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + WSTAGES;
   uint64_t* empty = v_full + WSTAGES;
@@ -622,20 +626,20 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, TILE);
+      mbar_expect_tx(q_full, NB * QBOX);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) tma_load_4d(Qs + c * WBOX, &tq, q_full, 64 * c, h, q0, b);
+      for (int c = 0; c < NB; ++c) tma_load_4d(Qs + c * QBOX, &tq, q_full, 64 * c, h, q0, b);
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % WSTAGES;
         if (it >= WSTAGES) mbar_wait(empty + st, ((it / WSTAGES) - 1) & 1);
-        mbar_expect_tx(k_full + st, TILE);
+        mbar_expect_tx(k_full + st, KVTILE);
 #pragma unroll
         for (int c = 0; c < NB; ++c)
-          tma_load_4d(Ks + st * TILE + c * WBOX, &tk, k_full + st, 64 * c, h, it * WK, b);
-        mbar_expect_tx(v_full + st, TILE);
+          tma_load_4d(Ks + st * KVTILE + c * KVBOX, &tk, k_full + st, 64 * c, h, it * WK, b);
+        mbar_expect_tx(v_full + st, KVTILE);
 #pragma unroll
         for (int c = 0; c < NB; ++c)
-          tma_load_4d(Vs + st * TILE + c * WBOX, &tv, v_full + st, 64 * c, h, it * WK, b);
+          tma_load_4d(Vs + st * KVTILE + c * KVBOX, &tv, v_full + st, 64 * c, h, it * WK, b);
       }
     }
   } else {
@@ -649,6 +653,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     const uint32_t qa = smem_u32(Qs) + 64 * cw * 128;  // the warpgroup's 64 rows of each box
     const float scale_log2 = scale * 1.4426950408889634f;  // p = 2^(s scale log2(e) - m)
     const int nk = (dh + 15) / 16;  // k16 steps of S that hold some of Dh
+    // causal: a 64-key tile wholly past the warpgroup's last row (the CTA's
+    // last, for the first warpgroup) adds exactly nothing and is not
+    // visited; no later load waits for its stage
+    const int wg_tiles = causal ? (min(seq, rbase + 64) + WK - 1) / WK : ntiles;
 
     float o[DH / 2];
 #pragma unroll
@@ -656,24 +664,24 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     mbar_wait(q_full, 0);
-    for (int it = 0; it < ntiles; ++it) {
+    for (int it = 0; it < wg_tiles; ++it) {
       const int st = it % WSTAGES;
       const uint32_t ph = (it / WSTAGES) & 1;
       const int kv0 = it * WK;
-      const uint32_t kb = smem_u32(Ks + st * TILE);
-      const uint32_t vb = smem_u32(Vs + st * TILE);
+      const uint32_t kb = smem_u32(Ks + st * KVTILE);
+      const uint32_t vb = smem_u32(Vs + st * KVTILE);
 
-      // S = Q K^T: 64 x 128 per warpgroup, k16 steps along Dh
-      float s[64];
+      // S = Q K^T: 64 x WK per warpgroup, k16 steps along Dh
+      float s[WK / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      for (int i = 0; i < WK / 2; ++i) s[i] = 0.f;
       mbar_wait(k_full + st, ph);
-      qk_wgmma_steps<DH / 16, DH == 128 ? 5 : 1>(s, qa, kb, nk);
+      qk_wgmma_steps<DH, DH / 16, DH / 16 - 3>(s, qa, kb, nk);
       fence_regs(s);
 
       const bool mask = kv0 + WK > seq || (causal && kv0 + WK - 1 > rbase);
       float corr[2];
-      softmax_tile<16, true>(s, m, l, corr, kv0, c2, row, seq, causal, mask, scale_log2);
+      softmax_tile<WK / 8, true>(s, m, l, corr, kv0, c2, row, seq, causal, mask, scale_log2);
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i) {
         o[4 * i + 0] *= corr[0];
@@ -683,9 +691,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       }
       // P as register A operands, k16 step kk = keys 16kk + [0, 16):
       // a[u] = (s[8kk + 2u], s[8kk + 2u + 1]), split into hi + lo.
-      uint32_t phi[8][4], plo[8][4];
+      uint32_t phi[WK / 16][4], plo[WK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < WK / 16; ++kk)
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float x = s[8 * kk + 2 * u], y = s[8 * kk + 2 * u + 1];
@@ -698,18 +706,23 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       mbar_wait(v_full + st, ph);
       fence_regs(o);
       wgmma_fence();
-      // k16 step kk: keys 16kk + [0, 16) of V, 2048 bytes on; Dh=128 spans
-      // both boxes in one product (leading offset: one box)
+      // k16 step kk: keys 16kk + [0, 16) of V, 2048 bytes on.  Boxes 0-1 in
+      // one n128 product (leading offset: one box), then box 2 (n64) or
+      // boxes 2-3 (n128) into the accumulator's next 64 registers.
       auto pv = [&](const uint32_t(&a)[4], int kk) {
-        if constexpr (NB == 2)
-          wgmma_rs_n128(o, a, sw128_desc(vb + kk * 2048, WBOX));
-        else
-          wgmma_rs_n64(o, a, sw128_desc(vb + kk * 2048));
+        const uint32_t vk = vb + kk * 2048;
+        if constexpr (NB == 1) {
+          wgmma_rs_n64(o, a, sw128_desc(vk));
+        } else {
+          wgmma_rs_n128(o, a, sw128_desc(vk, KVBOX));
+          if constexpr (NB == 3) wgmma_rs_n64(o + 64, a, sw128_desc(vk + 2 * KVBOX));
+          if constexpr (NB == 4) wgmma_rs_n128(o + 64, a, sw128_desc(vk + 2 * KVBOX, KVBOX));
+        }
       };
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pv(phi[kk], kk);
+      for (int kk = 0; kk < WK / 16; ++kk) pv(phi[kk], kk);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pv(plo[kk], kk);
+      for (int kk = 0; kk < WK / 16; ++kk) pv(plo[kk], kk);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(o);
@@ -738,12 +751,19 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 // ----------------------------------------------------------------------
 // f32: 3xTF32 on mma.sync
 // ----------------------------------------------------------------------
-constexpr int FK = 64;         // keys per KV tile
-constexpr int FTHREADS = 256;  // 8 warps x 16 query rows
-
+// The tiles of a DH-column head: query rows per CTA (16 per warp) and keys
+// per K/V tile, so that the Q tile and two K/V stages, rows padded by 4
+// floats, fit a CTA's 227 KiB: (128 + 4 * 64) * 132 * 4 B at DH 128, 32-key
+// tiles at 192 (200,704 B), 16-key tiles at 256 (199,680 B).
 template <int DH>
-constexpr int tf32_smem_bytes() {  // Q tile and two K/V stages, rows padded by 4 floats
-  return (TQ + 4 * FK) * (DH + 4) * (int)sizeof(float);
+__host__ __device__ constexpr int tf32_rows() { return TQ; }
+template <int DH>
+__host__ __device__ constexpr int tf32_keys() { return DH <= 128 ? 64 : DH <= 192 ? 32 : 16; }
+template <int DH>
+__host__ __device__ constexpr int tf32_threads() { return 2 * tf32_rows<DH>(); }
+template <int DH>
+constexpr int tf32_smem_bytes() {
+  return (tf32_rows<DH>() + 4 * tf32_keys<DH>()) * (DH + 4) * (int)sizeof(float);
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -805,7 +825,7 @@ template <int DH>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src, long long st,
                                                 int r0, int rows, int seq, int dh) {
   constexpr int CH = DH / 4;  // 16-byte chunks per padded row
-  for (int e = threadIdx.x; e < rows * CH; e += FTHREADS) {
+  for (int e = threadIdx.x; e < rows * CH; e += tf32_threads<DH>()) {
     const int r = e / CH, c = (e % CH) * 4;
     const int t = r0 + r;
     const bool valid = t < seq && c < dh;  // else nothing is read, from an address in the tensor
@@ -814,24 +834,25 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src, lo
   }
 }
 
-// One CTA per (batch*head, 128-row query tile), 8 warps of 16 query rows;
-// 64-key K and V tiles through a cp.async double buffer.  DH is the padded
-// tile width, PAD and dh_arg as for flash_wgmma_kernel.
+// One CTA per (batch*head, tf32_rows query rows), a warp per 16 of them;
+// tf32_keys-key K and V tiles through a cp.async double buffer.  DH is the
+// padded tile width, PAD and dh_arg as for flash_wgmma_kernel.
 template <int DH, bool PAD>
-__global__ void __launch_bounds__(FTHREADS, 1)
+__global__ void __launch_bounds__(tf32_threads<DH>(), 1)
     flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, int heads, int seq,
                       int dh_arg, int causal, float scale, Strides sq, Strides sk, Strides sv) {
   const int dh = PAD ? dh_arg : DH;
   constexpr int LD = DH + 4;
+  constexpr int ROWS = tf32_rows<DH>(), FK = tf32_keys<DH>();
   extern __shared__ __align__(16) float tsmem[];
-  float* Qs = tsmem;           // TQ x LD
-  float* Kb = Qs + TQ * LD;    // 2 stages of FK x LD
+  float* Qs = tsmem;             // ROWS x LD
+  float* Kb = Qs + ROWS * LD;    // 2 stages of FK x LD
   float* Vb = Kb + 2 * FK * LD;
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;  // longest rows first
-  const int kv_end = causal ? min(seq, q0 + TQ) : seq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest rows first
+  const int kv_end = causal ? min(seq, q0 + ROWS) : seq;
   const int ntiles = (kv_end + FK - 1) / FK;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -842,7 +863,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   const int wrow = q0 + 16 * warp;  // the warp's first query row
   const int row[2] = {wrow + g, wrow + g + 8};
 
-  load_rows_async<DH>(Qs, qb, sq.t, q0, TQ, seq, dh);
+  load_rows_async<DH>(Qs, qb, sq.t, q0, ROWS, seq, dh);
   load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq, dh);
   load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq, dh);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -862,19 +883,21 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
 
-    if (it == 0) {  // q * scale in f32, once, as the reference scales q
-      for (int e = threadIdx.x; e < TQ * DH; e += FTHREADS) Qs[(e / DH) * LD + e % DH] *= scale;
+    if (it == 0) {  // q * scale in f32, once, as the reference scales q (rows inside T)
+      for (int e = threadIdx.x; e < min(ROWS, seq - q0) * DH; e += tf32_threads<DH>())
+        Qs[(e / DH) * LD + e % DH] *= scale;
       __syncthreads();
     }
     const int kv0 = it * FK;
-    // a tile wholly in this warp's future changes nothing (p = 0, corr = 1)
-    if (!(causal && kv0 > wrow + 15)) {
+    // a tile wholly in this warp's future changes nothing (p = 0, corr = 1),
+    // and a warp whose rows all lie past T stores nothing
+    if (wrow < seq && !(causal && kv0 > wrow + 15)) {
       const float* Ks = Kb + (it & 1) * FK * LD;
       const float* Vs = Vb + (it & 1) * FK * LD;
-      // S = (scale Q) K^T: 16 x 64 per warp
-      float s[32];
+      // S = (scale Q) K^T: 16 x FK per warp
+      float s[FK / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      for (int i = 0; i < FK / 2; ++i) s[i] = 0.f;
       auto qk = [&](int ks) {  // k8 step ks: Dh columns 8ks + [0, 8)
         const float* qa = Qs + (16 * warp + g) * LD + 8 * ks + t4;
         uint32_t ab[4], as[4];
@@ -967,17 +990,17 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 
 // The 4-D map of a bf16 (B, T, H, Dh) tensor with strides s (elements; Dh's
 // is 1): dims innermost first (Dh, H, T, B) with the true Dh, box (64, 1,
-// 128, 1), 128-byte swizzle; columns past Dh and rows past T read as zeros
+// rows, 1), 128-byte swizzle; columns past Dh and rows past T read as zeros
 // (FLOAT_OOB_FILL_NONE fills with zeros, not NaN).
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int dh,
-                     Strides s) {
+                     Strides s, int rows) {
   EncodeTiled fn;
   cudaError_t e = encode_tiled(&fn);
   if (e != cudaSuccess) return e;
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)TQ, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -992,9 +1015,9 @@ int run_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
               void* stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t e;
-  if ((e = make_map(&mq, q, batch, seq, heads, dh, sq)) != cudaSuccess) return (int)e;
-  if ((e = make_map(&mk, k, batch, seq, heads, dh, sk)) != cudaSuccess) return (int)e;
-  if ((e = make_map(&mv, v, batch, seq, heads, dh, sv)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mq, q, batch, seq, heads, dh, sq, TQ)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mk, k, batch, seq, heads, dh, sk, wg_keys<DH>())) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mv, v, batch, seq, heads, dh, sv, wg_keys<DH>())) != cudaSuccess) return (int)e;
   constexpr int smem = wg_smem_bytes<DH>();
   e = cudaFuncSetAttribute(flash_wgmma_kernel<DH, PAD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1009,15 +1032,34 @@ template <int DH, bool PAD>
 int run_tf32(const void* q, const void* k, const void* v, void* out, int batch, int seq,
              int heads, int dh, int causal, float scale, Strides sq, Strides sk, Strides sv,
              void* stream) {
-  constexpr int smem = tf32_smem_bytes<DH>();
+  constexpr int smem = tf32_smem_bytes<DH>(), rows = tf32_rows<DH>();
   cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH, PAD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
-  flash_tf32_kernel<DH, PAD><<<grid, FTHREADS, smem, (cudaStream_t)stream>>>(
+  dim3 grid(batch * heads, (seq + rows - 1) / rows);  // every head's longest tiles first
+  flash_tf32_kernel<DH, PAD><<<grid, tf32_threads<DH>(), smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), heads, seq, dh, causal, scale, sq, sk, sv);
   return (int)cudaGetLastError();
+}
+
+// The tile of a head dim (a multiple of 8, at most 256): the narrowest of
+// 64, 128, 192 and 256 columns that holds it; a narrower Dh runs padded.
+int tc_tile(int dh) { return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 192 ? 192 : 256; }
+
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                       float, Strides, Strides, Strides, void*);
+
+// Run the instantiation of a tensor-core route for dh's tile: runs[tile / 64 - 1]
+// [padded], after checking the route's contract.
+int run_tc(const Launch (&runs)[4][2], const void* q, const void* k, const void* v, void* out,
+           int batch, int seq, int heads, int dh, int causal, float scale, Strides sq,
+           Strides sk, Strides sv, void* stream) {
+  if (sq.d != 1 || sk.d != 1 || sv.d != 1) return (int)cudaErrorInvalidValue;
+  if (dh < 8 || dh > 256 || dh % 8) return (int)cudaErrorInvalidValue;
+  const int tile = tc_tile(dh);
+  return runs[tile / 64 - 1][dh != tile](q, k, v, out, batch, seq, heads, dh, causal, scale, sq,
+                                         sk, sv, stream);
 }
 
 }  // namespace
@@ -1028,7 +1070,7 @@ extern "C" {
 // the error that refused the launch).  Strides are in elements, in (B, T,
 // H, Dh) order, for q, k and v; the output is contiguous (B, T, H, Dh).
 //
-// The CUDA-core kernel: f32 or bf16, Dh > 128 in steps of 8 (anything else:
+// The CUDA-core kernel: f32 or bf16, Dh > 256 in steps of 8 (anything else:
 // cudaErrorInvalidValue), any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int seq, int heads, int dh,
@@ -1053,8 +1095,8 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
       Strides{qb, qt, qh, qd}, Strides{kb, kt, kh, kd},
       Strides{vb, vt, vh, vd}, stream);
 }
-// Tensor-core routes: 8 <= Dh <= 128 in steps of 8 (anything else:
-// cudaErrorInvalidValue), run in a tile of 64 columns (Dh <= 64) or 128,
+// Tensor-core routes: 8 <= Dh <= 256 in steps of 8 (anything else:
+// cudaErrorInvalidValue), run in a tile of 64, 128, 192 or 256 columns,
 // padded when Dh is narrower; the innermost stride 1, the others multiples
 // of 16 bytes, pointers 16-byte aligned (TMA's and cp.async's rule; the
 // wrapper checks it).
@@ -1063,30 +1105,24 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
                                long long qt, long long qh, long long qd, long long kb,
                                long long kt, long long kh, long long kd, long long vb,
                                long long vt, long long vh, long long vd, void* stream) {
-  const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
-  if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
-  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
-  // Dh 64 and 128 as they are; a narrower Dh padded to the next of them
-  if (dh == 64 || dh == 128)
-    return (dh == 64 ? run_wgmma<64, false> : run_wgmma<128, false>)(
-        q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
-  return (dh < 64 ? run_wgmma<64, true> : run_wgmma<128, true>)(
-      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
+  static const Launch runs[4][2] = {{run_wgmma<64, false>, run_wgmma<64, true>},
+                                    {run_wgmma<128, false>, run_wgmma<128, true>},
+                                    {run_wgmma<192, false>, run_wgmma<192, true>},
+                                    {run_wgmma<256, false>, run_wgmma<256, true>}};
+  return run_tc(runs, q, k, v, out, batch, seq, heads, dh, causal, scale, Strides{qb, qt, qh, qd},
+                Strides{kb, kt, kh, kd}, Strides{vb, vt, vh, vd}, stream);
 }
 int flash_attention_3xtf32_f32(const void* q, const void* k, const void* v, void* out, int batch,
                                int seq, int heads, int dh, int causal, float scale, long long qb,
                                long long qt, long long qh, long long qd, long long kb,
                                long long kt, long long kh, long long kd, long long vb,
                                long long vt, long long vh, long long vd, void* stream) {
-  const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd};
-  if (qd != 1 || kd != 1 || vd != 1) return (int)cudaErrorInvalidValue;
-  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
-  // Dh 64 and 128 as they are; a narrower Dh padded to the next of them
-  if (dh == 64 || dh == 128)
-    return (dh == 64 ? run_tf32<64, false> : run_tf32<128, false>)(
-        q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
-  return (dh < 64 ? run_tf32<64, true> : run_tf32<128, true>)(
-      q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk, sv, stream);
+  static const Launch runs[4][2] = {{run_tf32<64, false>, run_tf32<64, true>},
+                                    {run_tf32<128, false>, run_tf32<128, true>},
+                                    {run_tf32<192, false>, run_tf32<192, true>},
+                                    {run_tf32<256, false>, run_tf32<256, true>}};
+  return run_tc(runs, q, k, v, out, batch, seq, heads, dh, causal, scale, Strides{qb, qt, qh, qd},
+                Strides{kb, kt, kh, kd}, Strides{vb, vt, vh, vd}, stream);
 }
 
 }  // extern "C"

@@ -23,18 +23,19 @@ the next one (exact: they add 0 to every dot product and to the padded
 output columns, which are sliced off), with the true Dh's scale.  Which
 kernel runs is a pure function of the dtype and Dh (:func:`route`):
 
-* ``"wgmma_tma"``: bf16 with Dh ≤ 128, warpgroup MMA fed by TMA;
-* ``"mma_3xtf32"``: f32 (f16, f64) with Dh ≤ 128, ``mma.sync`` in TF32
+* ``"wgmma_tma"``: bf16 with Dh ≤ 256, warpgroup MMA fed by TMA;
+* ``"mma_3xtf32"``: f32 (f16, f64) with Dh ≤ 256, ``mma.sync`` in TF32
   with the three-product split (about f32 accuracy);
-* ``"simt"``: Dh > 128, the first kernel (f32 math on the CUDA cores),
-  whose tiles the tensor-core kernels' shared memory does not hold; past
-  Dh 256 each block computes one 128-column chunk of the output and
-  recomputes S for it.
+* ``"simt"``: Dh > 256, the first kernel (f32 math on the CUDA cores):
+  each block computes one 128-column chunk of the output and recomputes S
+  for it.
 
-The tensor-core kernels are built for tiles of 64 and 128 Dh-columns; a
-narrower Dh runs in the next of the two, padded with zero columns in
-shared memory (exact: they add 0 to every dot product, and the output's
-padding columns are not stored), with the scale of the true Dh.
+The tensor-core kernels are built for tiles of 64, 128, 192 and 256
+Dh-columns (fewer keys per K/V tile past 128, so that a block's shared
+memory holds them); a Dh between two of them runs in the wider one,
+padded with zero columns in shared memory (exact: they add 0 to every dot
+product, and the output's padding columns are not stored), with the scale
+of the true Dh.
 
 The two tensor-core routes read q, k and v by TMA or 16-byte ``cp.async``:
 a tensor whose innermost stride is not 1, whose other strides are not
@@ -58,13 +59,14 @@ NEG_INF = -1e30
 
 KERNELS = ("flash_attention",)
 ROUTES = ("wgmma_tma", "mma_3xtf32", "simt")
-TC_DH_MAX = 128  # the widest Dh the tensor-core kernels' tiles hold
+TC_DH_MAX = 256  # the widest Dh the tensor-core kernels' tiles hold
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in ROUTES}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()
 
-# route -> dtype -> C entry point
+# route -> dtype -> C entry point (``csrc/flash_attention.cu``: the
+# tensor-core entries take padded Dh 8..256, the simt ones Dh past 256)
 _ENTRY = {
     "wgmma_tma": {torch.bfloat16: "flash_attention_wgmma_bf16"},
     "mma_3xtf32": {torch.float32: "flash_attention_3xtf32_f32"},

@@ -245,15 +245,22 @@ FLASH_TC_SHAPES = [
     (1, 96, 2, 80, True), (1, 200, 2, 80, False), (1, 4096, 4, 80, True),
     (1, 96, 2, 96, False), (2, 200, 3, 96, True),
     (1, 96, 2, 120, True), (1, 200, 2, 120, False),
+    # the wide tiles (fewer keys per K/V tile): Dh 136 padded to 192, 200
+    # padded to 256, 192 and 256 as they are; T not a multiple of a tile
+    (1, 200, 2, 136, True), (1, 96, 2, 136, False),
+    (2, 200, 3, 200, True), (1, 96, 2, 200, False),
+    (1, 200, 2, 192, True), (1, 96, 2, 192, False), (1, 4096, 4, 192, True),
+    (1, 200, 2, 256, False), (2, 96, 2, 256, True), (1, 4096, 4, 256, True),
+    (1, 1000, 2, 256, False),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,dh,causal", FLASH_TC_SHAPES)
 def test_flash_tensor_core_routes_on_card(cuda, dtype, b, t, h, dh, causal, rng):
-    """Every Dh up to 128 goes through the tensor-core kernel of its dtype
-    (64 and 128 as they are, the others padded), meets the bar against the
-    plain version and gives the same bits twice."""
+    """Every Dh up to 256 goes through the tensor-core kernel of its dtype
+    (64, 128, 192 and 256 as they are, the others padded), meets the bar
+    against the plain version and gives the same bits twice."""
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
     blk = 128 if t % 128 == 0 else 8
@@ -309,13 +316,14 @@ def test_flash_reads_nothing_past_dh(cuda, dtype, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,dh,causal", [(200, 136, True), (96, 192, False)])
 def test_flash_other_head_dims_take_the_simt_kernel(cuda, dtype, t, dh, causal, rng):
-    """Dh above 128 goes through the CUDA-core kernel and meets the bar."""
+    """Dh 136 and 192 go through the tensor-core kernel of their dtype (the
+    CUDA-core kernel takes only Dh past 256) and meet the bar."""
     q, k, v = (torch.from_numpy(rng.standard_normal((1, t, 2, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
     fa.reset_counters()
     got = fa.flash_attention(q, k, v, causal, 8, 8)
     torch.cuda.synchronize()
-    assert fa.ROUTE_LAUNCHES == {"wgmma_tma": 0, "mma_3xtf32": 0, "simt": 1}
+    assert fa.ROUTE_LAUNCHES == {r: int(r == TC_ROUTE[dtype]) for r in fa.ROUTES}
     _flash_check(got, fa.flash_attention_plain(q, k, v, causal, 8, 8), dtype)
 
 
@@ -364,10 +372,10 @@ def test_flash_takes_every_type_and_head_dim(cuda, dtype, b, t, h, dh, causal, r
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 192), (torch.bfloat16, 136),
                                       (torch.float32, 64), (torch.bfloat16, 128),
-                                      (torch.float32, 264)])
+                                      (torch.float32, 264), (torch.bfloat16, 256)])
 def test_flash_takes_more_than_65535_heads(cuda, dtype, dh, rng):
-    """B·H = 65536 (more than a grid's y or z extent) on every route, the
-    simt kernel included, at a short T."""
+    """B·H = 65536 (more than a grid's y or z extent) on every route and
+    tile width, the simt kernel included, at a short T."""
     b, t, h = 2, 16, 32768
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))

@@ -26,6 +26,10 @@ CASES = [
     (1, 96, 1, 8, 32, 32, True),
     (1, 64, 2, 80, 32, 16, True),  # zamba2-2.7b's head dim (2560 / 32)
     (2, 96, 2, 96, 32, 32, False),
+    # the wide tensor-core tiles: Dh padded to 192, 192 itself, 256
+    (1, 64, 2, 136, 32, 16, True),
+    (1, 96, 1, 192, 32, 32, False),
+    (1, 64, 2, 256, 16, 32, True),
 ]
 
 
@@ -144,17 +148,27 @@ def test_library_hash_covers_every_source(tmp_path):
 # P_hi = bf16(P) and P_lo = bf16(P - P_hi) and running PV twice on bf16
 # operands; the f32 kernel runs both products as three TF32 products
 # (a_big b_big + a_big b_small + a_small b_big).  These emulations repeat
-# that arithmetic tile by tile (128 keys bf16, 64 keys f32, the exponent in
-# base 2) with torch on the CPU, and are held to the card's bars against the
-# JAX reference in interpret mode and against the plain version: element by
-# element |err| <= eps_bf16 * |ref| + 2e-5 in bf16, 2e-5 max-abs in f32.
-# A Dh below the kernels' tile widths (64, 128) runs padded with zero columns
-# to the next of them, with the scale of the true Dh; the emulations do the
-# same and slice the output back to Dh.
+# that arithmetic tile by tile (the kernels' keys per K/V tile, _tiles; the
+# exponent in base 2) with torch on the CPU, and are held to the card's bars
+# against the JAX reference in interpret mode and against the plain version:
+# element by element |err| <= eps_bf16 * |ref| + 2e-5 in bf16, 2e-5 max-abs
+# in f32.  A Dh below the kernels' tile widths (64, 128, 192, 256) runs
+# padded with zero columns to the next of them, with the scale of the true
+# Dh; the emulations do the same and slice the output back to Dh.
 # ----------------------------------------------------------------------
 EPS_BF16 = torch.finfo(torch.bfloat16).eps
 DESIGN_CASES = [(256, 64, True), (512, 128, True), (384, 128, False), (512, 64, False),
-                (256, 80, True), (384, 96, False)]
+                (256, 80, True), (384, 96, False),
+                (256, 136, True), (384, 192, False), (256, 256, True)]
+
+
+def _tiles(dh: int):
+    """(padded Dh, bf16 keys per K/V tile, f32 keys per K/V tile) as the
+    kernels choose them: the narrowest of 64, 128, 192, 256 columns that
+    holds Dh; past 128 columns fewer keys, so that the Q tile and two K/V
+    stages fit a block's shared memory."""
+    dhp = next(w for w in (64, 128, 192, 256) if dh <= w)
+    return dhp, (128 if dhp <= 128 else 64), {64: 64, 128: 64, 192: 32, 256: 16}[dhp]
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -208,13 +222,16 @@ NEG_INF_F32 = -1e30
 
 def _padded(q, k, v):
     """q, k, v with Dh padded by zero columns to the kernels' tile width
-    (64 for Dh <= 64, else 128), and the true Dh."""
+    (:func:`_tiles`), and the true Dh."""
     dh = q.shape[-1]
-    dhp = 64 if dh <= 64 else 128
+    dhp = _tiles(dh)[0]
     return [torch.nn.functional.pad(x, (0, dhp - dh)) for x in (q, k, v)], dh
 
 
-def _bf16_design(q, k, v, causal, passes=2):
+def _bf16_design(q, k, v, causal, passes=2, keys=None):
+    """The bf16 kernel's arithmetic over K/V tiles of ``keys`` keys (the
+    kernel's own count for this Dh by default)."""
+    keys = keys or _tiles(q.shape[-1])[1]
     (q, k, v), dh = _padded(q, k, v)
     scale = dh**-0.5
 
@@ -228,15 +245,16 @@ def _bf16_design(q, k, v, causal, passes=2):
 
     # (q . k) in f32 (exact products of bf16); the scale, with log2(e),
     # goes into the base-2 exponent
-    return _emulate(q, k, v, causal, 128, lambda qh, kt: qh @ kt.mT, pv,
+    return _emulate(q, k, v, causal, keys, lambda qh, kt: qh @ kt.mT, pv,
                     exp2_scale=scale * math.log2(math.e))[..., :dh]
 
 
 def _tf32_design(q, k, v, causal):
+    keys = _tiles(q.shape[-1])[2]
     (q, k, v), dh = _padded(q, k, v)
     scale = dh**-0.5
     # q scaled in f32 first, as the reference does; the exponent in base 2
-    return _emulate(q, k, v, causal, 64, lambda qh, kt: _mm_3xtf32(qh * scale, kt.mT),
+    return _emulate(q, k, v, causal, keys, lambda qh, kt: _mm_3xtf32(qh * scale, kt.mT),
                     _mm_3xtf32, exp2_scale=math.log2(math.e))[..., :dh]
 
 
@@ -302,21 +320,42 @@ def test_one_pass_bf16_p_misses_the_bar_documenting_the_split():
     assert _excess(_bf16_design(q, k, v, True, passes=2), want, EPS_BF16) <= 2e-5
 
 
+@pytest.mark.parametrize("dh", [192, 256])
+def test_wide_bf16_tiles_of_64_keys_meet_the_bar_of_128(dh):
+    """Past 128 columns the bf16 kernel takes 64-key K/V tiles (its shared
+    memory holds no 128-key stages there).  The online softmax over 64-key
+    tiles, P split in two terms, meets the same element-wise bar as over
+    128-key tiles, against the plain version and the reference; one bf16
+    term of P misses it at these widths too."""
+    q, k, v = _design_inputs(512, dh, torch.bfloat16, seed=dh)
+    assert _tiles(dh) == (dh, 64, 32 if dh == 192 else 16)
+    want = fa.flash_attention(q, k, v, True, 128, 128)
+    ref = _jax_ref(q, k, v, True, jnp.bfloat16)
+    for keys in (64, 128):
+        got = _bf16_design(q, k, v, True, keys=keys)
+        assert _excess(got, want, EPS_BF16) <= 2e-5
+        assert _excess(got, ref, EPS_BF16) <= 2e-5
+    assert _excess(_bf16_design(q, k, v, True, passes=1), want, EPS_BF16) > 2e-5
+
+
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 128, "wgmma_tma"), (torch.bfloat16, 64, "wgmma_tma"),
     (torch.float32, 128, "mma_3xtf32"), (torch.float32, 64, "mma_3xtf32"),
-    (torch.bfloat16, 32, "wgmma_tma"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 32, "wgmma_tma"), (torch.float32, 256, "mma_3xtf32"),
     (torch.float32, 8, "mma_3xtf32"), (torch.bfloat16, 96, "wgmma_tma"),
-    (torch.bfloat16, 136, "simt"), (torch.float32, 80, "mma_3xtf32"),
+    (torch.bfloat16, 136, "wgmma_tma"), (torch.float32, 80, "mma_3xtf32"),
+    (torch.bfloat16, 256, "wgmma_tma"), (torch.float32, 192, "mma_3xtf32"),
     # f16 and f64 run in f32; Dh is padded to a multiple of 8 first
     (torch.float16, 128, "mma_3xtf32"), (torch.float64, 128, "mma_3xtf32"),
     (torch.float32, 76, "mma_3xtf32"), (torch.bfloat16, 125, "wgmma_tma"),
-    (torch.float32, 121, "mma_3xtf32"), (torch.float32, 129, "simt"), (torch.float16, 320, "simt"), (torch.bfloat16, 264, "simt"),
+    (torch.float32, 121, "mma_3xtf32"), (torch.float32, 129, "mma_3xtf32"),
+    (torch.float16, 320, "simt"), (torch.bfloat16, 264, "simt"),
+    (torch.float64, 249, "mma_3xtf32"), (torch.float32, 257, "simt"),
 ])
 def test_route_rule(dtype, dh, want):
     """The card's kernel is a pure function of (dtype, Dh): the tensor-core
-    kernel of the type it runs in up to a padded Dh of 128 (padded to 64 or
-    128), simt above."""
+    kernel of the type it runs in up to a padded Dh of 256 (padded to 64,
+    128, 192 or 256), simt above."""
     assert fa.route(dtype, dh) == want
     assert want in fa.ROUTES and fa.KERNEL_DTYPE[dtype] in fa._ENTRY[want]
 
@@ -454,3 +493,19 @@ def test_padding_with_the_padded_scale_would_show():
     wrong = fa.flash_attention_plain(qp, kp, vp, True, 32, 32)[..., :76]  # Dh 80's scale
     assert float((right - fa.flash_attention_plain(q, k, v, True, 32, 32)).abs().max()) < 2e-5
     assert float((wrong - right).abs().max()) > 1e-3
+
+
+def test_flash_tiles_edits_match_the_source():
+    """The tile A/B script's text edits each find their one line in the
+    source (a variant that silently kept the source's tiles would time the
+    same kernel twice), and the edited tiles still fit a block's shared
+    memory: Q and two K/V stages, rows padded by 4 floats."""
+    from repro_torch.kernels import flash_tiles
+
+    src = (flash_tiles.CSRC / "flash_attention.cu").read_text()
+    assert flash_tiles.VARIANTS["rows 128"] == {}
+    for old, new in flash_tiles.VARIANTS["rows 64"].items():
+        assert src.count(old) == 1 and old != new
+    for dh in flash_tiles.DHS:
+        for rows, keys in ((128, _tiles(dh)[2]), (64, 32)):
+            assert (rows + 4 * keys) * (dh + 4) * 4 <= 232_448
