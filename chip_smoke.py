@@ -52,11 +52,23 @@ card → ‖LLᵀ−A‖ check.
    executed async and waves (bit for bit each other and phase 5's);
    ``Session.simulate()`` and ``Session.serve`` of three Poisson arrivals
    of that Problem, two trees at once and the third queued (virtual time,
-   on the host).
+   on the host);
+9. the serving cluster (``repro_torch.cluster``) on the card, f64: (a) two
+   workers of two slots sharing ``cuda:0`` serve phase 5's Poisson 60
+   (tenant 0) and phase 4's random SPD 2500 (tenant 1) at once, under
+   ``torch.profiler`` (device time of the kernels against the run's wall
+   and the scheduler loop's host seconds): every result ok, no front
+   requeued, panels bit for bit phases 5 and 4's, the three frontal
+   kernels launched by the workers, a dispatch of more than one front;
+   (b) one worker killed after the first dispatch (heartbeat timeout 0.2
+   s, 0.05 s per dispatch) on Poisson 60: a loss seen, the panels still
+   phase 5's; (c) ``Session(DeviceMesh()).serve(stream, cluster=2)`` of
+   phase 8c's three Poisson 60 arrivals, then ``RunReport.save_html``.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6, 7 and 8,
-whose executors skip the warmup in the process phases 3-5 warmed) and
+4 after the executor's untimed warmup; each run of phases 6, 7, 8 and 9,
+whose executors and workers skip the warmup in the process phases 3-5
+warmed) and
 read just after: every kernel must have run on the main path, and no
 plain version.  Any failed check raises.  The line before the last is the
 kernels' JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits
@@ -740,6 +752,169 @@ def phase_online(fc, ap4, symb4, fact4, fact5) -> dict:
     }
 
 
+def timed_method(obj, name: str, acc: dict) -> None:
+    """Wrap ``obj.name`` so each call adds its host seconds to
+    ``acc[name]`` (the scheduler loop is the only caller: no lock)."""
+    fn = getattr(obj, name)
+    acc[name] = 0.0
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] += time.perf_counter() - t0
+
+    setattr(obj, name, wrapped)
+
+
+def phase_cluster(fc, ap4, fact4, ap5, fact5, sim_makespan: float,
+                  device: torch.device) -> dict:
+    """The serving cluster on ``device`` (``cuda:0``) in f64 (the library is built and
+    every shape class ran in phases 3-5).  (a) two workers x two slots,
+    Poisson 60 (tenant 0) and random SPD 2500 (tenant 1) submitted at
+    once, heartbeat timeout 10 s, under ``torch.profiler`` (kernels' device
+    seconds against the wall; the scheduler loop's re-share and dispatch
+    host seconds by wrapping its methods); (b) worker 1 killed after the
+    first dispatch (the reference test's timings) on Poisson 60;
+    (c) ``Session(DeviceMesh()).serve(cluster=2)`` of three Poisson 60
+    arrivals (seed 8, as phase 8c) and ``save_html``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import DeviceMesh, Problem, Session
+    from repro_torch.cluster import LocalCluster, leaked_threads
+    from repro_torch.kernels import _build
+    from repro_torch.online import poisson_arrivals
+
+    cuda0 = [device]
+    p60 = Problem.from_symbolic(fact5.symb, 0.9, matrix=ap5, name="poisson60")
+    spd = Problem.from_symbolic(fact4.symb, 0.9, matrix=ap4, name="random_spd2500")
+
+    # (a) two tenants at once
+    host = {}
+    with LocalCluster(n_workers=2, slots_per_worker=2, devices=cuda0, dtype=torch.float64,
+                      heartbeat_timeout=10.0) as cl:
+        for name in ("_reshare", "_dispatch"):
+            timed_method(cl.scheduler, name, host)
+        client = cl.client()
+
+        def run_a():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                futs = [client.submit(p, tenant=t, rid=t) for t, p in enumerate((p60, spd))]
+                results = client.gather(futs, timeout=600.0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return results, wall, prof
+
+        (results, wall_a, prof), launches_a = counted(fc, "phase 9a", run_a, fc.KERNELS)
+        stats_a = cl.scheduler.stats()
+        sizes = [b for w in cl.workers for b in w.batch_sizes]
+        mix = list(cl.scheduler.batch_tenant_mix)
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e6
+    device_s = sum(by_name.values())
+    kernel_s = sum(v for k, v in by_name.items() if "Memcpy" not in k and "Memset" not in k)
+    ok_a = all(r.ok for r in results)
+    check(ok_a, f"phase 9a: results not ok: {[r.error for r in results]}")
+    same = [same_panels(results[0].factor, fact5), same_panels(results[1].factor, fact4)]
+    res_a = [residual(results[0].factor, ap5), residual(results[1].factor, ap4)]
+    print(f"[9a cluster 2 workers x 2 slots on cuda:0, poisson60 + random_spd2500 f64] wall "
+          f"{wall_a:.3f} s (under torch.profiler, CUDA activity): device time {device_s:.4f} s "
+          f"(kernels {kernel_s:.4f} s), busy share {device_s / wall_a:.4f}; scheduler loop host "
+          f"seconds: re-share {host['_reshare']:.3f} s over {stats_a['n_reshares']} re-shares "
+          f"({host['_reshare'] / max(stats_a['n_reshares'], 1) * 1e3:.2f} ms each), dispatch "
+          f"(assembly, padding, send) {host['_dispatch']:.3f} s; dispatches "
+          f"{stats_a['n_dispatches']}, requeued {stats_a['n_requeued']}, worker losses "
+          f"{stats_a['n_worker_losses']}; fronts per dispatch max {max(sizes)} mean "
+          f"{np.mean(sizes):.2f}, cross-tenant dispatches {sum(m > 1 for m in mix)}; "
+          f"launches {launches_a}; residuals {res_a[0]:.3e} / {res_a[1]:.3e}; panels == "
+          f"phases 5 / 4 bit for bit: {same}", flush=True)
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    {v * 1e3:10.3f} ms  {k[:90]}", flush=True)
+    check(stats_a["n_requeued"] == 0, f"phase 9a: {stats_a['n_requeued']} fronts requeued")
+    check(all(same), f"phase 9a: cluster panels differ from phases 5 / 4: {same}")
+    check(max(res_a) <= 1e-12, f"phase 9a residuals {res_a}")
+    check(max(sizes) > 1, "phase 9a: no dispatch carried more than one front")
+    check(not leaked_threads(), f"phase 9a: threads left: {leaked_threads()}")
+
+    # (b) one worker killed after the first dispatch
+    with LocalCluster(n_workers=2, slots_per_worker=2, devices=cuda0, dtype=torch.float64,
+                      tick=0.002, heartbeat_interval=0.03, heartbeat_timeout=0.2,
+                      dispatch_overhead_s=0.05) as cl:
+        client = cl.client()
+
+        def run_b():
+            t0 = time.perf_counter()
+            fut = client.submit(p60, rid=0)
+            deadline = time.monotonic() + 60.0
+            while cl.scheduler.stats()["n_dispatches"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            cl.workers[1].kill()
+            (res,) = client.gather([fut], timeout=600.0)
+            return res, time.perf_counter() - t0
+
+        (res_b, wall_b), launches_b = counted(fc, "phase 9b", run_b)
+        stats_b = cl.scheduler.stats()
+    same_b = res_b.ok and same_panels(res_b.factor, fact5)
+    print(f"[9b cluster, worker 1 killed after the first dispatch, poisson60 f64] wall "
+          f"{wall_b:.3f} s; dispatches {stats_b['n_dispatches']}, worker losses "
+          f"{stats_b['n_worker_losses']}, requeued {stats_b['n_requeued']}, capacity events "
+          f"{stats_b['n_capacity_events']}; launches {launches_b}; panels == phase 5 bit for "
+          f"bit: {same_b}", flush=True)
+    check(res_b.ok, f"phase 9b: {res_b.error}")
+    check(stats_b["n_worker_losses"] >= 1, "phase 9b: no worker loss seen")
+    check(same_b, "phase 9b: panels differ from phase 5's after a worker loss")
+
+    # (c) the facade
+    arrivals = poisson_arrivals(3, 0.5 * sim_makespan, seed=8)
+    sess = Session(DeviceMesh())
+
+    def run_c():
+        t0 = time.perf_counter()
+        rep = sess.serve([(p60, float(a)) for a in arrivals], cluster=2, dtype=torch.float64)
+        return rep, time.perf_counter() - t0
+
+    (rep_c, wall_c), launches_c = counted(fc, "phase 9c", run_c)
+    html = _build.BUILD_DIR / "phase9_report.html"
+    rep_c.save_html(html)
+    m = rep_c.metrics
+    same_c = all(same_panels(f, fact5) for f in (rep_c.artifact or {}).values())
+    print(f"[9c Session(DeviceMesh()).serve(cluster=2), 3 poisson60 arrivals f64] wall "
+          f"{wall_c:.3f} s: {rep_c.kind}, requests {m['n_requests']:.0f}, failed "
+          f"{m['n_failed']:.0f}, qps {m['qps']:.4f}, p50 {m['p50_latency']:.3f} s, p99 "
+          f"{m['p99_latency']:.3f} s, dispatches {m['n_dispatches']:.0f}, re-shares "
+          f"{m['n_reshares']:.0f}; launches {launches_c}; factors == phase 5 bit for bit: "
+          f"{same_c}; save_html {html.stat().st_size} B", flush=True)
+    check(rep_c.kind == "served" and m["n_failed"] == 0, "phase 9c: serve failed")
+    check(m["p99_latency"] >= m["p50_latency"] > 0, "phase 9c: latencies")
+    check(len(rep_c.artifact) == 3 and same_c, "phase 9c: factors differ from phase 5's")
+    check(html.stat().st_size > 0, "phase 9c: save_html wrote nothing")
+    sess.close()
+    check(not leaked_threads(), f"phase 9: threads left: {leaked_threads()}")
+    total = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in fc.KERNELS}
+    return {
+        "launches": total,
+        "cluster_poisson60_random_spd2500_f64": {
+            "wall_s": wall_a, "device_s": device_s, "kernel_s": kernel_s,
+            "busy_share": device_s / wall_a, "reshare_host_s": host["_reshare"],
+            "dispatch_host_s": host["_dispatch"], "n_reshares": stats_a["n_reshares"],
+            "n_dispatches": stats_a["n_dispatches"], "n_requeued": stats_a["n_requeued"],
+            "max_batch": max(sizes), "mean_batch": float(np.mean(sizes)),
+            "residuals": res_a, "launches": launches_a},
+        "cluster_kill_poisson60_f64": {
+            "wall_s": wall_b, "n_worker_losses": stats_b["n_worker_losses"],
+            "n_requeued": stats_b["n_requeued"], "n_dispatches": stats_b["n_dispatches"],
+            "launches": launches_b},
+        "serve_cluster_poisson60x3_f64": {
+            "wall_s": wall_c, "qps": m["qps"], "p50_latency_s": m["p50_latency"],
+            "p99_latency_s": m["p99_latency"], "n_dispatches": m["n_dispatches"],
+            "n_reshares": m["n_reshares"], "launches": launches_c},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -847,8 +1022,13 @@ def main() -> int:
     launches7 = e2e7["session_poisson200_f64"]["launches"]
     stamp("8")
     e2e8 = phase_online(fc, ap4, symb4, fact4, fa)
-    stamp("end")
     launches8 = e2e8.pop("launches")
+    stamp("9")
+    e2e9 = phase_cluster(fc, ap4, fact4, ap5, fa,
+                         e2e8["simulate_serve_poisson60"]["simulate_makespan"],
+                         torch.device("cuda", 0))
+    stamp("end")
+    launches9 = e2e9.pop("launches")
 
     replaces = {
         "front_factor": "src/repro/kernels/frontal_cholesky.py:98",
@@ -862,10 +1042,12 @@ def main() -> int:
             "source": "src/repro_torch/csrc/frontal_cholesky.cu",
             "replaces": replaces[k],
             "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200) + 8 "
-                    "(execute_online, random SPD 2500; plan('online') Poisson 60, async and waves)",
-            "launches": launches[k] + launches7[k] + launches8[k],
+                    "(execute_online, random SPD 2500; plan('online') Poisson 60, async and "
+                    "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
+                    "killed, Session.serve(cluster=2))",
+            "launches": launches[k] + launches7[k] + launches8[k] + launches9[k],
             "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],
-                                  "8": launches8[k]},
+                                  "8": launches8[k], "9": launches9[k]},
             **rec[k],
         }
         for k in fc.KERNELS
@@ -890,6 +1072,7 @@ def main() -> int:
                                          "n_dispatches": report4.n_dispatches, "residual": res4},
             **e2e7,
             **e2e8,
+            **e2e9,
         },
         "phase_start_s": phase_s,
     }), flush=True)

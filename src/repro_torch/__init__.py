@@ -15,18 +15,25 @@ JAX).  Ported so far: the paper's application end to end —
   kernels      hand-written CUDA kernels (frontal partial Cholesky, flash
                attention), their plain PyTorch versions, torch.linalg oracles
   distributed  power-of-two device groups
-  obs          event bus, metrics registry, chrome-trace export
+  obs          event bus, metrics registry, efficiency metrics,
+               chrome-trace export, the localhost dashboard and static
+               HTML report
   online       the event-driven online scheduler (events, state, queue,
                scheduler) and its bridge to the executor (replay)
   runtime      the plan executor (async and wave runners), straggler and
                elastic tools
+  cluster      the serving cluster: comm layer (inproc / TCP), scheduler,
+               heartbeating workers factoring fronts on torch devices,
+               engine facade, ``LocalCluster``
   demo         ``python -m repro_torch.demo``, the reference demo's twin
 
 Entry point: ``repro_torch.api.Session(DeviceMesh()).analyze(A, alpha)
 .plan("greedy").execute(dtype=...)``; below it ``repro_torch.sparse.analyze``
 → ``repro_torch.sparse.make_plan`` → ``repro_torch.runtime.execute_plan``;
 the online path is ``repro_torch.online.execute_online`` (or
-``.plan("online")`` on the Session).
+``.plan("online")`` on the Session); serving is ``Session.serve(stream)``
+(virtual time) or ``Session.serve(stream, cluster=...)`` (a
+``repro_torch.cluster.LocalCluster``, wall time).
 """
 
 __version__ = "0.1.0"

@@ -529,31 +529,54 @@ class RunReport:
     kind: str
     schedule: Schedule
     makespan: float
-    fluid_makespan: float
+    fluid_makespan: Optional[float]  # None: no bound (cluster, numeric trees)
     planned: Optional[Schedule] = None
     metrics: Dict[str, float] = field(default_factory=dict)
     detail: object = field(default=None, repr=False)
     artifact: object = field(default=None, repr=False)
 
     def efficiency(self) -> float:
+        """Fluid bound over makespan; NaN when the run has no bound (a
+        cluster serving numeric trees: no calibrated work rate)."""
+        if self.fluid_makespan is None:
+            return math.nan
         return self.fluid_makespan / self.makespan if self.makespan > 0 else 1.0
 
     def summary(self) -> str:
+        bound = (
+            "n/a" if self.fluid_makespan is None
+            else f"{self.fluid_makespan:.6g} ({self.efficiency():.1%} of optimal)"
+        )
         head = (
             f"{self.kind}[{self.schedule.policy} on {self.schedule.platform}]"
             f" makespan {self.makespan:.6g}"
-            f" | fluid LB {self.fluid_makespan:.6g}"
-            f" ({self.efficiency():.1%} of optimal)"
+            f" | fluid LB {bound}"
         )
         extras = [f"{k}={v:.6g}" for k, v in sorted(self.metrics.items())]
         return head + (" | " + " ".join(extras) if extras else "")
 
     def save_html(self, path) -> str:
-        """Dump the run as a static HTML observability report: not ported
-        yet."""
-        raise NotImplementedError(
-            "RunReport.save_html needs repro_torch.obs.dashboard, not ported "
-            "yet (ROADMAP queue 1 item 4)"
+        """Dump the run as a static HTML observability report.
+
+        The same page the live dashboard serves, rendered from the
+        process bus/registry with this report's run-level numbers
+        (makespan, fluid bound, device count) as context.  Returns the
+        written path.
+        """
+        from repro_torch.obs.dashboard import save_html_report
+
+        context = {
+            "makespan": self.makespan,
+            "fluid_makespan": self.fluid_makespan,
+            "subtitle": self.summary(),
+        }
+        n_dev = self.metrics.get("n_devices")
+        if n_dev:
+            context["n_devices"] = int(n_dev)
+        return save_html_report(
+            path,
+            title=f"repro {self.kind} run — {self.schedule.policy}",
+            context=context,
         )
 
 

@@ -23,11 +23,12 @@ Terminal verbs:
 * ``simulate(noise=..., events=...)`` — the discrete-event online loop
   (duration noise, capacity edits, failures) on the planned problem.
 * ``serve(stream)`` — multi-tenant request serving through the admission
-  queue, in virtual time.  ``serve(cluster=...)`` (a scheduler/worker
-  cluster) and ``serve(dashboard_port=...)`` (the live dashboard) raise
-  :class:`NotImplementedError`: ``repro_torch.cluster`` and
-  ``repro_torch.obs.dashboard`` are not ported yet (ROADMAP queue 1 item 8
-  and item 4's gap).
+  queue, in virtual time; ``serve(stream, cluster=...)`` serves it on a
+  scheduler/worker cluster (:mod:`repro_torch.cluster`) in wall time, its
+  workers factoring numeric trees on the platform's torch devices;
+  ``serve(..., dashboard_port=...)`` keeps the live observability
+  dashboard (:mod:`repro_torch.obs.dashboard`) on ``self.dashboard``
+  until ``close()``.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 from .platform import Platform, as_platform
 from .policy import accepts_memory_budget, get_policy
 from .problem import Problem, as_problem
-from .schedule import RunReport, Schedule
+from .schedule import RunReport, Schedule, ShareEntry
 
 
 def _clean_metrics(metrics: dict) -> dict:
@@ -70,6 +71,7 @@ class Session:
         self.platform: Platform = as_platform(platform)
         self.problem: Optional[Problem] = None
         self.schedule: Optional[Schedule] = None
+        self.dashboard = None  # live obs dashboard (serve(dashboard_port=))
 
     # -- problem setup --------------------------------------------------
     def analyze(
@@ -398,6 +400,7 @@ class Session:
         dashboard_port: Optional[int] = None,
         cluster=None,
         time_scale: float = 0.0,
+        dtype: torch.dtype = torch.float32,
     ) -> RunReport:
         """Serve a stream of tree requests on this platform.
 
@@ -417,24 +420,41 @@ class Session:
         it had consumed half its actual service); tenants without an
         entry weigh 1.
 
-        ``cluster`` (a scheduler/worker cluster backend, with
-        ``time_scale`` pacing its submissions) and ``dashboard_port`` (the
-        live observability dashboard) are the reference's; both raise
-        :class:`NotImplementedError` here until ``repro_torch.cluster``
-        (ROADMAP queue 1 item 8) and ``repro_torch.obs.dashboard`` (item
-        4's gap) are ported.
+        ``cluster`` switches the backend from the in-process
+        virtual-time engine to a scheduler/worker cluster
+        (:mod:`repro_torch.cluster`): pass a worker count (an inproc
+        :class:`~repro_torch.cluster.service.LocalCluster` is started on
+        the platform's torch devices — every CUDA device when the
+        platform names none, raising where there is none — and torn down
+        around the call) or a running ``LocalCluster`` (left running).
+        On a cluster, latencies are wall-clock and numeric problems
+        return real factorizations in ``report.artifact[rid]``, factored
+        in ``dtype`` (``torch.float32``, ``execute``'s default, or
+        ``torch.float64``; a started cluster only: a running one keeps
+        its own); ``time_scale`` > 0 paces submissions at ``arrival ×
+        time_scale`` wall seconds (0 = submit immediately in arrival
+        order).
+
+        ``dashboard_port`` starts the live observability dashboard
+        (``repro_torch.obs.dashboard.Dashboard``, localhost) on that port
+        (0 = auto) for the duration of the serve loop and leaves it
+        running on ``self.dashboard`` afterwards — browse
+        ``self.dashboard.url``, stop it with ``self.dashboard.stop()``.
+        A dashboard left over from an earlier ``serve`` call is shut down
+        first, so repeated serves never collide on a port;
+        ``Session.close()`` (or using the session as a context manager)
+        stops it deterministically.
         """
         from repro_torch.online.queue import TreeRequest, serve_trees
 
-        if cluster is not None:
-            raise NotImplementedError(
-                "Session.serve(cluster=) needs repro_torch.cluster, not ported "
-                "yet (ROADMAP queue 1 item 8)"
-            )
         if dashboard_port is not None:
-            raise NotImplementedError(
-                "Session.serve(dashboard_port=) needs repro_torch.obs.dashboard, "
-                "not ported yet (ROADMAP queue 1 item 4's gap)"
+            from repro_torch.obs.dashboard import Dashboard
+
+            if self.dashboard is not None:  # no port squatting across serves
+                self.dashboard.stop()
+            self.dashboard = Dashboard(
+                dashboard_port,
+                context={"subtitle": f"serving on {self.platform.describe()}"},
             )
 
         items = list(stream)
@@ -472,6 +492,19 @@ class Session:
                     tree=prob, arrival=arrival, tenant=tenant, rid=len(reqs)
                 )
             )
+        if cluster is not None:
+            return self._serve_cluster(
+                reqs,
+                cluster,
+                alpha=alpha,
+                policy=policy,
+                admission=admission,
+                max_concurrent=max_concurrent,
+                qos_weights=qos_weights,
+                memory_budget=memory_budget,
+                time_scale=time_scale,
+                dtype=dtype,
+            )
         report = serve_trees(
             reqs,
             self.platform.to_pool(),
@@ -490,7 +523,7 @@ class Session:
             platform=self.platform.describe(),
         )
         fluid = realized.fluid_makespan
-        return RunReport(
+        run = RunReport(
             kind="served",
             schedule=realized,
             makespan=report.makespan,
@@ -508,11 +541,179 @@ class Session:
             ),
             detail=report,
         )
+        dash = getattr(self, "dashboard", None)
+        if dash is not None:
+            dash.update_context(
+                makespan=run.makespan,
+                fluid_makespan=run.fluid_makespan,
+                subtitle=f"served {len(reqs)} trees on "
+                f"{self.platform.describe()}",
+            )
+        return run
+
+    # ------------------------------------------------------------------
+    def _serve_cluster(
+        self,
+        reqs,
+        cluster,
+        *,
+        alpha: float,
+        policy: str,
+        admission: str,
+        max_concurrent,
+        qos_weights,
+        memory_budget,
+        time_scale: float,
+        dtype: torch.dtype,
+    ) -> RunReport:
+        """Serve the request list on a scheduler/worker cluster."""
+        import math as _math
+        import time as _time
+
+        from repro_torch.cluster.engine import ClusterEngine
+        from repro_torch.cluster.service import LocalCluster
+
+        own = False
+        if isinstance(cluster, int):
+            pool = max(int(round(self.platform.capacity())), 1)
+            n_workers = max(cluster, 1)
+            cluster = LocalCluster(
+                n_workers,
+                slots_per_worker=max(1, round(pool / n_workers)),
+                devices=self.platform.devices() or None,
+                dtype=dtype,
+                alpha=alpha,
+                policy=policy if policy in ("pm", "proportional") else "pm",
+                admission=admission,
+                max_concurrent=max_concurrent,
+                qos_weights=qos_weights,
+                memory_capacity=self._memory_capacity(memory_budget),
+            )
+            own = True
+        elif not isinstance(cluster, LocalCluster):
+            raise TypeError(
+                "cluster= takes a worker count or a LocalCluster, got "
+                f"{type(cluster).__name__}"
+            )
+        engine = ClusterEngine(cluster, own=own, label="session")
+        try:
+            t0 = _time.perf_counter()
+            for req in sorted(reqs, key=lambda r: r.arrival):
+                if time_scale > 0:
+                    lag = req.arrival * time_scale - (
+                        _time.perf_counter() - t0
+                    )
+                    if lag > 0:
+                        _time.sleep(lag)
+                engine.submit(
+                    req.tree, tenant=req.tenant, rid=req.rid, alpha=alpha
+                )
+            results = engine.drain(timeout=max(60.0, 10.0 * len(reqs)))
+            stats = engine.stats()
+            sched_stats = engine.scheduler_stats()
+        finally:
+            engine.close()
+
+        entries, offset = [], 0
+        artifacts = {}
+        t_min = min(
+            (r.t_submit for r in results if r.ok), default=0.0
+        )
+        for res in sorted(results, key=lambda r: (r.tenant, r.rid or 0)):
+            if not res.ok:
+                continue
+            for span in res.spans:
+                if span["end"] > span["start"]:
+                    entries.append(
+                        ShareEntry(
+                            task=offset + int(span["task"]),
+                            label=int(span["task"]),
+                            start=span["start"] - t_min,
+                            end=span["end"] - t_min,
+                            share=float(span["slots"]),
+                        )
+                    )
+            offset += len(res.spans)
+            if res.factor is not None:
+                artifacts[res.rid] = res.factor
+        capacity = float(sched_stats.get("total_slots") or 0.0)
+        # Theorem-6 fluid bound of the served forest in wall seconds
+        # (simulated work only: work_rate converts units to seconds;
+        # numeric trees have no calibrated rate, so the bound is omitted)
+        fluid = 0.0
+        if not artifacts and capacity > 0:
+            inv = 1.0 / alpha
+            eq_total = (
+                sum(r.tree.eq_root ** inv for r in reqs) ** alpha
+            )
+            fluid = eq_total / (
+                capacity ** alpha * cluster.scheduler.work_rate
+            )
+        realized = Schedule(
+            alpha=alpha,
+            policy=f"cluster-{policy}",
+            platform=f"cluster({cluster.address})",
+            capacity=capacity,
+            entries=entries,
+            makespan=stats.makespan,
+            fluid_makespan=fluid,
+            discretized=True,
+            meta={
+                "backend": "cluster",
+                "n_workers": len(cluster.workers),
+                "admission": admission,
+            },
+        )
+        run = RunReport(
+            kind="served",
+            schedule=realized,
+            makespan=stats.makespan,
+            fluid_makespan=fluid if fluid > 0 else None,
+            planned=self.schedule,
+            metrics=_clean_metrics(
+                {
+                    "n_requests": float(stats.n_requests),
+                    "n_failed": float(stats.n_failed),
+                    "qps": stats.qps,
+                    "p50_latency": stats.p50_latency,
+                    "p99_latency": stats.p99_latency,
+                    "mean_latency": stats.mean_latency,
+                    "mean_wait": stats.mean_wait,
+                    "mean_exec": stats.mean_exec,
+                    "n_dispatches": float(
+                        sched_stats.get("n_dispatches", 0)
+                    ),
+                    "n_reshares": float(sched_stats.get("n_reshares", 0)),
+                    "fluid_ratio": (
+                        stats.makespan / fluid
+                        if fluid > 0 and _math.isfinite(fluid)
+                        else None
+                    ),
+                }
+            ),
+            detail={"stats": stats, "scheduler": sched_stats,
+                    "results": results},
+            artifact=artifacts or None,
+        )
+        dash = getattr(self, "dashboard", None)
+        if dash is not None:
+            dash.update_context(
+                makespan=run.makespan,
+                subtitle=f"cluster-served {stats.n_requests} trees @ "
+                f"{cluster.address}",
+            )
+        return run
 
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Release session-owned services.  Nothing to release yet: the
-        reference's only one is serve's live dashboard, not ported."""
+        """Release session-owned services (the live dashboard).
+
+        Idempotent; after close a later ``serve(dashboard_port=)`` may
+        start a fresh dashboard.
+        """
+        if self.dashboard is not None:
+            self.dashboard.stop()
+            self.dashboard = None
 
     def __enter__(self) -> "Session":
         return self

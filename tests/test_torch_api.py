@@ -352,23 +352,30 @@ def test_device_mesh_without_cuda_raises(monkeypatch):
         SharedMemory(4).to_mesh()
 
 
-def test_unported_verbs_raise():
+def test_unported_verbs_raise(tmp_path, monkeypatch):
     """What is still unported raises, naming its ROADMAP item:
-    ``analyze_workload`` (item 9), ``serve(cluster=)`` (item 8),
-    ``serve(dashboard_port=)`` and ``RunReport.save_html`` (item 4's
-    gap)."""
+    ``analyze_workload`` (item 9).  ``serve(cluster=)``,
+    ``serve(dashboard_port=)`` and ``RunReport.save_html`` are ported
+    (items 8 and 4): a cluster on a platform without devices takes every
+    CUDA device and raises where there is none; the dashboard lives on
+    ``Session.dashboard`` until ``close()``; ``save_html`` writes the
+    report."""
     tree = random_assembly_tree(20, np.random.default_rng(0))
     sess = Session(SharedMemory(8)).load(tree, ALPHA)
     with pytest.raises(NotImplementedError, match="item 9"):
         sess.analyze_workload("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         sess.serve([(sess.problem, 0.0)], cluster=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sess.serve([(sess.problem, 0.0)], dashboard_port=0)
+    served = sess.serve([(sess.problem, 0.0)], dashboard_port=0)
+    assert sess.dashboard is not None
+    assert sess.dashboard.context["makespan"] == served.makespan
+    sess.close()
+    assert sess.dashboard is None
     rep = tapi.RunReport(kind="planned", schedule=sess.plan("pm").schedule,
                          makespan=1.0, fluid_makespan=1.0)
-    with pytest.raises(NotImplementedError, match="dashboard"):
-        rep.save_html("report.html")
+    path = rep.save_html(tmp_path / "report.html")
+    assert "<html" in open(path).read()
     with Session(SharedMemory(2)) as s:  # the context manager stays
         assert s.problem is None
 

@@ -15,8 +15,11 @@ with its strictly-upper part equal to C; 2e-5 max-abs for f32 attention
 attention, element by element |got - ref| <= eps * |ref| + 2e-5 (the same
 f32 math within the f32 tolerance, then one rounding each: at most 2 ulps
 of the element).  The frontal kernels are also held
-to determinism and batch invariance bit for bit.
+to determinism and batch invariance bit for bit.  The serving cluster's
+workers, sharing the card, give the executor's factors bit for bit.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +27,8 @@ import torch
 import repro_torch.kernels.frontal_cholesky as fc
 import repro_torch.kernels.ops as ops
 import repro_torch.sparse as tsparse
-from repro_torch.api import DeviceMesh, Session
+from repro_torch.api import DeviceMesh, Problem, Session
+from repro_torch.cluster import LocalCluster, leaked_threads
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import partial_cholesky_ref
 from repro_torch.online import LognormalNoise, execute_online
@@ -429,3 +433,87 @@ def test_session_execute_on_card(cuda):
     for pa, pd in zip(rep.artifact.panels, direct.panels):
         np.testing.assert_array_equal(pa, pd)
     assert all(m > 0 for m in sess.platform.resources().memory)
+
+
+# ----------------------------------------------------------------------
+# The serving cluster on the card (chip_smoke.py phase 9, smaller)
+# ----------------------------------------------------------------------
+def _card_problems():
+    """Poisson 20 (nested dissection: 156 fronts, padded order <= 256) and
+    a random SPD of order 1200 in its natural order (195 fronts, 17 of
+    padded order 1152: the large-front route)."""
+    g = 20
+    poisson = Problem.from_matrix(tsparse.grid_laplacian_2d(g), 0.9,
+                                  ordering=tsparse.nested_dissection_2d(g))
+    spd = Problem.from_matrix(tsparse.random_spd(1200, 16.0, np.random.default_rng(0)), 0.9)
+    return poisson, spd
+
+
+def _executed(prob):
+    """The port's single-process executor on the card, f64."""
+    return Session(DeviceMesh()).load(prob).plan("greedy").execute(
+        dtype=torch.float64).artifact
+
+
+def _no_cluster_threads(timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while leaked_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return leaked_threads()
+
+
+def test_cluster_on_card_two_tenants(cuda):
+    """Two tenants at once on two workers sharing the card, f64: every
+    factor bit for bit the executor's, no front requeued, the three
+    frontal kernels launched by the workers and no plain version run, and
+    some dispatch carrying more than one front."""
+    poisson, spd = _card_problems()
+    want = [_executed(p) for p in (poisson, spd)]  # also builds the library
+    assert any(ops.padded_shape(sn.m, sn.nb)[0] > ops.VMEM_FRONT_MAX
+               for sn in spd.symb.supernodes)
+    fc.reset_counters()
+    with LocalCluster(n_workers=2, slots_per_worker=2, devices=[cuda], dtype=torch.float64,
+                      heartbeat_timeout=10.0) as cl:
+        client = cl.client()
+        futs = [client.submit(p, tenant=t, rid=t) for t, p in enumerate((poisson, spd))]
+        results = client.gather(futs, timeout=300.0)
+        stats = cl.scheduler.stats()
+        sizes = [b for w in cl.workers for b in w.batch_sizes]
+    assert all(r.ok for r in results)
+    assert stats["n_requeued"] == 0
+    assert all(fc.LAUNCHES[k] > 0 for k in fc.KERNELS)
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    assert max(sizes) > 1
+    for r, w, p in zip(results, want, (poisson, spd)):
+        for pa, pw in zip(r.factor.panels, w.panels):
+            np.testing.assert_array_equal(pa, pw)
+        dense = p.matrix.toarray()
+        l = r.factor.to_dense_l()
+        assert np.abs(l @ l.T - dense).max() / np.abs(dense).max() < 1e-12
+    assert _no_cluster_threads() == []
+
+
+def test_cluster_on_card_worker_kill(cuda):
+    """Kill one worker after the first dispatch (the reference test's
+    timings): the requeued fronts re-run on the survivor and the factor is
+    still the executor's, bit for bit."""
+    poisson, _ = _card_problems()
+    want = _executed(poisson)
+    fc.reset_counters()
+    with LocalCluster(n_workers=2, slots_per_worker=2, devices=[cuda], dtype=torch.float64,
+                      tick=0.002, heartbeat_interval=0.03, heartbeat_timeout=0.2,
+                      dispatch_overhead_s=0.05) as cl:
+        client = cl.client()
+        fut = client.submit(poisson, rid=0)
+        deadline = time.monotonic() + 60.0
+        while cl.scheduler.stats()["n_dispatches"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        cl.workers[1].kill()
+        (res,) = client.gather([fut], timeout=300.0)
+        losses = cl.scheduler.stats()["n_worker_losses"]
+    assert res.ok and losses >= 1
+    assert fc.LAUNCHES["front_factor"] > 0
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    for pa, pw in zip(res.factor.panels, want.panels):
+        np.testing.assert_array_equal(pa, pw)
+    assert _no_cluster_threads() == []

@@ -194,8 +194,9 @@ def test_executor_contracts(grid23):
 def test_import_isolation():
     """Every port module (the facade, the optimizer, the straggler module,
     the online scheduler and its replay bridge, the elastic module, the
-    demo and the flash kernel's wrapper among them), chip_smoke and the
-    card tests import neither jax nor repro."""
+    serving cluster, the efficiency metrics and the dashboard, the demo
+    and the flash kernel's wrapper among them), chip_smoke and the card
+    tests import neither jax nor repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -211,7 +212,10 @@ need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo
         "repro_torch.online.events", "repro_torch.core.hetero",
         "repro_torch.online.state", "repro_torch.online.queue",
         "repro_torch.online.scheduler", "repro_torch.online.replay",
-        "repro_torch.runtime.elastic"}
+        "repro_torch.runtime.elastic", "repro_torch.obs.efficiency",
+        "repro_torch.obs.dashboard", "repro_torch.cluster.comm",
+        "repro_torch.cluster.scheduler", "repro_torch.cluster.worker",
+        "repro_torch.cluster.engine", "repro_torch.cluster.service"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """
