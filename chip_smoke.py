@@ -32,12 +32,15 @@ card → ‖LLᵀ−A‖ check.
    Dh=96 and at zamba2-2.7b's Dh=80 (both padded to 128 in the tensor-core
    kernels), causal f32 and bf16 at Dh=192 and 256 (the tensor-core
    kernels' wide tiles), causal f16 and f64 at Dh=128 (computed in f32),
-   causal f32 and bf16 at Dh=76 (padded to 80) and at Dh=320 (the simt
-   kernel by 128-column chunks of O), causal f32 and bf16 at Dh=192 with
-   B*H = 65600, T=64; each through the route its (dtype, Dh) names (the
-   per-route counter is checked; every Dh up to 256 on a tensor-core
-   route), against its plain version, twice bit for bit, with CUDA-event
-   times, the plain version's,
+   causal f32 and bf16 at Dh=76 (padded to 80), at Dh=320 and 512 (the
+   cluster route: the head dim split over 2 blocks of 192 or 256 columns),
+   causal f32 and bf16 at Dh=192 and at Dh=320 with B*H = 65600, T=64, and
+   one case past the cluster's reach (Dh=4104, simt, B=1 T=256 H=2); each
+   through the route its (dtype, Dh) names (the per-route counter is
+   checked against the rule: tensor cores up to 256, the cluster route up
+   to 4096, simt past it; each cluster case prints its blocks per cluster
+   and how many such clusters the card holds at once), against its plain
+   version, twice bit for bit, with CUDA-event times, the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    on f16 and f64 inputs converted to f32 and back, the port's function)
    and the bound;
@@ -345,12 +348,39 @@ FLASH_CASES = [
     (torch.float32, True, 192), (torch.bfloat16, True, 192),
     (torch.float32, True, 256), (torch.bfloat16, True, 256),
     # f16 and f64 run in f32 (the reference's semantics); Dh=76 padded to
-    # 80; Dh=320 on the simt kernel's column chunks; B*H past 65535
+    # 80; Dh=320 and 512 on the cluster route; B*H past 65535; simt past the
+    # cluster's reach
     (torch.float16, True, 128), (torch.float64, True, 128),
     (torch.float32, True, 76), (torch.bfloat16, True, 76),
     (torch.float32, True, 320), (torch.bfloat16, True, 320),
+    (torch.float32, True, 512), (torch.bfloat16, True, 512),
     (torch.float32, True, 192, (2, 64, 32800)), (torch.bfloat16, True, 192, (2, 64, 32800)),
+    (torch.float32, True, 320, (2, 64, 32800)), (torch.bfloat16, True, 320, (2, 64, 32800)),
+    (torch.float32, True, 4104, (1, 256, 2)),
 ]
+
+
+def expected_route(dtype, dh: int) -> str:
+    """The route rule, written out apart from ``route``: the tensor-core
+    kernel of the type computed in up to a padded Dh of 256, the cluster
+    route up to 4096, simt past it."""
+    p = -(-dh // 8) * 8
+    if p <= 256:
+        return "wgmma_tma" if dtype == torch.bfloat16 else "mma_3xtf32"
+    return "tc_cluster" if p <= 4096 else "simt"
+
+
+def compare(got: torch.Tensor, want: torch.Tensor, rtol: float) -> tuple[float, float, float]:
+    """(max |got - want|, max(|got - want| - rtol |want|), share of the
+    elements not bit-equal), in f64, over chunks of 2^26 elements (the
+    large-B*H outputs take GBs)."""
+    err, excess, unequal = 0.0, -float("inf"), 0
+    for g, w in zip(got.reshape(-1).split(1 << 26), want.reshape(-1).split(1 << 26)):
+        d = (g.double() - w.double()).abs()
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - rtol * w.double().abs()).max()))
+        unequal += int((g != w).sum())
+    return err, excess, unequal / got.numel()
 
 
 def phase_flash(fa) -> dict:
@@ -358,8 +388,9 @@ def phase_flash(fa) -> dict:
     train_4k length (and Dh=64, the other head dim of the repo's configs;
     Dh=80, zamba2-2.7b's (d_model 2560 over 32 heads), Dh=96 and Dh=76 run
     padded in the tensor-core kernels; Dh=192 and 256 in their wide tiles;
-    Dh=320, wider than those, takes the simt kernel by 128-column chunks of
-    O; f16 and f64 run in f32; B*H = 65600 at T=64).  For each case the public
+    Dh=320 and 512, wider than those, the cluster route; Dh=4104, past its
+    reach, the simt kernel by 128-column chunks of O; f16 and f64 run in
+    f32; B*H = 65600 at T=64).  For each case the public
     function runs once with the counters set to 0 (the path run: its route
     counter must read 1), then against its plain version on the same
     inputs, then timed.  Returns one record per route: its first case, the
@@ -372,11 +403,21 @@ def phase_flash(fa) -> dict:
     for dtype, causal, dh, *shape in FLASH_CASES:
         b, t, h = shape[0] if shape else (2, 4096, 32)
         if (b, t, h, dh) not in qkv32:
+            if shape:  # the large-B*H inputs take GBs: only this shape's are kept
+                for key in [key for key in qkv32 if key[2] > 32]:
+                    del qkv32[key]
+                torch.cuda.empty_cache()
             qkv32[(b, t, h, dh)] = [
                 torch.randn(b, t, h, dh, generator=gen_card, device="cuda") if shape
                 else torch.randn(b, t, h, dh, generator=gen).cuda() for _ in range(3)]
         q, k, v = (x.to(dtype) for x in qkv32[(b, t, h, dh)])
         route = fa.route(dtype, dh)
+        room = ""
+        if route == "tc_cluster":  # before the path run (sets the kernel's attributes)
+            ctas, clusters = fa.cluster_room(dtype, dh, torch.device("cuda"))
+            check(ctas == fa.cluster_shape(dh)[0] and clusters >= 1,
+                  f"flash {dtype} Dh={dh}: cluster of {ctas}, {clusters} resident")
+            room = f"; cluster {ctas} CTAs, {clusters} clusters resident at once"
         fa.reset_counters()
         got = fa.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
@@ -386,20 +427,17 @@ def phase_flash(fa) -> dict:
         check(path_plain == 0, f"flash {dtype} causal={causal}: plain version ran")
         check(routes == {r: int(r == route) for r in fa.ROUTES},
               f"flash {dtype} Dh={dh}: routes {routes}, expected {route}")
-        check((route == "simt") == (fa.padded_dh(dh) > 256),
-              f"flash {dtype} Dh={dh}: route {route}, tensor cores take every Dh up to 256")
+        check(route == expected_route(dtype, dh),
+              f"flash {dtype} Dh={dh}: route {route}, the rule names {expected_route(dtype, dh)}")
         check(got.dtype == dtype and got.shape == q.shape, f"flash {dtype} Dh={dh}: output")
         want = fa.flash_attention_plain(q, k, v, causal)
-        diff = (got.double() - want.double()).abs()
-        err = float(diff.max())
-        not_equal = float((got != want).float().mean())  # share of elements not bit-equal
         # f32 math (f32; f64, computed in f32 as the reference does): the
         # reference's attention tolerance.  bf16, f16: the same f32 math
         # (within that tolerance), then one rounding each, so element by
         # element at most 2 ulps of the element: eps * |want| + 2e-5
         rtol = (torch.finfo(dtype).eps if dtype in (torch.bfloat16, torch.float16) else 0.0)
         tol = 2e-5
-        excess = float((diff - rtol * want.double().abs()).max())  # must stay <= tol
+        err, excess, not_equal = compare(got, want, rtol)  # excess must stay <= tol
         same = torch.equal(fa.flash_attention(q, k, v, causal), got)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal), reps=3, warm=1)
@@ -431,20 +469,25 @@ def phase_flash(fa) -> dict:
         # the kernel's own design, at the work it issues: Dh padded to a
         # multiple of 8; the tensor-core kernels run QK^T over it rounded up
         # to their k-step (16 wgmma, 8 mma.sync) and PV at the padded tile
-        # width (64, 128, 192 or 256); wgmma_tma runs PV twice (P split in
-        # two), mma_3xtf32 three TF32 passes of each, simt f32 math on the
-        # CUDA cores, QK^T once per 128-column chunk of O (Dh past 256)
+        # width (64, 128, 192 or 256); the cluster route QK^T once and PV
+        # over its blocks' shares (nc x 192 or 256 columns); bf16 runs PV
+        # twice (P split in two), f32 three TF32 passes of each; simt f32
+        # math on the CUDA cores, QK^T once per 128-column chunk of O
         dhp = fa.padded_dh(dh)
         dh_tile = next((w for w in (64, 128, 192, 256) if dhp <= w), dhp)
-        chunks = 1 if dhp <= 256 else -(-dhp // 128)
-        qk_flops = 2.0 * b * h * pairs * {"wgmma_tma": -(-dhp // 16) * 16, "mma_3xtf32": dhp,
-                                          "simt": dhp * chunks}[route]
-        pv_flops = 2.0 * b * h * pairs * (dhp if route == "simt" else dh_tile)
-        design_ms = 1e3 * {"wgmma_tma": (qk_flops + 2 * pv_flops) / PEAK_BF16_TENSOR,
-                           "mma_3xtf32": 3 * (qk_flops + pv_flops) / PEAK_TF32_TENSOR,
-                           "simt": (qk_flops + pv_flops) / PEAK_FLOPS[torch.float32]}[route]
-        tile = (f" ({chunks} chunks of O)" if chunks > 1 else "") if route == "simt" \
-            else f" (tile {dh_tile})"
+        chunks = -(-dhp // 128) if route == "simt" else 1
+        nc, share = fa.cluster_shape(dh) if route == "tc_cluster" else (1, dh_tile)
+        qk_width = {"wgmma_tma": -(-dhp // 16) * 16, "mma_3xtf32": dhp, "tc_cluster": nc * share,
+                    "simt": dhp * chunks}[route]
+        qk_flops = 2.0 * b * h * pairs * qk_width
+        pv_flops = 2.0 * b * h * pairs * (dhp if route == "simt" else nc * share)
+        bf16_route = fa.KERNEL_DTYPE[dtype] == torch.bfloat16
+        design_ms = 1e3 * (
+            (qk_flops + pv_flops) / PEAK_FLOPS[torch.float32] if route == "simt"
+            else (qk_flops + 2 * pv_flops) / PEAK_BF16_TENSOR if bf16_route
+            else 3 * (qk_flops + pv_flops) / PEAK_TF32_TENSOR)
+        tile = {"simt": f" ({chunks} chunks of O)" if chunks > 1 else "",
+                "tc_cluster": f" ({nc} shares of {share}{room})"}.get(route, f" (tile {dh_tile})")
         print(f"flash_attention {str(dtype)[6:]} causal={causal} B={b} T={t} H={h} Dh={dh} "
               f"route {route}{tile}: max_abs_err {err:.3e} (elementwise |err| <= {rtol:.4g}*|ref| + "
               f"{tol:.0e}: excess {excess:.3e}; not bit-equal {not_equal:.4f}; deterministic "
@@ -458,18 +501,20 @@ def phase_flash(fa) -> dict:
         check(same, f"flash {dtype} Dh={dh} causal={causal}: two calls differ")
         check(ms >= bnd, f"flash {dtype} Dh={dh}: {ms} ms under the bound {bnd} ms")
         case = dict(dtype=str(dtype)[6:], causal=causal, shape=[b, t, h, dh], kernel=route,
-                    dh_tile=dhp if route == "simt" else dh_tile, o_chunks=chunks,
+                    dh_tile=dhp if route == "simt" else share, o_chunks=chunks,
                     max_abs_err=err, rtol=rtol, atol=tol, not_bit_equal=not_equal, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
                     design_bound_ms=design_ms, x_library=ms / lib_ms)
         if lib_native_ms is not None:
             case["library_native_ms"] = lib_native_ms
+        if route == "tc_cluster":
+            case.update(cluster_ctas=ctas, max_active_clusters=clusters)
         if route not in recs:
             recs[route] = dict(case, launches=0)
         else:
             recs[route].setdefault("other_cases", []).append(case)
         recs[route]["launches"] += path_launches
-        del q, k, v, qt, kt, vt, got, want, diff
+        del q, k, v, qt, kt, vt, got, want
     return recs
 
 

@@ -4,8 +4,8 @@
 // repro_torch/kernels/flash_attention.py.
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention.py:
-//   flash_wgmma_kernel, flash_tf32_kernel, flash_fwd_kernel
-//       <- flash_attention (:77) / _flash_body (:31)
+//   flash_wgmma_kernel, flash_tf32_kernel (each also as a cluster),
+//   flash_fwd_kernel <- flash_attention (:77) / _flash_body (:31)
 //
 // What it computes (as the TPU kernel does): for Q, K, V of shape
 // (B, T, H, Dh), K and V already repeated to the query head count,
@@ -31,8 +31,8 @@
 // What bounds it on this card: operations.  At the main-path shape (B=2,
 // T=4096, H=32, Dh=128, causal) the function does ~2.75e11 flops while
 // moving ~268 MB in bf16 (~537 MB in f32), far above the ridge of every
-// unit.  So every product goes to the tensor cores, in three routes chosen
-// by the wrapper from (dtype, Dh):
+// unit.  So every product goes to the tensor cores, in routes chosen by
+// the wrapper from (dtype, Dh):
 //
 // The two tensor-core kernels take every Dh <= 256 (a multiple of 8): each
 // is built for tiles of DHP = 64, 128, 192 and 256 columns and runs a Dh
@@ -63,7 +63,8 @@
 //   P_hi), and PV is two register-A wgmmas per k16 step against the same V
 //   tile (MN-major, no transpose): m64n{DHP}k16 up to DHP 128, past it one
 //   n128 over V's boxes 0-1 and one n64 (DHP 192) or n128 (256) over the
-//   rest, leaving an error of at most 2^-17 of sum p |v| / l.  O takes DHP/2
+//   rest, leaving an error of at most 2^-17 of sum p |v| / l.  A consumer
+//   warpgroup whose 64 rows all lie past T does nothing.  O takes DHP/2
 //   f32 registers per consumer thread (128 at DHP 256), within the 232 that
 //   setmaxnreg gives them.  S takes ceil(Dh/16) k16 steps: one complete
 //   wgmma stage is compiled for each count the tile can need, so no branch
@@ -84,31 +85,53 @@
 //   accumulator layout feeds the A operand directly by permuting the keys
 //   of each 8-key step (A column t <-> key 2t, t+4 <-> 2t+1; V's rows are
 //   read in the same order).
-// * flash_fwd_kernel (the first kernel; the wrapper gives it every Dh > 256,
-//   in steps of 8): f32 math on the CUDA cores, operands from shared memory.
-//   A CTA owns one 128-column chunk of O (grid.z): it computes S over the
-//   full Dh by streaming Q and K through shared memory in 128-column chunks,
-//   in column order, and reads only its chunk of V.  S is recomputed by
-//   every chunk of O.
+// * The cluster route (Dh 264 .. 4096, bf16 and f32): the same two kernels
+//   (CLUSTER true) with the head dim split over a thread-block cluster of
+//   nc = ceil(Dh / 256) CTAs along x, each holding an equal share of the
+//   columns rounded up to 64 (192 or 256: two CTAs of 192 at Dh 320, four
+//   of 256 at Dh 1000, sixteen at 4096, the H100's largest cluster).  A CTA
+//   loads its share of Q, K and V (TMA box offset on the Dh axis; cp.async
+//   from its first column), computes the partial S of its rows over it on
+//   the tensor cores, and the cluster adds the nc partials in rank order
+//   through distributed shared memory (cluster_sum): each CTA then holds
+//   the same S, m and l, and runs the softmax, PV over its own V columns,
+//   and stores its own O columns.  S is computed once, not once per chunk
+//   of O.  bf16 keeps its tiles and adds 32 KiB of partial slots (231,424 B
+//   at share 256).  f32 holds one K and one V tile of 56 (share 192) or 32
+//   (256) keys instead of two stages of 32 or 16, each loaded while the
+//   other is read, so that an exchange spans more keys (the exchange, not
+//   the products, is what the cluster adds).  Causal skips depend on
+//   the query tile and the warp only, so every CTA of a cluster makes the
+//   same exchanges.
+// * flash_fwd_kernel (route simt, the first kernel; the wrapper gives it
+//   every Dh past the cluster's reach, 4096, in steps of 8): f32 math on
+//   the CUDA cores, operands from shared memory.  A CTA owns one 128-column
+//   chunk of O (grid.z): it computes S over the full Dh by streaming Q and
+//   K through shared memory in 128-column chunks, in column order, and
+//   reads only its chunk of V.  S is recomputed by every chunk of O.
 //
 // No atomics and a fixed summation order: two calls give the same bits.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library is linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
+constexpr int MAX_CLUSTER = 16;  // the H100 holds clusters of 16 (non-portable past 8)
+constexpr int CLUSTER_DH_MAX = 256 * MAX_CLUSTER;  // the cluster route's reach
 
 struct Strides {
   long long b, t, h, d;
 };
 
 // ----------------------------------------------------------------------
-// flash_fwd_kernel (route simt, Dh > 256): one CTA per (batch*head, 64-row
-// query tile, 128-column chunk of O), 64-key KV tiles, 256 threads as 16x16
+// flash_fwd_kernel (route simt, Dh past the cluster route's 4096): one CTA
+// per (batch*head, 64-row query tile, 128-column chunk of O), 64-key KV
+// tiles, 256 threads as 16x16
 // each owning 4x4 scores and 4 x 8 outputs; any strides.  S over the full
 // Dh comes from Q and K streamed through f32 shared memory 128 columns at a
 // time (rows padded to 129 floats), in column order; V's chunk of O and P
@@ -287,8 +310,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int batch, int seq, int heads, int dh, int causal,
                  float scale, Strides sq, Strides sk, Strides sv,
                  void* stream) {
-  // every narrower Dh goes to the tensor-core kernels
-  if (dh <= 256 || dh % 8) return (int)cudaErrorInvalidValue;
+  // every narrower Dh goes to the tensor-core kernels and their clusters
+  if (dh <= CLUSTER_DH_MAX || dh % 8) return (int)cudaErrorInvalidValue;
   const size_t smem =
       ((size_t)(BQ + 2 * BKV) * LDC + (size_t)BQ * PLD) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -384,6 +407,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[4 * NJ], float (&m)[2], 
 constexpr int WSTAGES = 2;             // K/V ring stages
 constexpr int QBOX = TQ * 128;         // bytes of one Q box: 128 rows x 64 bf16
 constexpr int WTHREADS = 384;          // producer warpgroup + 2 consumer warpgroups
+constexpr int CL_WARPS = 8;  // consumer warps of either tensor-core kernel (cluster slots)
 
 // Keys per K/V tile: 128 up to a 128-column tile; 64 past it, where Q and
 // two stages of 128-key K and V tiles would take 240 KiB (192 columns) or
@@ -393,11 +417,17 @@ __host__ __device__ constexpr int wg_keys() { return DH <= 128 ? 128 : 64; }
 // bytes of one K or V box: wg_keys rows x 64 bf16
 template <int DH>
 __host__ __device__ constexpr int wg_kv_box() { return wg_keys<DH>() * 128; }
-// Q, the K and V stages, the mbarriers, and slack to align the base to 1 KB
-// (DH 256: 64 + 2 (32 + 32) KiB + 2 KiB)
+// bytes of the partial-S slots of a cluster's CTA: 8 warps x 32 lanes x
+// wg_keys / 2 f32 (32 KiB with 64-key tiles)
 template <int DH>
+__host__ __device__ constexpr int wg_part_bytes() { return CL_WARPS * 32 * (wg_keys<DH>() / 2) * 4; }
+// Q, the K and V stages, the partial-S slots (cluster), the mbarriers, and
+// slack to align the base to 1 KB (DH 256: 64 + 2 (32 + 32) KiB + 2 KiB,
+// 32 KiB more in a cluster: 231,424 of 232,448 B)
+template <int DH, bool CLUSTER = false>
 __host__ __device__ constexpr int wg_smem_bytes() {
-  return (DH / 64) * (QBOX + 2 * WSTAGES * wg_kv_box<DH>()) + 1024 + 1024;
+  return (DH / 64) * (QBOX + 2 * WSTAGES * wg_kv_box<DH>()) + (CLUSTER ? wg_part_bytes<DH>() : 0) +
+         1024 + 1024;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -434,6 +464,142 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ----------------------------------------------------------------------
+// Head dims past 256: the columns split over a thread-block cluster
+// ----------------------------------------------------------------------
+// Each CTA of a cluster of nc holds one share of DH columns (DH 192 or 256)
+// of Q, K, V and O.  Per key tile each consumer warp computes the partial
+// S of its rows over its CTA's columns, stores it in its slot of the CTA's
+// shared memory, and adds the slots of the same warp in every CTA, read
+// through distributed shared memory in rank order 0..nc-1: every CTA holds
+// the same bits of S (and so of m, l and P).  Two mbarriers per consumer
+// warp take one arrival from that warp in each CTA: `full` (every partial
+// of the tile is stored: a release fence on shared memory before the
+// arrivals, acquired by the wait) and `empty` (every CTA has read this
+// CTA's partial, which may then be overwritten).  A warp
+// waits on `empty` only before its next store, so the wait for the peers'
+// reads overlaps the softmax, PV and the next tile's S.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster, after the mbarriers' init.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+// The same shared-memory location in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// A relaxed arrival on the mbarrier at a cluster address: it orders no
+// memory access by itself.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Release, at cluster scope, the shared-memory stores that precede it (the
+// warp's, through __syncwarp) to the acquire of a later arrival's waiter.
+// Restricted to shared memory, it does not wait on global memory as the
+// release of mbarrier.arrive.release.cluster does: that release, at both
+// arrivals, took 6.5 ms of bf16's, against 4.2 with this fence (B=2 T=4096
+// H=32 Dh=320 causal, NVIDIA H100 80GB HBM3).
+__device__ __forceinline__ void fence_shared_release_cluster() {
+  asm volatile("fence.release.sync_restrict::shared::cta.cluster;\n" ::: "memory");
+}
+// mbar_wait, acquiring what the cluster's arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ float4 ld_cluster(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// One consumer warp's side of the exchange: its slot (N/4 float4s per
+// lane, lane-interleaved: conflict-free), its two mbarriers, the exchanges
+// so far, the cluster's size and the CTA's rank in it.
+struct ClusterSlot {
+  float4* slot;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t n;
+  uint32_t nc;
+  uint32_t rank;
+};
+
+// s (the warp's partial S, N floats a lane) becomes the cluster's S,
+// p_0 + p_1 + ... + p_{nc-1} added in that order.  Ranks 0 and 1 hold p_0
+// and p_1 in s (p_0 + p_1 == p_1 + p_0 exactly) and add the others to it;
+// a higher rank rebuilds the sum from the slots, its own read locally.
+template <int N>
+__device__ __forceinline__ void cluster_sum(float (&s)[N], ClusterSlot& x, int lane) {
+  static_assert(N % 4 == 0, "whole float4s per lane");
+  if (x.n > 0) mbar_wait_cluster(x.empty, (x.n - 1) & 1);  // the peers read the last one
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    x.slot[32 * j + lane] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+  __syncwarp();
+  if (lane == 0) {
+    fence_shared_release_cluster();  // the slot's stores before the arrivals
+    for (uint32_t r = 0; r < x.nc; ++r) mbar_arrive_remote(cluster_addr(smem_u32(x.full), r));
+  }
+  mbar_wait_cluster(x.full, x.n & 1);
+  const bool in_place = x.rank < 2;
+  const uint32_t a = smem_u32(x.slot + lane);
+  for (uint32_t r = 0; r < x.nc; ++r) {
+    if (in_place && r == x.rank) continue;  // already in s
+    float4 p[N / 4];
+    if (r == x.rank) {  // its own partial: a plain shared load, off the cluster's network
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) p[j] = x.slot[32 * j + lane];
+    } else {
+      const uint32_t ra = cluster_addr(a, r);
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) p[j] = ld_cluster(ra + 32 * 16 * j);
+    }
+    const bool first = r == 0 && !in_place;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      s[4 * j + 0] = first ? p[j].x : s[4 * j + 0] + p[j].x;
+      s[4 * j + 1] = first ? p[j].y : s[4 * j + 1] + p[j].y;
+      s[4 * j + 2] = first ? p[j].z : s[4 * j + 2] + p[j].z;
+      s[4 * j + 3] = first ? p[j].w : s[4 * j + 3] + p[j].w;
+    }
+  }
+  // every lane's loads have returned (their values were added above) before
+  // the arrivals issue: no peer's next store can reach them
+  __syncwarp();
+  if (lane == 0)
+    for (uint32_t r = 0; r < x.nc; ++r) mbar_arrive_remote(cluster_addr(smem_u32(x.empty), r));
+  ++x.n;
+}
+// Before the CTA exits: every CTA has read its last partial.
+__device__ __forceinline__ void cluster_drain(const ClusterSlot& x) {
+  if (x.n > 0) mbar_wait_cluster(x.empty, (x.n - 1) & 1);
 }
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
@@ -579,17 +745,24 @@ __device__ __forceinline__ void qk_wgmma_steps(float (&s)[wg_keys<DH>() / 2], ui
 }
 
 // One CTA per (batch*head, 128-row query tile): warpgroup 0 produces (one
-// thread issues every TMA load), warpgroups 1 and 2 each own 64 query rows.
-// DH is the tile width (64, 128, 192 or 256 columns); PAD: the head dim
-// dh_arg is narrower (a multiple of 8 above the next narrower tile), else
-// it is DH and every bound below is a compile-time constant.
-template <int DH, bool PAD>
+// thread issues every TMA load), warpgroups 1 and 2 each own 64 query rows;
+// a consumer warpgroup whose rows all lie past T does nothing.  DH is the
+// tile width (64, 128, 192 or 256 columns); PAD: the head dim dh_arg is
+// narrower (a multiple of 8 above the next narrower tile), else it is DH
+// and every bound below is a compile-time constant.  CLUSTER: one cluster
+// of ceil(dh_arg / DH) CTAs per (batch*head, query tile), along x, each
+// CTA holding DH columns from rank * DH (the last one's past dh_arg read as
+// zeros), S summed across the cluster (cluster_sum).
+template <int DH, bool PAD, bool CLUSTER>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                        int heads, int seq, int dh_arg, int causal, float scale) {
-  const int dh = PAD ? dh_arg : DH;
+  const int nc = CLUSTER ? (int)cluster_nctarank() : 1;
+  const int col0 = CLUSTER ? (int)cluster_ctarank() * DH : 0;  // the CTA's first column
+  const int dh = CLUSTER ? min(DH, dh_arg - col0) : PAD ? dh_arg : DH;  // the columns it holds
+  const int ldo = CLUSTER ? dh_arg : dh;  // the output's row stride
   constexpr int NB = DH / 64;  // 64-column boxes per tile
   constexpr int WK = wg_keys<DH>();
   constexpr int KVBOX = wg_kv_box<DH>();
@@ -599,16 +772,22 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   uint8_t* Qs = base;
   uint8_t* Ks = Qs + NB * QBOX;
   uint8_t* Vs = Ks + WSTAGES * KVTILE;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WSTAGES * KVTILE);
+  float4* part = reinterpret_cast<float4*>(Vs + WSTAGES * KVTILE);  // cluster: partial-S slots
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(Vs + WSTAGES * KVTILE + (CLUSTER ? wg_part_bytes<DH>() : 0));
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + WSTAGES;
   uint64_t* empty = v_full + WSTAGES;
+  uint64_t* s_full = empty + WSTAGES;  // cluster: one per consumer warp
+  uint64_t* s_empty = s_full + CL_WARPS;
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int bh = blockIdx.x / nc;
+  const int b = bh / heads, h = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;  // longest rows first
   const int kv_end = causal ? min(seq, q0 + TQ) : seq;
   const int ntiles = (kv_end + WK - 1) / WK;
   const int wg = threadIdx.x >> 7;
+  const int consumers = q0 + 64 < seq ? 2 : 1;  // warpgroups with rows inside T
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -616,11 +795,20 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     for (int st = 0; st < WSTAGES; ++st) {
       mbar_init(k_full + st, 1);
       mbar_init(v_full + st, 1);
-      mbar_init(empty + st, 8);  // one arrival per consumer warp
+      mbar_init(empty + st, 4 * consumers);  // one arrival per working consumer warp
+    }
+    if constexpr (CLUSTER) {
+      for (int w = 0; w < CL_WARPS; ++w) {
+        mbar_init(s_full + w, nc);
+        mbar_init(s_empty + w, nc);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (CLUSTER)
+    cluster_sync();  // no remote arrival before every peer's init
+  else
+    __syncthreads();
 
   if (wg == 0) {
     // ---- producer ----
@@ -628,18 +816,21 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, NB * QBOX);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) tma_load_4d(Qs + c * QBOX, &tq, q_full, 64 * c, h, q0, b);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(Qs + c * QBOX, &tq, q_full, col0 + 64 * c, h, q0, b);
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % WSTAGES;
         if (it >= WSTAGES) mbar_wait(empty + st, ((it / WSTAGES) - 1) & 1);
         mbar_expect_tx(k_full + st, KVTILE);
 #pragma unroll
         for (int c = 0; c < NB; ++c)
-          tma_load_4d(Ks + st * KVTILE + c * KVBOX, &tk, k_full + st, 64 * c, h, it * WK, b);
+          tma_load_4d(Ks + st * KVTILE + c * KVBOX, &tk, k_full + st, col0 + 64 * c, h, it * WK,
+                      b);
         mbar_expect_tx(v_full + st, KVTILE);
 #pragma unroll
         for (int c = 0; c < NB; ++c)
-          tma_load_4d(Vs + st * KVTILE + c * KVBOX, &tv, v_full + st, 64 * c, h, it * WK, b);
+          tma_load_4d(Vs + st * KVTILE + c * KVBOX, &tv, v_full + st, col0 + 64 * c, h, it * WK,
+                      b);
       }
     }
   } else {
@@ -652,11 +843,15 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     const int row[2] = {rbase + 16 * warp + (lane >> 2), rbase + 16 * warp + (lane >> 2) + 8};
     const uint32_t qa = smem_u32(Qs) + 64 * cw * 128;  // the warpgroup's 64 rows of each box
     const float scale_log2 = scale * 1.4426950408889634f;  // p = 2^(s scale log2(e) - m)
-    const int nk = (dh + 15) / 16;  // k16 steps of S that hold some of Dh
+    // k16 steps of S that hold some of Dh (a cluster's CTAs run in step:
+    // every one takes all of its share's)
+    const int nk = CLUSTER ? DH / 16 : (dh + 15) / 16;
     // causal: a 64-key tile wholly past the warpgroup's last row (the CTA's
     // last, for the first warpgroup) adds exactly nothing and is not
-    // visited; no later load waits for its stage
-    const int wg_tiles = causal ? (min(seq, rbase + 64) + WK - 1) / WK : ntiles;
+    // visited; no later load waits for its stage.  Rows all past T: none.
+    const int wg_tiles = rbase >= seq ? 0 : causal ? (min(seq, rbase + 64) + WK - 1) / WK : ntiles;
+    ClusterSlot xs{part + (4 * cw + warp) * (WK / 8) * 32, s_full + 4 * cw + warp,
+                   s_empty + 4 * cw + warp, 0, (uint32_t)nc, (uint32_t)(col0 / DH)};
 
     float o[DH / 2];
 #pragma unroll
@@ -678,6 +873,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       mbar_wait(k_full + st, ph);
       qk_wgmma_steps<DH, DH / 16, DH / 16 - 3>(s, qa, kb, nk);
       fence_regs(s);
+      if constexpr (CLUSTER) cluster_sum(s, xs, lane);
 
       const bool mask = kv0 + WK > seq || (causal && kv0 + WK - 1 > rbase);
       float corr[2];
@@ -736,7 +932,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= seq) continue;
       const float den = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = out + (((size_t)b * seq + row[r]) * heads + h) * dh;
+      __nv_bfloat16* orow = out + (((size_t)b * seq + row[r]) * heads + h) * ldo + col0;
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i) {
         if (8 * i >= dh) break;  // padding columns are not stored
@@ -745,6 +941,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + c2) = v2;
       }
     }
+    if constexpr (CLUSTER) cluster_drain(xs);
   }
 }
 
@@ -761,9 +958,18 @@ template <int DH>
 __host__ __device__ constexpr int tf32_keys() { return DH <= 128 ? 64 : DH <= 192 ? 32 : 16; }
 template <int DH>
 __host__ __device__ constexpr int tf32_threads() { return 2 * tf32_rows<DH>(); }
+// Keys per K/V tile of a cluster's CTA: one K and one V tile, each loaded
+// while the other is read, in place of two stages of each, so that a tile
+// (and an exchange) spans more keys: 56 at DH 192, 32 at 256, where Q, K, V
+// and the partial-S slots (a warp's 16 rows x these keys, f32) and their
+// mbarriers take 216,960 and 216,192 B.
 template <int DH>
+__host__ __device__ constexpr int tf32_cluster_keys() { return DH <= 192 ? 56 : 32; }
+template <int DH, bool CLUSTER = false>
 constexpr int tf32_smem_bytes() {
-  return (tf32_rows<DH>() + 4 * tf32_keys<DH>()) * (DH + 4) * (int)sizeof(float);
+  return CLUSTER ? (tf32_rows<DH>() + 2 * tf32_cluster_keys<DH>()) * (DH + 4) * (int)sizeof(float) +
+                       tf32_rows<DH>() * tf32_cluster_keys<DH>() * 4 + 2 * 8 * (tf32_rows<DH>() / 16)
+                 : (tf32_rows<DH>() + 4 * tf32_keys<DH>()) * (DH + 4) * (int)sizeof(float);
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -836,112 +1042,186 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src, lo
 
 // One CTA per (batch*head, tf32_rows query rows), a warp per 16 of them;
 // tf32_keys-key K and V tiles through a cp.async double buffer.  DH is the
-// padded tile width, PAD and dh_arg as for flash_wgmma_kernel.
-template <int DH, bool PAD>
+// padded tile width, PAD, CLUSTER and dh_arg as for flash_wgmma_kernel.
+template <int DH, bool PAD, bool CLUSTER>
 __global__ void __launch_bounds__(tf32_threads<DH>(), 1)
     flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, int heads, int seq,
                       int dh_arg, int causal, float scale, Strides sq, Strides sk, Strides sv) {
-  const int dh = PAD ? dh_arg : DH;
+  const int nc = CLUSTER ? (int)cluster_nctarank() : 1;
+  const int col0 = CLUSTER ? (int)cluster_ctarank() * DH : 0;  // the CTA's first column
+  const int dh = CLUSTER ? min(DH, dh_arg - col0) : PAD ? dh_arg : DH;  // the columns it holds
+  const int ldo = CLUSTER ? dh_arg : dh;  // the output's row stride
   constexpr int LD = DH + 4;
   constexpr int ROWS = tf32_rows<DH>(), FK = tf32_keys<DH>();
   extern __shared__ __align__(16) float tsmem[];
   float* Qs = tsmem;             // ROWS x LD
   float* Kb = Qs + ROWS * LD;    // 2 stages of FK x LD
   float* Vb = Kb + 2 * FK * LD;
+  // cluster: one K and one V tile of CK keys, then the partial-S slots
+  constexpr int CK = tf32_cluster_keys<DH>();
+  float4* part = reinterpret_cast<float4*>(Kb + 2 * CK * LD);
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(part + ROWS * CK / 4);  // one per warp
+  uint64_t* s_empty = s_full + ROWS / 16;
 
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int bh = blockIdx.x / nc;
+  const int b = bh / heads, h = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest rows first
   const int kv_end = causal ? min(seq, q0 + ROWS) : seq;
   const int ntiles = (kv_end + FK - 1) / FK;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h + col0;  // the innermost stride is 1
+  const float* kb = k + b * sk.b + h * sk.h + col0;
+  const float* vb = v + b * sv.b + h * sv.h + col0;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wrow = q0 + 16 * warp;  // the warp's first query row
   const int row[2] = {wrow + g, wrow + g + 8};
-
-  load_rows_async<DH>(Qs, qb, sq.t, q0, ROWS, seq, dh);
-  load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq, dh);
-  load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq, dh);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  ClusterSlot xs{part + warp * (CK / 8) * 32, s_full + warp, s_empty + warp, 0, (uint32_t)nc,
+                 (uint32_t)(col0 / DH)};
+  if constexpr (CLUSTER) {
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < ROWS / 16; ++w) {
+        mbar_init(s_full + w, nc);
+        mbar_init(s_empty + w, nc);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_sync();  // no remote arrival before every peer's init
+  }
 
   float o[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {  // the next tile into the other stage
-      const int nx = (it + 1) & 1;
-      load_rows_async<DH>(Kb + nx * FK * LD, kb, sk.t, (it + 1) * FK, FK, seq, dh);
-      load_rows_async<DH>(Vb + nx * FK * LD, vb, sv.t, (it + 1) * FK, FK, seq, dh);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-
-    if (it == 0) {  // q * scale in f32, once, as the reference scales q (rows inside T)
-      for (int e = threadIdx.x; e < min(ROWS, seq - q0) * DH; e += tf32_threads<DH>())
-        Qs[(e / DH) * LD + e % DH] *= scale;
-      __syncthreads();
-    }
-    const int kv0 = it * FK;
-    // a tile wholly in this warp's future changes nothing (p = 0, corr = 1),
-    // and a warp whose rows all lie past T stores nothing
-    if (wrow < seq && !(causal && kv0 > wrow + 15)) {
-      const float* Ks = Kb + (it & 1) * FK * LD;
-      const float* Vs = Vb + (it & 1) * FK * LD;
-      // S = (scale Q) K^T: 16 x FK per warp
-      float s[FK / 2];
+  // S = (scale Q) K^T over the tile in Ks: 16 rows x 2N keys per warp (s:
+  // N floats a lane)
+  auto scores = [&](const float* Ks, auto& s) {
+    constexpr int N = sizeof(s) / sizeof(float);
 #pragma unroll
-      for (int i = 0; i < FK / 2; ++i) s[i] = 0.f;
-      auto qk = [&](int ks) {  // k8 step ks: Dh columns 8ks + [0, 8)
-        const float* qa = Qs + (16 * warp + g) * LD + 8 * ks + t4;
-        uint32_t ab[4], as[4];
-        split_tf32(qa[0], ab[0], as[0]);
-        split_tf32(qa[8 * LD], ab[1], as[1]);
-        split_tf32(qa[4], ab[2], as[2]);
-        split_tf32(qa[8 * LD + 4], ab[3], as[3]);
-        const float* kp = Ks + g * LD + 8 * ks + t4;  // key 8j + g at kp + 8j LD
-        mma_3xtf32<FK / 8>(s, ab, as, kp, kp + 4, 8 * LD);
-      };
-      if constexpr (PAD) {  // the steps that hold some of Dh
+    for (int i = 0; i < N; ++i) s[i] = 0.f;
+    auto qk = [&](int ks) {  // k8 step ks: Dh columns 8ks + [0, 8)
+      const float* qa = Qs + (16 * warp + g) * LD + 8 * ks + t4;
+      uint32_t ab[4], as[4];
+      split_tf32(qa[0], ab[0], as[0]);
+      split_tf32(qa[8 * LD], ab[1], as[1]);
+      split_tf32(qa[4], ab[2], as[2]);
+      split_tf32(qa[8 * LD + 4], ab[3], as[3]);
+      const float* kp = Ks + g * LD + 8 * ks + t4;  // key 8j + g at kp + 8j LD
+      // at most two key blocks at once past 192 columns, where O's 128
+      // registers a lane leave no room for more split operands
+      constexpr int G = DH > 192 && N / 4 > 2 ? 2 : N / 4;
+#pragma unroll
+      for (int j0 = 0; j0 < N / 4; j0 += G)
+        mma_3xtf32<G>(s + 4 * j0, ab, as, kp + 8 * j0 * LD, kp + 8 * j0 * LD + 4, 8 * LD);
+    };
+    if constexpr (PAD) {  // the steps that hold some of Dh
 #pragma unroll 2
-        for (int ks = 0; ks < dh / 8; ++ks) qk(ks);
-      } else {
+      for (int ks = 0; ks < dh / 8; ++ks) qk(ks);
+    } else {
 #pragma unroll
-        for (int ks = 0; ks < DH / 8; ++ks) qk(ks);
-      }
-      const bool mask = kv0 + FK > seq || (causal && kv0 + FK - 1 > wrow);
-      float corr[2];
-      softmax_tile<FK / 8, true>(s, m, l, corr, kv0, 2 * t4, row, seq, causal, mask,
-                                 1.4426950408889634f);  // p = 2^(s log2(e) - m)
-#pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        o[4 * i + 0] *= corr[0];
-        o[4 * i + 1] *= corr[0];
-        o[4 * i + 2] *= corr[1];
-        o[4 * i + 3] *= corr[1];
-      }
-      // O += P V, 8 keys per step; A column t holds key 2t, column t+4 key
-      // 2t+1 (the accumulator's own layout), so B row t reads V row 2t.
-#pragma unroll
-      for (int kk = 0; kk < FK / 8; ++kk) {
-        uint32_t ab[4], as[4];
-        split_tf32(s[4 * kk + 0], ab[0], as[0]);
-        split_tf32(s[4 * kk + 2], ab[1], as[1]);
-        split_tf32(s[4 * kk + 1], ab[2], as[2]);
-        split_tf32(s[4 * kk + 3], ab[3], as[3]);
-        const float* vp = Vs + (8 * kk + 2 * t4) * LD + g;  // column 8n + g at vp + 8n
-#pragma unroll
-        for (int n0 = 0; n0 < DH / 8; n0 += 8)
-          mma_3xtf32<8>(o + 4 * n0, ab, as, vp + 8 * n0, vp + LD + 8 * n0, 8);
-      }
+      for (int ks = 0; ks < DH / 8; ++ks) qk(ks);
     }
-    __syncthreads();  // the stage is refilled next
+  };
+  // the online softmax of the tile of 2N keys from kv0 (S in s), then
+  // O += P V with its V tile in Vs
+  auto absorb = [&](auto& s, const float* Vs, int kv0) {
+    constexpr int N = sizeof(s) / sizeof(float);
+    const bool mask = kv0 + 2 * N > seq || (causal && kv0 + 2 * N - 1 > wrow);
+    float corr[2];
+    softmax_tile<N / 4, true>(s, m, l, corr, kv0, 2 * t4, row, seq, causal, mask,
+                              1.4426950408889634f);  // p = 2^(s log2(e) - m)
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      o[4 * i + 0] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+    // O += P V, 8 keys per step; A column t holds key 2t, column t+4 key
+    // 2t+1 (the accumulator's own layout), so B row t reads V row 2t.
+#pragma unroll
+    for (int kk = 0; kk < N / 4; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[4 * kk + 0], ab[0], as[0]);
+      split_tf32(s[4 * kk + 2], ab[1], as[1]);
+      split_tf32(s[4 * kk + 1], ab[2], as[2]);
+      split_tf32(s[4 * kk + 3], ab[3], as[3]);
+      const float* vp = Vs + (8 * kk + 2 * t4) * LD + g;  // column 8n + g at vp + 8n
+#pragma unroll
+      for (int n0 = 0; n0 < DH / 8; n0 += 8)
+        mma_3xtf32<8>(o + 4 * n0, ab, as, vp + 8 * n0, vp + LD + 8 * n0, 8);
+    }
+  };
+  // a tile wholly in this warp's future changes nothing (p = 0, corr = 1),
+  // and a warp whose rows all lie past T stores nothing
+  auto visits = [&](int kv0) { return wrow < seq && !(causal && kv0 > wrow + 15); };
+  // q * scale in f32, once, as the reference scales q (rows inside T)
+  auto scale_q = [&]() {
+    for (int e = threadIdx.x; e < min(ROWS, seq - q0) * DH; e += tf32_threads<DH>())
+      Qs[(e / DH) * LD + e % DH] *= scale;
+  };
+
+  if constexpr (!CLUSTER) {
+    load_rows_async<DH>(Qs, qb, sq.t, q0, ROWS, seq, dh);
+    load_rows_async<DH>(Kb, kb, sk.t, 0, FK, seq, dh);
+    load_rows_async<DH>(Vb, vb, sv.t, 0, FK, seq, dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int it = 0; it < ntiles; ++it) {
+      if (it + 1 < ntiles) {  // the next tile into the other stage
+        const int nx = (it + 1) & 1;
+        load_rows_async<DH>(Kb + nx * FK * LD, kb, sk.t, (it + 1) * FK, FK, seq, dh);
+        load_rows_async<DH>(Vb + nx * FK * LD, vb, sv.t, (it + 1) * FK, FK, seq, dh);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+      if (it == 0) {
+        scale_q();
+        __syncthreads();
+      }
+      if (visits(it * FK)) {
+        float s[FK / 2];
+        scores(Kb + (it & 1) * FK * LD, s);
+        absorb(s, Vb + (it & 1) * FK * LD, it * FK);
+      }
+      __syncthreads();  // the stage is refilled next
+    }
+  } else {
+    // One K and one V tile of CK keys: K(it + 1) loads while the cluster
+    // sums S(it) and runs its softmax, V(it + 1) while S(it + 1) is
+    // computed.  Commit groups alternate K, V (possibly empty), so the
+    // second newest is always the one waited for.
+    float* Vc = Kb + CK * LD;
+    const int ctiles = (kv_end + CK - 1) / CK;
+    load_rows_async<DH>(Qs, qb, sq.t, q0, ROWS, seq, dh);
+    load_rows_async<DH>(Kb, kb, sk.t, 0, CK, seq, dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    load_rows_async<DH>(Vc, vb, sv.t, 0, CK, seq, dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int it = 0; it < ctiles; ++it) {
+      const int kv0 = it * CK;
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // K(it) (and Q)
+      __syncthreads();
+      if (it == 0) {
+        scale_q();
+        __syncthreads();
+      }
+      const bool visit = visits(kv0);
+      float s[CK / 2];
+      if (visit) scores(Kb, s);
+      __syncthreads();  // K(it) is read
+      if (it + 1 < ctiles) load_rows_async<DH>(Kb, kb, sk.t, kv0 + CK, CK, seq, dh);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      if (visit) cluster_sum(s, xs, lane);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // V(it)
+      __syncthreads();
+      if (visit) absorb(s, Vc, kv0);
+      __syncthreads();  // V(it) is read
+      if (it + 1 < ctiles) load_rows_async<DH>(Vc, vb, sv.t, kv0 + CK, CK, seq, dh);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
@@ -949,7 +1229,7 @@ __global__ void __launch_bounds__(tf32_threads<DH>(), 1)
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= seq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* orow = out + (((size_t)b * seq + row[r]) * heads + h) * dh;
+    float* orow = out + (((size_t)b * seq + row[r]) * heads + h) * ldo + col0;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
       if (8 * n >= dh) break;  // padding columns are not stored
@@ -957,6 +1237,7 @@ __global__ void __launch_bounds__(tf32_threads<DH>(), 1)
           make_float2(o[4 * n + 2 * r] / den, o[4 * n + 2 * r + 1] / den);
     }
   }
+  if constexpr (CLUSTER) cluster_drain(xs);
 }
 
 // ----------------------------------------------------------------------
@@ -1019,11 +1300,11 @@ int run_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
   if ((e = make_map(&mk, k, batch, seq, heads, dh, sk, wg_keys<DH>())) != cudaSuccess) return (int)e;
   if ((e = make_map(&mv, v, batch, seq, heads, dh, sv, wg_keys<DH>())) != cudaSuccess) return (int)e;
   constexpr int smem = wg_smem_bytes<DH>();
-  e = cudaFuncSetAttribute(flash_wgmma_kernel<DH, PAD>,
+  e = cudaFuncSetAttribute(flash_wgmma_kernel<DH, PAD, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(batch * heads, (seq + TQ - 1) / TQ);  // every head's longest tiles first
-  flash_wgmma_kernel<DH, PAD><<<grid, WTHREADS, smem, (cudaStream_t)stream>>>(
+  flash_wgmma_kernel<DH, PAD, false><<<grid, WTHREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), heads, seq, dh, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -1033,11 +1314,11 @@ int run_tf32(const void* q, const void* k, const void* v, void* out, int batch, 
              int heads, int dh, int causal, float scale, Strides sq, Strides sk, Strides sv,
              void* stream) {
   constexpr int smem = tf32_smem_bytes<DH>(), rows = tf32_rows<DH>();
-  cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH, PAD>,
+  cudaError_t e = cudaFuncSetAttribute(flash_tf32_kernel<DH, PAD, false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(batch * heads, (seq + rows - 1) / rows);  // every head's longest tiles first
-  flash_tf32_kernel<DH, PAD><<<grid, tf32_threads<DH>(), smem, (cudaStream_t)stream>>>(
+  flash_tf32_kernel<DH, PAD, false><<<grid, tf32_threads<DH>(), smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), heads, seq, dh, causal, scale, sq, sk, sv);
   return (int)cudaGetLastError();
@@ -1062,6 +1343,139 @@ int run_tc(const Launch (&runs)[4][2], const void* q, const void* k, const void*
                                          sk, sv, stream);
 }
 
+// ----------------------------------------------------------------------
+// Launches of the cluster route (padded Dh 264 .. CLUSTER_DH_MAX)
+// ----------------------------------------------------------------------
+
+// The cluster of a head dim past 256 (a multiple of 8, at most
+// CLUSTER_DH_MAX): nc = ceil(dh / 256) CTAs, each holding an equal share of
+// the columns rounded up to a multiple of 64.  That is 192 or 256:
+// 256 (nc - 1) < dh <= 256 nc puts ceil(dh / nc) in (128, 256].  The last
+// CTA holds at least 8 columns of Dh: (nc - 1) share <= 256 (nc - 1) < dh.
+int cluster_ctas(int dh) { return (dh + 255) / 256; }
+int cluster_share(int dh) {
+  const int nc = cluster_ctas(dh);
+  return ((dh + nc - 1) / nc + 63) / 64 * 64;
+}
+
+// Launch configuration of one cluster of nc CTAs along x.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, int threads, int nc, size_t smem, void* stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of nc CTAs of `kernel` the card holds at once, or an
+// error: a cluster that cannot be placed is refused, never run some other
+// way.  Asked once per device and size, then cached, so a launch adds no
+// query.
+constexpr int MAX_DEVICES = 16;
+template <auto kernel>
+cudaError_t cluster_room(int nc, int threads, int smem, int* clusters) {
+  static std::atomic<int> known[MAX_DEVICES][MAX_CLUSTER + 1];  // clusters + 1; 0: not asked
+  if (nc < 2 || nc > MAX_CLUSTER) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && known[dev][nc].load() > 0) {
+    *clusters = known[dev][nc].load() - 1;
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (nc > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  ClusterLaunch l(dim3(nc), threads, nc, smem, nullptr);
+  e = cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg);
+  if (e != cudaSuccess) return e;
+  if (*clusters <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < MAX_DEVICES) known[dev][nc].store(*clusters + 1);
+  return cudaSuccess;
+}
+
+// bf16: flash_wgmma_kernel<share, false, true>, one cluster per (batch*head,
+// 128-row query tile); the TMA maps carry the true Dh.
+template <int DH>
+cudaError_t wgmma_cluster_room(int dh, int* clusters) {
+  return cluster_room<flash_wgmma_kernel<DH, false, true>>(cluster_ctas(dh), WTHREADS,
+                                                            wg_smem_bytes<DH, true>(), clusters);
+}
+template <int DH>
+int run_wgmma_cluster(const void* q, const void* k, const void* v, void* out, int batch, int seq,
+                      int heads, int dh, int causal, float scale, Strides sq, Strides sk,
+                      Strides sv, void* stream) {
+  int room = 0;
+  cudaError_t e = wgmma_cluster_room<DH>(dh, &room);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  if ((e = make_map(&mq, q, batch, seq, heads, dh, sq, TQ)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mk, k, batch, seq, heads, dh, sk, wg_keys<DH>())) != cudaSuccess) return (int)e;
+  if ((e = make_map(&mv, v, batch, seq, heads, dh, sv, wg_keys<DH>())) != cudaSuccess) return (int)e;
+  const int nc = cluster_ctas(dh);
+  ClusterLaunch l(dim3(batch * heads * nc, (seq + TQ - 1) / TQ), WTHREADS, nc,
+                  wg_smem_bytes<DH, true>(), stream);
+  e = cudaLaunchKernelEx(&l.cfg, flash_wgmma_kernel<DH, false, true>, mq, mk, mv,
+                         static_cast<__nv_bfloat16*>(out), heads, seq, dh, causal, scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// f32: flash_tf32_kernel<share, false, true>, one cluster per (batch*head,
+// tf32_rows query rows).
+template <int DH>
+cudaError_t tf32_cluster_room(int dh, int* clusters) {
+  return cluster_room<flash_tf32_kernel<DH, false, true>>(
+      cluster_ctas(dh), tf32_threads<DH>(), tf32_smem_bytes<DH, true>(), clusters);
+}
+template <int DH>
+int run_tf32_cluster(const void* q, const void* k, const void* v, void* out, int batch, int seq,
+                     int heads, int dh, int causal, float scale, Strides sq, Strides sk,
+                     Strides sv, void* stream) {
+  int room = 0;
+  cudaError_t e = tf32_cluster_room<DH>(dh, &room);
+  if (e != cudaSuccess) return (int)e;
+  const int nc = cluster_ctas(dh), rows = tf32_rows<DH>();
+  ClusterLaunch l(dim3(batch * heads * nc, (seq + rows - 1) / rows), tf32_threads<DH>(), nc,
+                  tf32_smem_bytes<DH, true>(), stream);
+  e = cudaLaunchKernelEx(&l.cfg, flash_tf32_kernel<DH, false, true>, static_cast<const float*>(q),
+                         static_cast<const float*>(k), static_cast<const float*>(v),
+                         static_cast<float*>(out), heads, seq, dh, causal, scale, sq, sk, sv);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+using Room = cudaError_t (*)(int, int*);
+
+// The cluster route's contract (256 < dh <= CLUSTER_DH_MAX, a multiple of
+// 8; innermost strides 1), then the instantiation of dh's share:
+// runs[share == 256].
+bool cluster_dh_ok(int dh) { return dh > 256 && dh <= CLUSTER_DH_MAX && dh % 8 == 0; }
+int run_cluster(const Launch (&runs)[2], const void* q, const void* k, const void* v, void* out,
+                int batch, int seq, int heads, int dh, int causal, float scale, Strides sq,
+                Strides sk, Strides sv, void* stream) {
+  if (sq.d != 1 || sk.d != 1 || sv.d != 1 || !cluster_dh_ok(dh)) return (int)cudaErrorInvalidValue;
+  return runs[cluster_share(dh) == 256](q, k, v, out, batch, seq, heads, dh, causal, scale, sq, sk,
+                                        sv, stream);
+}
+int room_cluster(const Room (&rooms)[2], int dh, int* ctas, int* clusters) {
+  if (!cluster_dh_ok(dh)) return (int)cudaErrorInvalidValue;
+  *ctas = cluster_ctas(dh);
+  return (int)rooms[cluster_share(dh) == 256](dh, clusters);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1070,7 +1484,7 @@ extern "C" {
 // the error that refused the launch).  Strides are in elements, in (B, T,
 // H, Dh) order, for q, k and v; the output is contiguous (B, T, H, Dh).
 //
-// The CUDA-core kernel: f32 or bf16, Dh > 256 in steps of 8 (anything else:
+// The CUDA-core kernel: f32 or bf16, Dh > 4096 in steps of 8 (anything else:
 // cudaErrorInvalidValue), any strides.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int batch, int seq, int heads, int dh,
@@ -1123,6 +1537,41 @@ int flash_attention_3xtf32_f32(const void* q, const void* k, const void* v, void
                                     {run_tf32<256, false>, run_tf32<256, true>}};
   return run_tc(runs, q, k, v, out, batch, seq, heads, dh, causal, scale, Strides{qb, qt, qh, qd},
                 Strides{kb, kt, kh, kd}, Strides{vb, vt, vh, vd}, stream);
+}
+// The cluster route: 256 < Dh <= 4096 in steps of 8 (anything else:
+// cudaErrorInvalidValue), split over a cluster of ceil(Dh / 256) CTAs of
+// 192 or 256 columns; strides and alignment as for the tensor-core routes.
+int flash_attention_cluster_bf16(const void* q, const void* k, const void* v, void* out,
+                                 int batch, int seq, int heads, int dh, int causal, float scale,
+                                 long long qb, long long qt, long long qh, long long qd,
+                                 long long kb, long long kt, long long kh, long long kd,
+                                 long long vb, long long vt, long long vh, long long vd,
+                                 void* stream) {
+  static const Launch runs[2] = {run_wgmma_cluster<192>, run_wgmma_cluster<256>};
+  return run_cluster(runs, q, k, v, out, batch, seq, heads, dh, causal, scale,
+                     Strides{qb, qt, qh, qd}, Strides{kb, kt, kh, kd}, Strides{vb, vt, vh, vd},
+                     stream);
+}
+int flash_attention_cluster_f32(const void* q, const void* k, const void* v, void* out, int batch,
+                                int seq, int heads, int dh, int causal, float scale, long long qb,
+                                long long qt, long long qh, long long qd, long long kb,
+                                long long kt, long long kh, long long kd, long long vb,
+                                long long vt, long long vh, long long vd, void* stream) {
+  static const Launch runs[2] = {run_tf32_cluster<192>, run_tf32_cluster<256>};
+  return run_cluster(runs, q, k, v, out, batch, seq, heads, dh, causal, scale,
+                     Strides{qb, qt, qh, qd}, Strides{kb, kt, kh, kd}, Strides{vb, vt, vh, vd},
+                     stream);
+}
+// The cluster route's shape for a padded Dh: CTAs per cluster and how many
+// such clusters the card holds at once (the launch's own query; sets the
+// kernel's attributes); launches nothing.  `stream` is unused.
+int flash_cluster_room_bf16(int dh, int* ctas, int* clusters, void* stream) {
+  static const Room rooms[2] = {wgmma_cluster_room<192>, wgmma_cluster_room<256>};
+  return room_cluster(rooms, dh, ctas, clusters);
+}
+int flash_cluster_room_f32(int dh, int* ctas, int* clusters, void* stream) {
+  static const Room rooms[2] = {tf32_cluster_room<192>, tf32_cluster_room<256>};
+  return room_cluster(rooms, dh, ctas, clusters);
 }
 
 }  // extern "C"

@@ -50,8 +50,10 @@ SIGNATURES = {
     # q, k, v, out, B, T, H, Dh, causal, scale, 4 strides each of q, k, v, stream
     **{
         f"flash_attention_{t}": [_VP] * 4 + [_CI] * 5 + [_CF] + [_CLL] * 12 + [_VP]
-        for t in ("f32", "bf16", "wgmma_bf16", "3xtf32_f32")
+        for t in ("f32", "bf16", "wgmma_bf16", "3xtf32_f32", "cluster_bf16", "cluster_f32")
     },
+    # padded Dh, out: CTAs per cluster, out: clusters resident at once, stream
+    **{f"flash_cluster_room_{t}": [_CI, _PI, _PI, _VP] for t in ("bf16", "f32")},
 }
 
 _LIB = None

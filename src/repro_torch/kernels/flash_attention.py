@@ -26,9 +26,15 @@ kernel runs is a pure function of the dtype and Dh (:func:`route`):
 * ``"wgmma_tma"``: bf16 with Dh ≤ 256, warpgroup MMA fed by TMA;
 * ``"mma_3xtf32"``: f32 (f16, f64) with Dh ≤ 256, ``mma.sync`` in TF32
   with the three-product split (about f32 accuracy);
-* ``"simt"``: Dh > 256, the first kernel (f32 math on the CUDA cores):
-  each block computes one 128-column chunk of the output and recomputes S
-  for it.
+* ``"tc_cluster"``: Dh 264 to 4096 (``CLUSTER_DH_MAX``), bf16 on the
+  ``wgmma_tma`` kernel and f32 (f16, f64) on the ``mma_3xtf32`` one, the
+  head dim split over a thread-block cluster of ⌈Dh / 256⌉ blocks
+  (:func:`cluster_shape`): each holds 192 or 256 of the columns of q, k, v
+  and the output, and the cluster adds the blocks' partial scores in a
+  fixed order through distributed shared memory, so S is computed once;
+* ``"simt"``: Dh past 4096, the first kernel (f32 math on the CUDA
+  cores): each block computes one 128-column chunk of the output and
+  recomputes S for it.
 
 The tensor-core kernels are built for tiles of 64, 128, 192 and 256
 Dh-columns (fewer keys per K/V tile past 128, so that a block's shared
@@ -37,7 +43,8 @@ padded with zero columns in shared memory (exact: they add 0 to every dot
 product, and the output's padding columns are not stored), with the scale
 of the true Dh.
 
-The two tensor-core routes read q, k and v by TMA or 16-byte ``cp.async``:
+The tensor-core routes (the cluster's too) read q, k and v by TMA or
+16-byte ``cp.async``:
 a tensor whose innermost stride is not 1, whose other strides are not
 positive multiples of 16 bytes or whose data is not 16-byte aligned
 (:func:`tma_ready`) is first copied contiguous by the wrapper.  A failed
@@ -48,6 +55,7 @@ launches of each route and ``PLAIN_RUNS`` runs of the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, Tuple
 
@@ -58,20 +66,27 @@ from ._build import launch
 NEG_INF = -1e30
 
 KERNELS = ("flash_attention",)
-ROUTES = ("wgmma_tma", "mma_3xtf32", "simt")
+ROUTES = ("wgmma_tma", "mma_3xtf32", "tc_cluster", "simt")
 TC_DH_MAX = 256  # the widest Dh the tensor-core kernels' tiles hold
+CLUSTER_SHARE_MAX = 256  # the widest share of Dh a cluster's block holds
+CLUSTER_MAX = 16  # the H100's largest cluster (non-portable past 8 blocks)
+CLUSTER_DH_MAX = CLUSTER_SHARE_MAX * CLUSTER_MAX  # the cluster route's reach
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in ROUTES}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()
 
 # route -> dtype -> C entry point (``csrc/flash_attention.cu``: the
-# tensor-core entries take padded Dh 8..256, the simt ones Dh past 256)
+# tensor-core entries take padded Dh 8..256, the cluster ones 264..4096,
+# the simt ones Dh past 4096)
 _ENTRY = {
     "wgmma_tma": {torch.bfloat16: "flash_attention_wgmma_bf16"},
     "mma_3xtf32": {torch.float32: "flash_attention_3xtf32_f32"},
+    "tc_cluster": {torch.float32: "flash_attention_cluster_f32",
+                   torch.bfloat16: "flash_attention_cluster_bf16"},
     "simt": {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"},
 }
+_ROOM = {torch.float32: "flash_cluster_room_f32", torch.bfloat16: "flash_cluster_room_bf16"}
 
 
 def reset_counters() -> None:
@@ -103,16 +118,44 @@ def padded_dh(dh: int) -> int:
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel that takes (dtype, Dh) on the card: ``"wgmma_tma"`` for
-    bf16 and ``"mma_3xtf32"`` for f32, f16 and f64 (run in f32) when the
-    padded Dh is at most ``TC_DH_MAX``, else ``"simt"``."""
+    """The kernel that takes (dtype, Dh) on the card, by the padded Dh:
+    up to ``TC_DH_MAX`` (256) ``"wgmma_tma"`` for bf16 and ``"mma_3xtf32"``
+    for f32, f16 and f64 (run in f32); from 264 up to the cluster's reach
+    ``CLUSTER_DH_MAX`` (4096: 16 blocks of 256 columns) ``"tc_cluster"``
+    in every type; past it ``"simt"``."""
     if dtype not in KERNEL_DTYPE:
         raise TypeError(
             f"flash_attention: takes float32, bfloat16, float16 or float64, got {dtype}"
         )
-    if padded_dh(dh) <= TC_DH_MAX:
+    p = padded_dh(dh)
+    if p <= TC_DH_MAX:
         return "wgmma_tma" if KERNEL_DTYPE[dtype] == torch.bfloat16 else "mma_3xtf32"
-    return "simt"
+    return "tc_cluster" if p <= CLUSTER_DH_MAX else "simt"
+
+
+def cluster_shape(dh: int) -> Tuple[int, int]:
+    """(blocks per cluster, columns per block) of the cluster route for a
+    Dh: ⌈padded Dh / 256⌉ blocks, each holding an equal share rounded up to
+    a multiple of 64 (192 or 256; the last block's columns past Dh are
+    zeros).  Dh 320: 2 of 192; 512: 2 of 256; 1000: 4 of 256."""
+    p = padded_dh(dh)
+    if not TC_DH_MAX < p <= CLUSTER_DH_MAX:
+        raise ValueError(f"cluster_shape: padded Dh {p} is not on the cluster route")
+    nc = -(-p // CLUSTER_SHARE_MAX)
+    return nc, -(-(-(-p // nc)) // 64) * 64
+
+
+def cluster_room(dtype: torch.dtype, dh: int, device: torch.device) -> Tuple[int, int]:
+    """(blocks per cluster, clusters the card holds at once) of the cluster
+    route for (dtype, Dh), by the kernel's own launch query; launches
+    nothing and counts nothing; raises where the card cannot place such a
+    cluster."""
+    if route(dtype, dh) != "tc_cluster":
+        raise ValueError(f"cluster_room: Dh {dh} is not on the cluster route")
+    ctas, room = ctypes.c_int(0), ctypes.c_int(0)
+    launch(_ROOM[KERNEL_DTYPE[dtype]], torch.device(device), padded_dh(dh),
+           ctypes.byref(ctas), ctypes.byref(room))
+    return ctas.value, room.value
 
 
 def tma_ready(x: torch.Tensor) -> bool:
@@ -129,8 +172,9 @@ def tma_ready(x: torch.Tensor) -> bool:
 
 def kernel_inputs(q, k, v, rt: str):
     """q, k, v as the kernel of route ``rt`` reads them: the tensor-core
-    routes get a contiguous copy (fresh, so aligned) of each tensor that
-    is not :func:`tma_ready`; the simt kernel takes any strides."""
+    routes (``tc_cluster`` too) get a contiguous copy (fresh, so aligned)
+    of each tensor that is not :func:`tma_ready`; the simt kernel takes
+    any strides."""
     if rt == "simt":
         return q, k, v
     return tuple(x if tma_ready(x) else x.clone(memory_format=torch.contiguous_format)

@@ -319,9 +319,10 @@ def test_flash_reads_nothing_past_dh(cuda, dtype, rng):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,dh,causal", [(200, 136, True), (96, 192, False)])
-def test_flash_other_head_dims_take_the_simt_kernel(cuda, dtype, t, dh, causal, rng):
+def test_flash_wide_head_dims_take_the_tensor_core_kernels(cuda, dtype, t, dh, causal, rng):
     """Dh 136 and 192 go through the tensor-core kernel of their dtype (the
-    CUDA-core kernel takes only Dh past 256) and meet the bar."""
+    cluster route takes Dh past 256, the CUDA-core kernel only Dh past
+    4096) and meet the bar."""
     q, k, v = (torch.from_numpy(rng.standard_normal((1, t, 2, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
     fa.reset_counters()
@@ -353,21 +354,36 @@ FLASH_ANY_CASES = [  # (dtype, b, t, h, dh, causal)
     (torch.float32, 1, 200, 2, 264, True), (torch.bfloat16, 1, 96, 2, 264, False),
     (torch.float32, 1, 200, 2, 320, False), (torch.bfloat16, 1, 200, 2, 320, True),
     (torch.float16, 1, 96, 2, 330, True), (torch.float32, 1, 64, 1, 1000, True),
+    # clusters of 3, 4, 5, 9 and 16 blocks (the reach), then past the reach
+    (torch.bfloat16, 1, 200, 2, 600, True), (torch.float64, 1, 96, 2, 584, False),
+    (torch.bfloat16, 1, 64, 1, 1000, False), (torch.float32, 1, 96, 1, 1032, False),
+    (torch.bfloat16, 1, 96, 2, 2056, True), (torch.bfloat16, 1, 64, 1, 4096, True),
+    (torch.float32, 1, 64, 1, 4096, False),
+    (torch.float32, 1, 64, 1, 4104, True), (torch.bfloat16, 1, 64, 1, 4100, False),
 ]
+
+
+def _route_of(dtype, dh):
+    """The route rule, written out apart from :func:`route`."""
+    p = -(-dh // 8) * 8
+    if p <= 256:
+        return "wgmma_tma" if dtype == torch.bfloat16 else "mma_3xtf32"
+    return "tc_cluster" if p <= 4096 else "simt"
 
 
 @pytest.mark.parametrize("dtype,b,t,h,dh,causal", FLASH_ANY_CASES)
 def test_flash_takes_every_type_and_head_dim(cuda, dtype, b, t, h, dh, causal, rng):
     """f16 and f64 through the f32 route of their Dh, Dh not a multiple of
-    8 padded, Dh past 256 on the simt kernel's column chunks: against the
-    plain version at the unchanged bars, the same bits twice, and through
-    the route :func:`route` names."""
+    8 padded, Dh 264 to 4096 on the cluster route, past it on the simt
+    kernel's column chunks: against the plain version at the unchanged
+    bars, the same bits twice, and through the route the rule names."""
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
     fa.reset_counters()
     got = fa.flash_attention(q, k, v, causal, 8, 8)
     torch.cuda.synchronize()
-    assert fa.ROUTE_LAUNCHES == {r: int(r == fa.route(dtype, dh)) for r in fa.ROUTES}
+    assert fa.route(dtype, dh) == _route_of(dtype, dh)
+    assert fa.ROUTE_LAUNCHES == {r: int(r == _route_of(dtype, dh)) for r in fa.ROUTES}
     assert fa.PLAIN_RUNS["flash_attention"] == 0
     assert got.shape == q.shape and got.is_contiguous()
     _flash_check(got, fa.flash_attention_plain(q, k, v, causal, 8, 8), dtype)
@@ -376,10 +392,12 @@ def test_flash_takes_every_type_and_head_dim(cuda, dtype, b, t, h, dh, causal, r
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 192), (torch.bfloat16, 136),
                                       (torch.float32, 64), (torch.bfloat16, 128),
-                                      (torch.float32, 264), (torch.bfloat16, 256)])
+                                      (torch.float32, 264), (torch.bfloat16, 256),
+                                      (torch.float32, 320), (torch.bfloat16, 320)])
 def test_flash_takes_more_than_65535_heads(cuda, dtype, dh, rng):
     """B·H = 65536 (more than a grid's y or z extent) on every route and
-    tile width, the simt kernel included, at a short T."""
+    tile width, the cluster route's grid of B·H·nc blocks included, at a
+    short T."""
     b, t, h = 2, 16, 32768
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
@@ -388,6 +406,36 @@ def test_flash_takes_more_than_65535_heads(cuda, dtype, dh, rng):
     torch.cuda.synchronize()
     assert fa.ROUTE_LAUNCHES == {r: int(r == fa.route(dtype, dh)) for r in fa.ROUTES}
     _flash_check(got, fa.flash_attention_plain(q, k, v, True), dtype)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 320), (torch.bfloat16, 320),
+                                      (torch.float32, 512), (torch.bfloat16, 1000),
+                                      (torch.bfloat16, 192), (torch.float32, 128)])
+def test_flash_batch_invariance(cuda, dtype, dh, rng):
+    """A head computed alone gives the bits it has inside a batch: no block
+    of any route reads another head's rows (the cluster's blocks of one
+    head sum their partials in the same order wherever the head lies)."""
+    b, t, h = 2, 200, 3
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, dh)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    whole = fa.flash_attention(q, k, v, True, 8, 8)
+    for bi, hi in ((0, 0), (1, 2)):
+        alone = fa.flash_attention(*(x[bi : bi + 1, :, hi : hi + 1].contiguous() for x in (q, k, v)),
+                                   True, 8, 8)
+        torch.testing.assert_close(alone, whole[bi : bi + 1, :, hi : hi + 1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_cluster_room(cuda, dtype):
+    """The cluster route's shape on the card: ceil(Dh / 256) blocks per
+    cluster (16 at the reach, a non-portable size), each placeable (at
+    least one such cluster resident at once); other Dh are refused."""
+    for dh in (264, 320, 512, 600, 1000, 2056, 4096):
+        ctas, room = fa.cluster_room(dtype, dh, cuda)
+        assert ctas == fa.cluster_shape(dh)[0] and room >= 1
+    for dh in (256, 4104):
+        with pytest.raises(ValueError):
+            fa.cluster_room(dtype, dh, cuda)
 
 
 def test_execute_online_on_card(cuda):

@@ -139,6 +139,8 @@ def test_library_hash_covers_every_source(tmp_path):
     assert {"front_factor_f64", "flash_attention_f32", "flash_attention_bf16"} <= set(
         _build.SIGNATURES
     )
+    entries = {name for by_dtype in fa._ENTRY.values() for name in by_dtype.values()}
+    assert entries | set(fa._ROOM.values()) <= set(_build.SIGNATURES)
 
 
 # ----------------------------------------------------------------------
@@ -258,6 +260,44 @@ def _tf32_design(q, k, v, causal):
                     _mm_3xtf32, exp2_scale=math.log2(math.e))[..., :dh]
 
 
+def _cluster_design(q, k, v, causal):
+    """The cluster route's arithmetic (Dh past 256): Dh padded with zero
+    columns to nc shares of 192 or 256 (:func:`fa.cluster_shape`), each
+    block's partial S over its share by its kernel's product, the nc
+    partials added in the fixed order 0..nc-1 (every block holds that sum),
+    then the online softmax over the share's key tiles (bf16: 64 keys, f32:
+    56 at share 192, 32 at 256) and PV with P split in two bf16 terms
+    (bf16) or as three TF32 products (f32).  PV is column by column, so
+    the blocks' output columns together are PV over the padded width."""
+    dh = q.shape[-1]
+    nc, share = fa.cluster_shape(dh)
+    q, k, v = (torch.nn.functional.pad(x, (0, nc * share - dh)) for x in (q, k, v))
+    scale = dh**-0.5
+    cols = [slice(r * share, (r + 1) * share) for r in range(nc)]
+
+    def summed(product):
+        def scores(qh, kt):
+            s = product(qh[..., cols[0]], kt[..., cols[0]])
+            for c in cols[1:]:
+                s = s + product(qh[..., c], kt[..., c])
+            return s
+        return scores
+
+    if q.dtype == torch.bfloat16:
+        def pv(p, vt):
+            hi = p.to(torch.bfloat16).float()
+            return hi @ vt + (p - hi).to(torch.bfloat16).float() @ vt
+
+        out = _emulate(q, k, v, causal, 64, summed(lambda qc, kc: qc @ kc.mT), pv,
+                       exp2_scale=scale * math.log2(math.e))
+    else:
+        keys = {192: 56, 256: 32}[share]
+        out = _emulate(q, k, v, causal, keys,
+                       summed(lambda qc, kc: _mm_3xtf32(qc * scale, kc.mT)), _mm_3xtf32,
+                       exp2_scale=math.log2(math.e))
+    return out[..., :dh]
+
+
 def _jax_ref(q, k, v, causal, dtype):
     args = [jnp.asarray(x.float().numpy()).astype(dtype) for x in (q, k, v)]
     out = ref_flash(*args, causal=causal, block_q=128, block_kv=128, interpret=True)
@@ -294,6 +334,47 @@ def test_3xtf32_products_meet_the_f32_bar(t, dh, causal):
     assert got.dtype == torch.float32
     assert _excess(got, _jax_ref(q, k, v, causal, jnp.float32), 0.0) <= 2e-5
     assert _excess(got, fa.flash_attention(q, k, v, causal, 128, 128), 0.0) <= 2e-5
+
+
+CLUSTER_DESIGN_CASES = [(128, 264, True), (96, 264, False), (128, 320, True), (128, 320, False),
+                        (96, 512, True), (64, 512, False), (64, 1000, True), (64, 1000, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,dh,causal", CLUSTER_DESIGN_CASES)
+def test_cluster_design_meets_the_bars(dtype, t, dh, causal):
+    """(c) Dh past 256 split over a cluster: per-block partial S over each
+    column share, added in the fixed order, then the kernel's own P split
+    (bf16) or 3xTF32 (f32).  Within eps_bf16 |ref| + 2e-5 (bf16) or 2e-5
+    max-abs (f32) of the JAX reference in interpret mode and of the plain
+    version, at the unchanged bars."""
+    q, k, v = _design_inputs(t, dh, dtype, seed=t + dh + int(causal))
+    got = _cluster_design(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol = EPS_BF16 if dtype == torch.bfloat16 else 0.0
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    assert _excess(got, _jax_ref(q, k, v, causal, jdt), rtol) <= 2e-5
+    assert _excess(got, fa.flash_attention(q, k, v, causal, 32, 32), rtol) <= 2e-5
+
+
+def test_cluster_shares():
+    """ceil(padded Dh / 256) blocks of an equal share rounded up to 64
+    columns, always 192 or 256; the last block holds at least 8 columns of
+    Dh; nothing at or below 256 or past the reach."""
+    assert fa.CLUSTER_DH_MAX == 4096
+    assert [fa.cluster_shape(d) for d in (257, 264, 320, 384, 392, 512, 520, 600, 776, 1000,
+                                          1032, 4096)] == [
+        (2, 192), (2, 192), (2, 192), (2, 192), (2, 256), (2, 256), (3, 192), (3, 256),
+        (4, 256), (4, 256), (5, 256), (16, 256)]
+    for dh in range(264, 4097, 8):
+        nc, share = fa.cluster_shape(dh)
+        assert share in (192, 256) and nc <= fa.CLUSTER_MAX
+        assert (nc - 1) * share + 8 <= dh <= nc * share
+    for dh in (256, 4097, 5000):
+        with pytest.raises(ValueError):
+            fa.cluster_shape(dh)
+    with pytest.raises(ValueError):
+        fa.cluster_room(torch.float32, 128, torch.device("cpu"))
 
 
 def test_tf32_rounding_by_bit_masks():
@@ -349,13 +430,19 @@ def test_wide_bf16_tiles_of_64_keys_meet_the_bar_of_128(dh):
     (torch.float16, 128, "mma_3xtf32"), (torch.float64, 128, "mma_3xtf32"),
     (torch.float32, 76, "mma_3xtf32"), (torch.bfloat16, 125, "wgmma_tma"),
     (torch.float32, 121, "mma_3xtf32"), (torch.float32, 129, "mma_3xtf32"),
-    (torch.float16, 320, "simt"), (torch.bfloat16, 264, "simt"),
-    (torch.float64, 249, "mma_3xtf32"), (torch.float32, 257, "simt"),
+    (torch.float16, 320, "tc_cluster"), (torch.bfloat16, 264, "tc_cluster"),
+    (torch.float64, 249, "mma_3xtf32"), (torch.float32, 257, "tc_cluster"),
+    # the edges: 256 against 264, the cluster's reach (4096) against the next
+    (torch.bfloat16, 256, "wgmma_tma"), (torch.float32, 264, "tc_cluster"),
+    (torch.bfloat16, 1000, "tc_cluster"), (torch.float64, 4090, "tc_cluster"),
+    (torch.bfloat16, 4096, "tc_cluster"), (torch.float32, 4096, "tc_cluster"),
+    (torch.bfloat16, 4097, "simt"), (torch.float32, 4104, "simt"),
 ])
 def test_route_rule(dtype, dh, want):
     """The card's kernel is a pure function of (dtype, Dh): the tensor-core
     kernel of the type it runs in up to a padded Dh of 256 (padded to 64,
-    128, 192 or 256), simt above."""
+    128, 192 or 256), the cluster route from 264 to its reach of 4096, simt
+    past it."""
     assert fa.route(dtype, dh) == want
     assert want in fa.ROUTES and fa.KERNEL_DTYPE[dtype] in fa._ENTRY[want]
 
@@ -383,11 +470,11 @@ def test_tensor_core_routes_copy_what_tma_cannot_read():
     ]
     for t in ready:
         assert fa.tma_ready(t)
-        for rt in ("wgmma_tma", "mma_3xtf32", "simt"):
+        for rt in fa.ROUTES:
             assert all(y is t for y in fa.kernel_inputs(t, t, t, rt))
     for t in unready:
         assert not fa.tma_ready(t)
-        for rt in ("wgmma_tma", "mma_3xtf32"):
+        for rt in ("wgmma_tma", "mma_3xtf32", "tc_cluster"):
             got = fa.kernel_inputs(t, t, t, rt)
             assert all(y.is_contiguous() and fa.tma_ready(y) and torch.equal(y, t) for y in got)
         assert all(y is t for y in fa.kernel_inputs(t, t, t, "simt"))
