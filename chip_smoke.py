@@ -66,10 +66,21 @@ card → ‖LLᵀ−A‖ check.
    (b) one worker killed after the first dispatch (heartbeat timeout 0.2
    s, 0.05 s per dispatch) on Poisson 60: a loss seen, the panels still
    phase 5's; (c) ``Session(DeviceMesh()).serve(stream, cluster=2)`` of
-   phase 8c's three Poisson 60 arrivals, then ``RunReport.save_html``.
+   phase 8c's three Poisson 60 arrivals, then ``RunReport.save_html``;
+10. the workload front end: (a) ``Session(DeviceMesh(plan_devices=256))
+   .analyze_workload("multifrontal")`` (``configs/multifrontal.py``: the
+   63×63 grid, nested dissection, relax 2) planned greedy and executed in
+   the config's f32 (residual ≤ 1e-5, panels bit for bit the same grid's
+   through ``analyze``); (b) every config of ``ARCHS`` at its published
+   widths and the pod qwen3-4b + rwkv6-1.6b: the ``h100`` calibration, a
+   §4-valid PM plan, ``simulate`` equal to it (virtual time, on the host);
+   (c) ``serve_online`` of eight qwen3-4b requests on a 256-device pod and
+   two-pod placement; (d) the dense bf16 ``torch.matmul`` rate at 8192³
+   and a 1 GiB copy's HBM bandwidth, each within 1.5x of the ``h100``
+   constants of ``workloads/costs.py``.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6, 7, 8 and 9,
+4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9 and 10,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -960,6 +971,147 @@ def phase_cluster(fc, ap4, fact4, ap5, fact5, sim_makespan: float,
     }
 
 
+def measure_rates(reps: int = 7) -> dict:
+    """The card's two calibration rates: the dense bf16 ``torch.matmul`` rate
+    at 8192³ (2·n³ operations) and the HBM bandwidth of a 1 GiB
+    device-to-device copy (bytes read plus written), each from the median of
+    ``reps`` CUDA-event timings."""
+    n, nbytes = 8192, 2**30
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    mm_ms = cuda_ms(lambda: torch.matmul(a, b, out=c), reps=reps)
+    src = torch.ones(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = cuda_ms(lambda: dst.copy_(src), reps=reps)
+    check(torch.equal(dst, src), "phase 10d: the copy differs from its source")
+    return {"matmul_bf16_8192_ms": mm_ms, "flop_rate": 2.0 * n**3 / (mm_ms * 1e-3),
+            "copy_1gib_ms": cp_ms, "mem_bw": 2.0 * nbytes / (cp_ms * 1e-3)}
+
+
+def phase_workloads(fc) -> dict:
+    """The workload front end on the card.  (a) The paper's own workload
+    (``configs/multifrontal.py``: the 63×63 grid, nested dissection,
+    relax 2) through ``Session(DeviceMesh(plan_devices=256))
+    .analyze_workload("multifrontal").plan("greedy").execute`` in the
+    config's dtype (f32), counters set to 0 just before and read just after;
+    its panels bit for bit those of the same grid through ``analyze``.
+    (b) Every config of ``ARCHS`` at its published widths, and the serving
+    pod qwen3-4b + rwkv6-1.6b: the ``h100`` calibration, a PM plan, §4
+    validity, ``simulate`` equal to the plan (virtual time, on the host).
+    (c) ``serve_online`` of eight qwen3-4b requests (Poisson, seed 5) on
+    a 256-device pod, SJF; two-pod placement at 256 / 128.  (d) The
+    ``h100`` calibration's two rates measured again, each within 1.5x of
+    the constant in ``workloads/costs.py``."""
+    from repro_torch.api import DeviceMesh, Session
+    from repro_torch.configs import ARCHS, SOLVER
+    from repro_torch.online import poisson_arrivals
+    from repro_torch.serve.pod_scheduler import (
+        Request,
+        place_two_pods,
+        place_two_pods_equal,
+        serve_online,
+    )
+    from repro_torch.sparse import grid_laplacian_2d, nested_dissection_2d
+    from repro_torch.workloads.costs import CALIBRATIONS
+
+    # (a) the paper's workload; the process is warm from phase 5's f32 run
+    dtype = getattr(torch, SOLVER.dtype)
+    t0 = time.perf_counter()
+    sess = Session(DeviceMesh(plan_devices=256)).analyze_workload("multifrontal").plan("greedy")
+    t1 = time.perf_counter()
+    rep, launches = counted(fc, "phase 10a", lambda: sess.execute(dtype=dtype, warmup=False))
+    wall = time.perf_counter() - t1
+    res = residual(rep.artifact, sess.problem.matrix)
+    g = SOLVER.grid
+    ref_sess = Session(DeviceMesh(plan_devices=256)).analyze(
+        grid_laplacian_2d(g), SOLVER.alpha, ordering=nested_dissection_2d(g),
+        relax=SOLVER.relax).plan("greedy")
+    ref, ref_launches = counted(fc, "phase 10a analyze",
+                                lambda: ref_sess.execute(dtype=dtype, warmup=False))
+    same = same_panels(rep.artifact, ref.artifact)
+    meta = sess.schedule.meta["workload"]
+    print(f"[10a analyze_workload('multifrontal') grid {g} {SOLVER.dtype}] fronts "
+          f"{sess.problem.n}, analyze+plan {t1 - t0:.2f} s, execute wall {wall:.3f} s, measured "
+          f"makespan {rep.makespan:.3f} s, n_dispatches {rep.metrics['n_dispatches']:.0f}, "
+          f"residual {res:.3e}, launches {launches}; panels == analyze path bit for bit: {same} "
+          f"(its launches {ref_launches['front_factor']})", flush=True)
+    check(res <= 1e-5, f"phase 10a residual {res}")
+    check(same, "phase 10a: analyze_workload panels differ from the analyze path's")
+    check(meta["kind"] == "sparse" and meta["grid"] == g, f"phase 10a: workload meta {meta}")
+
+    # (b) every config at its published widths, then the serving pod
+    zoo = {}
+    t0 = time.perf_counter()
+    for spec in sorted(ARCHS) + [["qwen3-4b", "rwkv6-1.6b"]]:
+        key = spec if isinstance(spec, str) else "pod:" + "+".join(spec)
+        s = Session(DeviceMesh(plan_devices=256)).analyze_workload(spec)
+        prob = s.problem
+        wmeta = prob.meta["workload"]
+        check(wmeta["calibration"] == "h100", f"phase 10b {key}: calibration {wmeta['calibration']}")
+        sched = s.plan("pm").schedule
+        sched.validate(prob)
+        sim = s.simulate()
+        check(abs(sim.makespan - sched.makespan) <= 1e-9 * sched.makespan,
+              f"phase 10b {key}: simulate {sim.makespan} != plan {sched.makespan}")
+        if not isinstance(spec, str):
+            root = int(np.flatnonzero(np.asarray(prob.tree.parent) == -1)[0])
+            check(prob.tree.lengths[root] == 0.0, f"phase 10b {key}: pod root costs time")
+        zoo[key] = {"kind": wmeta["kind"], "shape": wmeta.get("shape"), "n_tasks": prob.n,
+                    "n_ops": wmeta["n_ops"], "virtual_makespan_s": sched.makespan}
+        print(f"[10b {key}] {wmeta['kind']} {wmeta.get('shape')}: n_tasks {prob.n}, n_ops "
+              f"{wmeta['n_ops']}, virtual makespan {sched.makespan:.6e} s", flush=True)
+    zoo_s = time.perf_counter() - t0
+
+    # (c) the pod scheduler
+    t0 = time.perf_counter()
+    cfg = ARCHS["qwen3-4b"]
+    reqs = [Request(i, 1024 * (1 + i % 4)) for i in range(8)]
+    report = serve_online(cfg, reqs, poisson_arrivals(8, 0.2, seed=5), pod_devices=256,
+                          alpha=0.9, admission="sjf")
+    report.validate()
+    check(all(f.state == "done" for f in report.futures.values()), "phase 10c: a request unfinished")
+    check({f.rid for f in report.futures.values()} == set(range(8)), "phase 10c: request ids")
+    mk_eq, place_eq = place_two_pods_equal(cfg, reqs, 256, 0.9)
+    mk_pq, place_pq = place_two_pods(cfg, reqs, 256, 128, alpha=0.9)
+    check(set(place_eq) <= {0, 1} and set(place_pq) <= {0, 1}, "phase 10c: placements")
+    serve_s = time.perf_counter() - t0
+    # serve_online's times are virtual seconds at its 1e12 flop/s request
+    # rate; the two-pod makespans are in the requests' unit, prefill flops
+    print(f"[10c serve_online qwen3-4b x8 sjf] virtual makespan {report.makespan:.6f} s, mean "
+          f"latency {report.mean_latency():.6f} s, utilization {report.utilization:.4f}; two "
+          f"pods (makespan in flops) 256/256 {mk_eq:.6e} {place_eq}, 256/128 {mk_pq:.6e} "
+          f"{place_pq}; host {serve_s:.3f} s", flush=True)
+
+    # (d) the calibration's rates against the constants
+    rates = measure_rates()
+    cal = CALIBRATIONS["h100"]
+    print(f"[10d] {nvidia_smi()}: bf16 matmul 8192^3 {rates['matmul_bf16_8192_ms']:.4f} ms = "
+          f"{rates['flop_rate']:.4e} flop/s (h100 constant {cal.flop_rate:.4e}); 1 GiB copy "
+          f"{rates['copy_1gib_ms']:.4f} ms = {rates['mem_bw']:.4e} B/s (constant "
+          f"{cal.mem_bw:.4e})", flush=True)
+    for key, const in (("flop_rate", cal.flop_rate), ("mem_bw", cal.mem_bw)):
+        ratio = rates[key] / const
+        check(1 / 1.5 <= ratio <= 1.5, f"phase 10d: measured {key} is {ratio:.3f}x the constant")
+    return {
+        "launches": {k: launches[k] + ref_launches[k] for k in fc.KERNELS},
+        "workload_multifrontal_f32": {
+            "grid": g, "fronts": sess.problem.n, "wall_s": wall, "makespan_s": rep.makespan,
+            "n_dispatches": rep.metrics["n_dispatches"], "residual": res, "launches": launches,
+            "same_as_analyze": same},
+        "workload_zoo": {
+            "configs": zoo, "host_s": zoo_s,
+            "serve_online_qwen3_4b": {"virtual_makespan_s": report.makespan,
+                                      "virtual_mean_latency_s": report.mean_latency(),
+                                      "utilization": report.utilization, "host_s": serve_s},
+            "two_pods": {"equal_makespan_flops": mk_eq, "equal_placement": place_eq,
+                         "p256_q128_makespan_flops": mk_pq, "p256_q128_placement": place_pq},
+            "calibration": {**rates, "h100_flop_rate": cal.flop_rate,
+                            "h100_mem_bw": cal.mem_bw, "card": nvidia_smi()}},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1072,8 +1224,11 @@ def main() -> int:
     e2e9 = phase_cluster(fc, ap4, fact4, ap5, fa,
                          e2e8["simulate_serve_poisson60"]["simulate_makespan"],
                          torch.device("cuda", 0))
-    stamp("end")
     launches9 = e2e9.pop("launches")
+    stamp("10")
+    e2e10 = phase_workloads(fc)
+    launches10 = e2e10.pop("launches")
+    stamp("end")
 
     replaces = {
         "front_factor": "src/repro/kernels/frontal_cholesky.py:98",
@@ -1089,10 +1244,12 @@ def main() -> int:
             "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200) + 8 "
                     "(execute_online, random SPD 2500; plan('online') Poisson 60, async and "
                     "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
-                    "killed, Session.serve(cluster=2))",
-            "launches": launches[k] + launches7[k] + launches8[k] + launches9[k],
+                    "killed, Session.serve(cluster=2)); phase 10 (Session.analyze_workload("
+                    "'multifrontal') executed in f32, and the same grid through analyze)",
+            "launches": launches[k] + launches7[k] + launches8[k] + launches9[k]
+                        + launches10[k],
             "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],
-                                  "8": launches8[k], "9": launches9[k]},
+                                  "8": launches8[k], "9": launches9[k], "10": launches10[k]},
             **rec[k],
         }
         for k in fc.KERNELS
@@ -1118,6 +1275,7 @@ def main() -> int:
             **e2e7,
             **e2e8,
             **e2e9,
+            **e2e10,
         },
         "phase_start_s": phase_s,
     }), flush=True)

@@ -90,12 +90,46 @@ class Session:
         self.schedule = None
         return self
 
-    def analyze_workload(self, spec, **kwargs) -> "Session":
-        """Model-zoo workload → task tree: not ported yet."""
-        raise NotImplementedError(
-            "Session.analyze_workload needs repro_torch.workloads, not ported "
-            "yet (ROADMAP queue 1 item 9)"
+    def analyze_workload(
+        self,
+        spec,
+        *,
+        kind: str = "auto",
+        shape=None,
+        stages: int = 4,
+        skew: float = 1.0,
+        alpha: Optional[float] = None,
+        estimator: str = "analytic",
+    ) -> "Session":
+        """Model-zoo workload → malleable task tree (the non-sparse twin
+        of :meth:`analyze`).
+
+        ``spec`` is a config name from :data:`repro_torch.configs.ARCHS`, a
+        ``ModelConfig``, the multifrontal ``SolverConfig`` (or
+        ``"sparse"`` / ``"multifrontal"``: a Problem from its matrix, which
+        ``execute`` factors on the platform's devices), a list of configs
+        (a serving pod), or a built :class:`~repro_torch.workloads.Workload`.
+        Task lengths come from the platform's calibrated roofline (``h100``
+        on a CUDA mesh), α from the platform calibration unless given, and
+        the per-task activation footprints feed the same memory-aware
+        admission the sparse path uses.  The op-provenance meta rides
+        ``Problem → plan() → Schedule JSON``.  Imports the model zoo
+        lazily — sparse-only sessions never load it.
+        """
+        from repro_torch.workloads.zoo import analyze as _analyze_workload
+
+        self.problem = _analyze_workload(
+            spec,
+            self.platform,
+            kind=kind,
+            shape=shape,
+            stages=stages,
+            skew=skew,
+            alpha=alpha,
+            estimator=estimator,
         )
+        self.schedule = None
+        return self
 
     def load(self, problem, alpha: Optional[float] = None) -> "Session":
         """Set the problem directly (Problem, TaskTree+α, lengths+α)."""

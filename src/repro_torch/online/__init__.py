@@ -8,8 +8,10 @@ scheduler  OnlineScheduler: O(n) PM re-share on every event, §4-valid
 queue      multi-tenant admission (FIFO / SJF-by-𝓛 / fair-share)
 replay     bridge an online run onto the plan executor (the card)
 
-``OnlineScheduler`` is exported directly: the reference's PEP-562
-deprecation shim for it is not ported (ROADMAP queue 1, item 6's gap).
+``OnlineScheduler`` is exported directly, without the reference's PEP-562
+deprecation shim: the port's own callers import from this package, where
+a shim would warn (``repro_torch.serve.serve_online`` is the one name the
+port's ``api._deprecate`` shims).
 """
 from .events import (
     Arrival,

@@ -7,18 +7,21 @@ copy, so schedules — and their JSON, byte for byte — must equal the
 reference's; execution is a port, held within tolerance and bit for bit
 inside the port.
 
-Twins waiting for modules not ported yet (each listed here by name):
-
-* ROADMAP queue 1 item 9 (``serve.pod_scheduler``, ``configs``):
-  ``test_serve_equals_serve_online``;
-* not ported in this slice (the PEP-562 shims of ``api/_deprecate.py`` and
-  the top-level lazy facade): ``test_top_level_lazy_facade``,
-  ``test_deprecation_shim_warns_exactly_once``,
-  ``test_shimmed_objects_are_the_real_ones``.
+Twins of the reference's deprecation shims and top-level lazy facade
+(``api/_deprecate.py``, ``repro/__init__.py``) reach as far as the port
+ports them: ``test_top_level_lazy_facade`` whole,
+``test_deprecation_shim_warns_exactly_once`` and
+``test_shimmed_objects_are_the_real_ones`` for ``repro_torch.serve
+.serve_online``, the one shimmed name.  The reference's other four cases
+(``core.pm_schedule``, ``sparse.make_plan``, ``runtime.execute_plan``,
+``online.OnlineScheduler``) remain without a twin: the port exports those
+directly, and its own callers (``chip_smoke.py``, the port's tests) import
+them from the package, where a shim would warn.
 """
 import json
 import math
 import os
+import warnings
 
 import jax
 import numpy as np
@@ -353,8 +356,9 @@ def test_device_mesh_without_cuda_raises(monkeypatch):
 
 
 def test_unported_verbs_raise(tmp_path, monkeypatch):
-    """What is still unported raises, naming its ROADMAP item:
-    ``analyze_workload`` (item 9).  ``serve(cluster=)``,
+    """Nothing of the facade's verbs is unported any more (``analyze_workload``
+    is item 9, checked against the reference by
+    ``test_analyze_workload_equals_reference``).  ``serve(cluster=)``,
     ``serve(dashboard_port=)`` and ``RunReport.save_html`` are ported
     (items 8 and 4): a cluster on a platform without devices takes every
     CUDA device and raises where there is none; the dashboard lives on
@@ -362,8 +366,6 @@ def test_unported_verbs_raise(tmp_path, monkeypatch):
     report."""
     tree = random_assembly_tree(20, np.random.default_rng(0))
     sess = Session(SharedMemory(8)).load(tree, ALPHA)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sess.analyze_workload("qwen3-4b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sess.serve([(sess.problem, 0.0)], cluster=2)
@@ -493,6 +495,61 @@ def test_placement_schedule_refuses_validation(rng):
         sched.validate(Problem.from_tree(tree, ALPHA))
     with pytest.raises(ValueError):
         sched.to_execution_plan()
+
+
+def test_serve_equals_serve_online():
+    """``Session.serve`` of single-task requests equals the pod scheduler's
+    ``serve_online`` (and both equal the reference's report)."""
+    from repro.configs import ARCHS as RARCHS
+    from repro.serve.pod_scheduler import serve_online as ref_serve_online
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve.pod_scheduler import Request, request_lengths, serve_online
+
+    cfg = ARCHS["qwen2.5-3b"]
+    requests = [Request(rid=i, prompt_tokens=256 * (i + 1)) for i in range(5)]
+    arrivals = [0.0, 0.1, 0.2, 0.3, 0.4]
+    legacy = serve_online(
+        cfg, requests, arrivals, pod_devices=16, alpha=0.85, admission="sjf"
+    )
+    lengths = request_lengths(cfg, requests) / 1e12
+    stream = [
+        (Problem.from_lengths([l], 0.85), a) for l, a in zip(lengths, arrivals)
+    ]
+    rep = Session(SharedMemory(16)).serve(
+        stream, alpha=0.85, admission="sjf", max_concurrent=4
+    )
+    assert rep.makespan == legacy.makespan
+    assert rep.metrics["mean_latency"] == pytest.approx(
+        legacy.mean_latency(), rel=1e-12
+    )
+    ref = ref_serve_online(
+        RARCHS["qwen2.5-3b"], requests, arrivals, pod_devices=16, alpha=0.85,
+        admission="sjf",
+    )
+    assert legacy.makespan == ref.makespan
+    assert legacy.mean_latency() == ref.mean_latency()
+    assert [f.rid for f in legacy.futures.values()] == [f.rid for f in ref.futures.values()]
+
+
+def test_analyze_workload_equals_reference():
+    """``Session.analyze_workload("qwen3-4b", shape="prefill_32k")``: the
+    reference's Problem (lengths, footprints, meta) and its PM schedule's
+    JSON byte for byte, the ``workload`` provenance riding the schedule's
+    meta through a JSON round trip."""
+    sess = Session(SharedMemory(16)).analyze_workload("qwen3-4b", shape="prefill_32k")
+    ref = rapi.Session(rapi.SharedMemory(16)).analyze_workload("qwen3-4b", shape="prefill_32k")
+    np.testing.assert_array_equal(sess.problem.tree.lengths, ref.problem.tree.lengths)
+    for f in ("front_bytes", "factor_bytes", "cb_bytes"):
+        np.testing.assert_array_equal(getattr(sess.problem.memory_footprints(), f),
+                                      getattr(ref.problem.memory_footprints(), f))
+    assert sess.problem.meta == ref.problem.meta
+    assert sess.schedule is None
+    sched = sess.plan("pm").schedule
+    assert sched.to_json() == ref.plan("pm").schedule.to_json()
+    back = Schedule.from_json(sched.to_json())
+    assert back.meta["workload"] == sess.problem.meta["workload"]
+    assert back.meta["workload"]["model"] == "qwen3-4b"
+    assert back.meta["workload"]["calibration"] == "cpu"
 
 
 def test_facade_exports_match_reference():
@@ -732,3 +789,57 @@ def test_demo_twin_on_cpu_lanes(capsys):
     assert "PM       825  PROP +  3.5%  DIV +  22.8% | plan eff 0.82" in out
     assert "rand-spd 400" in out and "(OK)" in out
 
+
+
+# ----------------------------------------------------------------------
+# The top-level lazy facade and the deprecation shim
+# ----------------------------------------------------------------------
+def test_top_level_lazy_facade():
+    import repro_torch
+
+    assert repro_torch.Session is Session
+    assert repro_torch.SharedMemory is SharedMemory
+    assert repro_torch.Schedule is Schedule
+    assert "available_policies" in dir(repro_torch)
+    assert "pm-bounded" in repro_torch.available_policies()
+    with pytest.raises(AttributeError):
+        repro_torch.not_a_facade_name
+    import repro
+
+    for names in ("_FACADE", "_CLUSTER_FACADE", "_WORKLOADS_FACADE"):
+        assert getattr(repro_torch, names) == getattr(repro, names)
+    assert repro_torch.LocalCluster is repro_torch.cluster.LocalCluster
+    assert repro_torch.pipeline_workload is repro_torch.workloads.pipeline
+
+
+SHIMS = [("repro_torch.serve", "serve_online")]
+
+
+@pytest.mark.parametrize("pkg,name", SHIMS)
+def test_deprecation_shim_warns_exactly_once(pkg, name):
+    import importlib
+
+    from repro_torch.api._deprecate import reset_warnings
+
+    mod = importlib.import_module(pkg)
+    reset_warnings()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        obj1 = getattr(mod, name)
+        obj2 = getattr(mod, name)  # second access: silent
+    assert obj1 is obj2
+    dep = [x for x in w if issubclass(x.category, DeprecationWarning)]
+    assert len(dep) == 1, [str(x.message) for x in w]
+    assert name in str(dep[0].message)
+    assert name in dir(mod)
+
+
+def test_shimmed_objects_are_the_real_ones():
+    import repro_torch.serve
+    from repro_torch.serve.pod_scheduler import serve_online as real_so
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert repro_torch.serve.serve_online is real_so
+    with pytest.raises(AttributeError):
+        repro_torch.serve.not_a_thing

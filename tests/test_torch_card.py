@@ -484,6 +484,42 @@ def test_session_execute_on_card(cuda):
 
 
 # ----------------------------------------------------------------------
+# The workload front end on the card (chip_smoke.py phase 10)
+# ----------------------------------------------------------------------
+def test_analyze_workload_multifrontal_on_card(cuda):
+    """The paper's own workload (``configs/multifrontal.py``: the 63×63
+    grid) through ``analyze_workload``, executed in the config's f32 on
+    the card's frontal kernel."""
+    from repro_torch.configs import SOLVER
+
+    sess = Session(DeviceMesh(plan_devices=256)).analyze_workload("multifrontal")
+    assert sess.problem.meta["workload"]["grid"] == SOLVER.grid == 63
+    sess.plan("greedy")
+    fc.reset_counters()
+    rep = sess.execute(dtype=getattr(torch, SOLVER.dtype))
+    assert fc.LAUNCHES["front_factor"] > 0
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    assert rep.artifact.panels[0].dtype == np.float32
+    dense = sess.problem.matrix.toarray()
+    l = rep.artifact.to_dense_l().astype(np.float64)
+    assert np.abs(l @ l.T - dense).max() / np.abs(dense).max() <= 1e-5
+
+
+def test_calibration_for_card_mesh(cuda):
+    from repro_torch.workloads import calibration_for
+
+    assert calibration_for(DeviceMesh()).name == "h100"
+    assert Session(DeviceMesh()).analyze_workload("qwen3-4b").problem.meta[
+        "workload"]["calibration"] == "h100"
+
+
+def test_calibration_for_cpu_lanes_beside_a_card(cuda):
+    from repro_torch.workloads import calibration_for
+
+    assert calibration_for(DeviceMesh([torch.device("cpu")] * 2)).name == "host-mesh"
+
+
+# ----------------------------------------------------------------------
 # The serving cluster on the card (chip_smoke.py phase 9, smaller)
 # ----------------------------------------------------------------------
 def _card_problems():

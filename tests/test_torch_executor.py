@@ -194,9 +194,10 @@ def test_executor_contracts(grid23):
 def test_import_isolation():
     """Every port module (the facade, the optimizer, the straggler module,
     the online scheduler and its replay bridge, the elastic module, the
-    serving cluster, the efficiency metrics and the dashboard, the demo
-    and the flash kernel's wrapper among them), chip_smoke and the card
-    tests import neither jax nor repro."""
+    serving cluster, the efficiency metrics and the dashboard, the demo,
+    the flash kernel's wrapper, the workload front end, the model configs
+    and the pod scheduler among them), chip_smoke and the card tests
+    import neither jax nor repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -215,7 +216,11 @@ need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo
         "repro_torch.runtime.elastic", "repro_torch.obs.efficiency",
         "repro_torch.obs.dashboard", "repro_torch.cluster.comm",
         "repro_torch.cluster.scheduler", "repro_torch.cluster.worker",
-        "repro_torch.cluster.engine", "repro_torch.cluster.service"}
+        "repro_torch.cluster.engine", "repro_torch.cluster.service",
+        "repro_torch.api._deprecate", "repro_torch.models.config",
+        "repro_torch.configs", "repro_torch.launch.roofline",
+        "repro_torch.workloads.graph", "repro_torch.workloads.costs",
+        "repro_torch.workloads.zoo", "repro_torch.serve.pod_scheduler"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """

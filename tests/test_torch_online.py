@@ -1,9 +1,8 @@
 """The port's online scheduler, request serving and elastic replanning
-against the JAX package's: twins of ``tests/test_online.py`` (all but
-``test_pod_serve_online``, which waits for ``serve/pod_scheduler`` and the
-model configs: ROADMAP queue 1 item 9), of ``tests/test_runtime.py``'s
-heartbeat and elastic cases and of ``tests/test_obs.py``'s serve and
-elastic telemetry cases.
+against the JAX package's: twins of ``tests/test_online.py`` (the pod
+scheduler's ``serve_online`` among them), of ``tests/test_runtime.py``'s
+heartbeat, elastic and two-pod placement cases and of
+``tests/test_obs.py``'s serve and elastic telemetry cases.
 
 Each twin draws its inputs from the same seeded numpy generator once per
 package and runs the reference and the port side by side.  The scheduling
@@ -15,6 +14,7 @@ port on CPU lanes in f64 (the kernels' plain versions): factors within
 1e-11, and async equal to waves bit for bit inside the port.
 """
 import dataclasses
+import warnings
 from types import SimpleNamespace
 
 import jax
@@ -85,6 +85,16 @@ def twin(run):
     port = run(PORT, np.random.default_rng(SEED))
     assert repr(port) == repr(ref)
     return port
+
+
+def pod_modules(P):
+    """(configs, serve) of the package ``P`` stands for."""
+    import repro.configs as rconfigs
+    import repro.serve as rserve
+    import repro_torch.configs as tconfigs
+    import repro_torch.serve as tserve
+
+    return (tconfigs, tserve) if P is PORT else (rconfigs, rserve)
 
 
 # ----------------------------------------------------------------------
@@ -610,5 +620,53 @@ def test_validate_agrees_with_reference():
                 verdicts.append(str(e))
         assert verdicts[0] == "valid" and verdicts[1] != "valid" and verdicts[2] != "valid"
         return verdicts
+
+    twin(run)
+
+
+# ----------------------------------------------------------------------
+# The pod scheduler (serve/pod_scheduler)
+# ----------------------------------------------------------------------
+def test_pod_serve_online():
+    """Eight qwen3-4b prefill requests on one 256-device pod, SJF admission,
+    through the package's ``serve_online`` (its deprecation shim): the same
+    report as the reference's, every request served."""
+    def run(P, rng):
+        configs, serve = pod_modules(P)
+        cfg = configs.ARCHS["qwen3-4b"]
+        reqs = [serve.Request(i, 1024 * (1 + i % 4)) for i in range(8)]
+        arrivals = P.online.poisson_arrivals(8, 0.2, seed=5)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            serve_online = serve.serve_online
+        report = serve_online(
+            cfg, reqs, arrivals, pod_devices=256, alpha=ALPHA, admission="sjf"
+        )
+        report.validate()
+        assert all(f.state == "done" for f in report.futures.values())
+        assert {f.rid for f in report.futures.values()} == set(range(8))
+        assert report.mean_latency() > 0
+        assert 0 < report.utilization <= 1 + 1e-9
+        return report_key(report), report.mean_latency()
+
+    twin(run)
+
+
+def test_two_pod_request_placement():
+    """Six qwen3-4b requests on two equal pods (Algorithm 11) and on pods of
+    256 and 128 devices (the Algorithm-12 FPTAS): the reference's makespans
+    and placements exactly; the degraded pod takes the smaller share."""
+    def run(P, rng):
+        configs, serve = pod_modules(P)
+        cfg = configs.ARCHS["qwen3-4b"]
+        reqs = [serve.Request(i, 1024 * (i + 1)) for i in range(6)]
+        mk, placement = serve.place_two_pods_equal(cfg, reqs, pod_devices=256, alpha=0.9)
+        assert len(placement) == 6 and set(placement) <= {0, 1}
+        assert mk > 0
+        mk2, placement2 = serve.place_two_pods(cfg, reqs, 256, 128, alpha=0.9, lam=1.05)
+        assert len(placement2) == 6
+        w = np.array([r.prompt_tokens for r in reqs], float)
+        assert w[np.array(placement2) == 1].sum() <= w.sum() * 0.6
+        return mk, placement, mk2, placement2
 
     twin(run)
