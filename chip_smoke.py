@@ -25,8 +25,8 @@ card → ‖LLᵀ−A‖ check.
    plan once more under torch.profiler (device time by kernel, busy
    share);
 5. modes: async and waves bit-identical (grid 60, f64); f32 grid 100;
-6. the flash-attention kernels (their public entry point: nothing in the
-   package calls it) at qwen3-4b's attention widths (32 query heads,
+6. the flash-attention kernels (their public entry point; phase 11 runs
+   them inside the models) at qwen3-4b's attention widths (32 query heads,
    Dh=128) and its train_4k length: B=2, T=4096, causal f32 and bf16,
    causal bf16 and f32 at Dh=64, non-causal f32, causal f32 and bf16 at
    Dh=96 and at zamba2-2.7b's Dh=80 (both padded to 128 in the tensor-core
@@ -77,10 +77,20 @@ card → ‖LLᵀ−A‖ check.
    (c) ``serve_online`` of eight qwen3-4b requests on a 256-device pod and
    two-pod placement; (d) the dense bf16 ``torch.matmul`` rate at 8192³
    and a 1 GiB copy's HBM bandwidth, each within 1.5x of the ``h100``
-   constants of ``workloads/costs.py``.
+   constants of ``workloads/costs.py``;
+11. the LM path (``repro_torch.models``): (a) ``repro_torch.launch.serve``
+   serves qwen3-4b at full width (f32, 4 prompts of 1024 tokens, 32
+   generated each), 36 flash launches and no plain run, its prefill and
+   decode walls and peak memory; (b) the same model in bf16 and f32, the
+   kernel path against blocked attention on the card (prefill logits and
+   4 teacher-forced decode steps, within ``LM_TOL`` of max |logit|), the
+   f32 kernel path under ``torch.profiler``; (c) every reduced arch in
+   f32: forward (= the CPU's within 1e-4), loss, prefill + 3 decode steps
+   within 2e-4 of the teacher-forced forward, flash launches as counted
+   by ``flash_layers``.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9 and 10,
+4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9, 10 and 11,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -90,6 +100,7 @@ non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1112,6 +1123,306 @@ def phase_workloads(fc) -> dict:
     }
 
 
+# ----------------------------------------------------------------------
+# phase 11: the LM path
+# ----------------------------------------------------------------------
+LM_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}  # kernel vs blocked, / max|logit|
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma")
+
+
+@contextlib.contextmanager
+def blocked_attention_only(attention):
+    """Test hook: every full-sequence attention of the models takes
+    ``blocked_attention`` (``takes_flash`` answers no) inside the block."""
+    takes_flash = attention.takes_flash
+    attention.takes_flash = lambda *args, **kw: False
+    try:
+        yield
+    finally:
+        attention.takes_flash = takes_flash
+
+
+def flash_layers(cfg, t_dec: int, t_enc: int = 0) -> int:
+    """Flash launches of one forward or prefill on the card, written out
+    apart from the models: each causal self-attention (dense, vlm, moe; the
+    hybrid's shared block once per group), the audio encoder's layers and,
+    where the memory has the decoder's length, its cross-attention."""
+    if cfg.family in ("dense", "vlm", "moe"):
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // (cfg.hybrid_attn_every or cfg.n_layers)
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + cfg.n_layers * (2 if t_enc == t_dec else 1)
+    return 0
+
+
+def flash_counts(fa) -> dict:
+    torch.cuda.synchronize()
+    return {"launches": fa.LAUNCHES["flash_attention"], "plain": fa.PLAIN_RUNS["flash_attention"],
+            "routes": {r: n for r, n in fa.ROUTE_LAUNCHES.items() if n}}
+
+
+def device_time_by_group(prof) -> tuple[dict, int]:
+    """Device seconds of a profile: the flash kernel, the matmuls (cuBLAS
+    and CUTLASS), copies and memsets, the rest (elementwise, reductions,
+    softmax, gathers); and the count of device kernels and copies."""
+    groups = {"flash": 0.0, "matmul": 0.0, "copy": 0.0, "other": 0.0}
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key, s = e.key.lower(), e.self_device_time_total / 1e6
+        group = ("flash" if "flash" in key else "matmul" if any(n in key for n in GEMM_NAMES)
+                 else "copy" if "memcpy" in key or "memset" in key else "other")
+        groups[group] += s
+        count += e.count
+    return groups, count
+
+
+def lm_bounds(cfg, params, b: int, t: int, dtype) -> dict:
+    """The least time the card could take (ms) for a prefill of ``b`` x
+    ``t`` tokens and for one decode step after it, from the shapes: every
+    weight read once, the K/V cache written (prefill) or read (decode) once
+    in ``dtype``; the layers' matmuls (2 flops per weight per token), the
+    causal attention (4·H·Dh per query-key pair) and the tied head on the
+    last token, at the type's data-sheet rate (f32 on the CUDA cores:
+    matmuls run without TF32)."""
+    size = torch.finfo(dtype).bits // 8
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    matmul_params = sum(p.numel() for p in params["layers"].parameters() if p.ndim == 3)
+    kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.resolved_head_dim * size  # per position
+    attn = 4 * cfg.padded_n_heads * cfg.resolved_head_dim * cfg.n_layers * b
+    head = 2 * cfg.d_model * cfg.padded_vocab() * b
+    rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FLOPS[torch.float32]
+    pre_flops = 2 * matmul_params * b * t + attn * t * (t + 1) / 2 + head
+    pre_ms, pre_by = max((1e3 * (weight_bytes + kv * t) / PEAK_BYTES, "bytes"),
+                         (1e3 * pre_flops / rate, "operations"))
+    dec_ms = 1e3 * (weight_bytes + kv * (t + 1)) / PEAK_BYTES  # the flops are ~1000x fewer
+    return {"weight_bytes": weight_bytes, "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
+            "prefill_flops": pre_flops, "decode_step_bound_ms": dec_ms}
+
+
+def lm_serve_case(dec, cfg, params, tokens, t0: int, steps: int, cache_dtype):
+    """Prefill of ``tokens[:, :t0]`` on the card, the caches padded by
+    ``steps``, then ``steps`` teacher-forced decode steps: (prefill logits,
+    [decode logits], prefill s, decode s)."""
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    logits, cache = dec.prefill(cfg, params, tokens[:, :t0], remat=False, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter()
+    for kk in ("k", "v"):
+        cache[kk] = torch.nn.functional.pad(cache[kk], (0, 0, 0, 0, 0, steps))
+    outs = []
+    for i in range(steps):
+        out, cache = dec.decode_step(cfg, params, cache, tokens[:, t0 + i : t0 + i + 1])
+        outs.append(out)
+    torch.cuda.synchronize()
+    return logits, outs, t_pre - t_start, time.perf_counter() - t_pre
+
+
+def phase_lm(fa) -> dict:
+    """11. The LM path (``repro_torch.models``, ``launch/serve.py``).
+
+    (a) ``repro_torch.launch.serve.main`` for qwen3-4b at full width (f32
+    params from seed 0, as the reference launcher's), ``--batch 4 --prompt
+    1024 --gen 32``: the prefill and decode walls, the peak of
+    ``max_memory_allocated``; flash counters set to 0 just before, read
+    just after: 36 launches (one per layer, ``mma_3xtf32``), no plain run.
+    (b) The same model in bf16 (``wgmma_tma``) and in f32: prefill of 4 x
+    1024 tokens and 4 teacher-forced decode steps, once on the kernel path
+    and once with every attention forced onto ``blocked_attention`` (the
+    test hook ``blocked_attention_only``, 0 launches there); their logits
+    within ``LM_TOL`` of max |logit| (f32 decisive); the f32 kernel path
+    once more under ``torch.profiler``: device time of flash, the matmuls,
+    copies and the rest against the wall, prefill and decode apart.
+    (c) All ten ``cfg.reduced()`` archs in f32 (MoE at capacity 8, the
+    reference test's): forward (flash launches as ``flash_layers`` says,
+    logits within 1e-4 of the same params' forward on the CPU), loss, and
+    prefill of 12 tokens + 3 decode steps, each within the reference's
+    2e-4 of the teacher-forced forward."""
+    import dataclasses
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, build_loss_fn, forward, init_params, random_batch
+    from repro_torch.models import decode as dec
+    from repro_torch.models.weights import params_from_numpy, params_to_numpy
+
+    cuda = torch.device("cuda", 0)
+    cfg = ARCHS["qwen3-4b"]
+    out = {}
+
+    # (a) the server at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_counters()
+    res = serve.main(["--arch", "qwen3-4b", "--batch", "4", "--prompt", "1024", "--gen", "32"])
+    counts = flash_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    print(f"[11a serve qwen3-4b f32 B=4 prompt 1024 gen 32] {nvidia_smi()}: prefill "
+          f"{res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s (31 steps, "
+          f"{res['decode_s'] / 31 * 1e3:.2f} ms/step), peak allocated {peak / 2**30:.3f} GiB "
+          f"(held before {base / 2**30:.3f}); flash {counts}", flush=True)
+    check(counts["launches"] == cfg.n_layers and counts["routes"] == {"mma_3xtf32": 36},
+          f"phase 11a: flash launches {counts}, expected 36 on mma_3xtf32")
+    check(counts["plain"] == 0, f"phase 11a: plain flash ran {counts}")
+    check(toks.shape == (4, 32) and ((0 <= toks) & (toks < cfg.padded_vocab())).all(),
+          f"phase 11a: tokens {toks.shape}")
+    out["serve_qwen3_4b_f32"] = {
+        "batch": 4, "prompt": 1024, "gen": 32, "prefill_s": res["prefill_s"],
+        "decode_s": res["decode_s"], "peak_allocated_bytes": peak, "held_before_bytes": base,
+        "flash": counts, "card": nvidia_smi()}
+    del res
+    route_launches = dict.fromkeys(fa.ROUTES, 0)
+    route_launches["mma_3xtf32"] += counts["launches"]
+
+    # (b) kernel against blocked attention at full width, bf16 then f32
+    t0, steps = 1024, 4
+    tokens = random_batch(cfg, 4, t0 + steps, torch.Generator(cuda).manual_seed(1))["tokens"]
+    out["kernel_vs_blocked"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(cuda).manual_seed(0), dtype=dtype, device=cuda)
+        runs = {}
+        for path in ("kernel", "blocked"):
+            fa.reset_counters()
+            with blocked_attention_only(attention) if path == "blocked" else contextlib.nullcontext():
+                runs[path] = lm_serve_case(dec, cfg, params, tokens, t0, steps, dtype)
+            runs[path] += (flash_counts(fa),)
+        rt = fa.route(dtype, cfg.resolved_head_dim)
+        bounds = lm_bounds(cfg, params, 4, t0, dtype)
+        kc, bc = runs["kernel"][4], runs["blocked"][4]
+        check(kc["launches"] == cfg.n_layers and kc["routes"] == {rt: cfg.n_layers}
+              and kc["plain"] == 0, f"phase 11b {dtype}: kernel path flash {kc}")
+        check(bc["launches"] == 0 and bc["plain"] == 0, f"phase 11b {dtype}: blocked path {bc}")
+        route_launches[rt] += kc["launches"]
+        scale = float(runs["blocked"][0].float().abs().max())
+        errs = [float((runs["kernel"][0].float() - runs["blocked"][0].float()).abs().max()) / scale]
+        for got, want in zip(runs["kernel"][1], runs["blocked"][1]):
+            errs.append(float((got.float() - want.float()).abs().max())
+                        / float(want.float().abs().max()))
+        finite = all(bool(torch.isfinite(x).all()) for r in runs.values() for x in [r[0], *r[1]])
+        name = str(dtype)[6:]
+        print(f"[11b qwen3-4b {name} B=4 T={t0}] kernel path: prefill {runs['kernel'][2]:.4f} s, "
+              f"{steps} decode steps {runs['kernel'][3]:.4f} s; blocked path: prefill "
+              f"{runs['blocked'][2]:.4f} s, decode {runs['blocked'][3]:.4f} s; max|logit| "
+              f"{scale:.4f}; |kernel - blocked| / max|logit|: prefill {errs[0]:.3e}, decode "
+              f"{', '.join(f'{e:.3e}' for e in errs[1:])} (tolerance {LM_TOL[dtype]:.0e}); "
+              f"flash {kc}; weights {bounds['weight_bytes'] / 1e9:.3f} GB, bound: prefill "
+              f"{bounds['prefill_bound_ms']:.4f} ms ({bounds['prefill_bound_by']}), decode "
+              f"{bounds['decode_step_bound_ms']:.4f} ms a step (bytes)", flush=True)
+        check(finite, f"phase 11b {name}: non-finite logits")
+        check(max(errs) <= LM_TOL[dtype], f"phase 11b {name}: kernel vs blocked {max(errs)}")
+        rec = {"prefill_s": {p: r[2] for p, r in runs.items()},
+               "decode_4_steps_s": {p: r[3] for p, r in runs.items()},
+               "max_abs_logit": scale, "rel_err_prefill": errs[0], "rel_err_decode": errs[1:],
+               "tolerance": LM_TOL[dtype], "flash": kc, **bounds}
+        if dtype == torch.float32:  # where the time goes: the kernel path under the profiler
+            prof_rec = {}
+            for part in ("prefill", "decode"):
+                fa.reset_counters()
+                if part == "prefill":
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        t_start = time.perf_counter()
+                        _, cache = dec.prefill(cfg, params, tokens[:, :t0], remat=False,
+                                               cache_dtype=dtype)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t_start
+                    for kk in ("k", "v"):
+                        cache[kk] = torch.nn.functional.pad(cache[kk], (0, 0, 0, 0, 0, steps))
+                else:
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        t_start = time.perf_counter()
+                        for i in range(steps):
+                            _, cache = dec.decode_step(cfg, params, cache,
+                                                       tokens[:, t0 + i : t0 + i + 1])
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t_start
+                route_launches[rt] += flash_counts(fa)["launches"]
+                groups, n_kernels = device_time_by_group(prof)
+                busy = sum(groups.values())
+                prof_rec[part] = {"wall_s": wall, "device_s": busy, "busy_share": busy / wall,
+                                  "device_s_by_group": groups, "device_kernels": n_kernels}
+                print(f"[11b profiled f32 {part}] wall {wall:.4f} s, device {busy:.4f} s, busy "
+                      f"share {busy / wall:.4f}, {n_kernels} device kernels and copies: " + ", ".join(
+                          f"{g} {s * 1e3:.3f} ms" for g, s in groups.items()), flush=True)
+            del cache
+            rec["profile"] = prof_rec
+        out["kernel_vs_blocked"][name] = rec
+        del params, runs
+
+    # (c) every architecture, reduced, f32
+    out["reduced_archs"] = {}
+    for name in sorted(ARCHS):
+        cfg_r = ARCHS[name].reduced()
+        if cfg_r.moe:
+            cfg_r = dataclasses.replace(cfg_r, moe=dataclasses.replace(cfg_r.moe,
+                                                                       capacity_factor=8.0))
+        params = init_params(cfg_r, torch.Generator(cuda).manual_seed(0), device=cuda)
+        batch = random_batch(cfg_r, 2, 15, torch.Generator(cuda).manual_seed(1))
+        t_enc = batch["frames"].shape[1] if "frames" in batch else 0
+        fa.reset_counters()
+        logits, aux = forward(cfg_r, params, batch["tokens"], extra=batch, remat=False,
+                              attn_block=8)
+        loss = float(build_loss_fn(cfg_r, remat=False, attn_block=8)(params, batch))
+        fwd_counts = flash_counts(fa)  # the forward's and the loss's
+        cpu_params = params_from_numpy(cfg_r, params_to_numpy(params), "cpu")
+        cpu_logits, _ = forward(cfg_r, cpu_params, batch["tokens"].cpu(),
+                                extra={k: v.cpu() for k, v in batch.items()}, remat=False,
+                                attn_block=8)
+        _, cpu_err = rel_err(logits.cpu(), cpu_logits)
+        # prefill 12 + 3 decode steps against the teacher-forced forward
+        toks, t_p = batch["tokens"], 12
+        extra = {k: (v[:, :t_p] if k == "frames" else v) for k, v in batch.items() if k != "tokens"}
+        fa.reset_counters()
+        _, cache = dec.prefill(cfg_r, params, toks[:, :t_p], extra=extra, remat=False,
+                               attn_block=8, cache_dtype=torch.float32)
+        pre_counts = flash_counts(fa)
+        for kk in ("k", "v", "ak", "av", "xk", "xv"):
+            if kk in cache:
+                cache[kk] = torch.nn.functional.pad(cache[kk], (0, 0, 0, 0, 0, 3))
+        dec_errs = []
+        fa.reset_counters()
+        for i in range(3):
+            got, cache = dec.decode_step(cfg_r, params, cache, toks[:, t_p + i : t_p + i + 1])
+            full, _ = forward(cfg_r, params, toks[:, : t_p + i + 1], extra=extra, remat=False,
+                              attn_block=8)
+            dec_errs.append(float((full[:, -1] - got[:, 0]).abs().max()))
+        tf_counts = flash_counts(fa)
+        launches = fwd_counts["launches"] + pre_counts["launches"] + tf_counts["launches"]
+        route_launches["mma_3xtf32"] += launches
+        want_fwd, want_pre = 2 * flash_layers(cfg_r, 15, t_enc), flash_layers(cfg_r, t_p, t_p)
+        want_tf = sum(flash_layers(cfg_r, t_p + i + 1, t_p) for i in range(3))
+        print(f"[11c {name} reduced f32] loss {loss:.6f}, aux {float(aux):.3e}; card vs CPU "
+              f"forward {cpu_err:.3e}; decode vs teacher-forced forward "
+              f"{', '.join(f'{e:.3e}' for e in dec_errs)}; flash launches forward + loss "
+              f"{fwd_counts['launches']} (expected {want_fwd}), prefill {pre_counts['launches']} "
+              f"({want_pre}), teacher-forced forwards {tf_counts['launches']} ({want_tf})",
+              flush=True)
+        check(bool(torch.isfinite(logits).all()) and np.isfinite(loss), f"phase 11c {name}: finite")
+        check(cpu_err <= 1e-4, f"phase 11c {name}: card vs CPU forward {cpu_err}")
+        check(max(dec_errs) < 2e-4, f"phase 11c {name}: decode continuation {dec_errs}")
+        check((fwd_counts["launches"], pre_counts["launches"], tf_counts["launches"])
+              == (want_fwd, want_pre, want_tf), f"phase 11c {name}: flash launches")
+        check(all(c["plain"] == 0 for c in (fwd_counts, pre_counts, tf_counts)),
+              f"phase 11c {name}: plain flash ran")
+        check(cfg_r.family == "ssm" or launches > 0, f"phase 11c {name}: flash never launched")
+        out["reduced_archs"][name] = {"loss": loss, "aux": float(aux), "card_vs_cpu": cpu_err,
+                                      "decode_vs_forward": dec_errs, "flash_launches": launches}
+        del params, cpu_params, cache
+    out["flash_route_launches"] = route_launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1228,6 +1539,9 @@ def main() -> int:
     stamp("10")
     e2e10 = phase_workloads(fc)
     launches10 = e2e10.pop("launches")
+    stamp("11")
+    e2e11 = phase_lm(flash)
+    launches11 = e2e11.pop("flash_route_launches")
     stamp("end")
 
     replaces = {
@@ -1260,8 +1574,13 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:77",
-            "path": "kernel entry point (no caller in src/repro)",
+            "path": "phase 6 (the kernel entry point) + phase 11 (the LM path: qwen3-4b served "
+                    "through repro_torch.launch.serve, its f32 and bf16 prefills, every reduced "
+                    "arch's forward, loss and prefill)",
             **rec["flash_attention"][route],
+            "launches": rec["flash_attention"][route]["launches"] + launches11[route],
+            "launches_by_phase": {"6": rec["flash_attention"][route]["launches"],
+                                  "11": launches11[route]},
         }
         for route in flash.ROUTES
     ]
@@ -1276,6 +1595,7 @@ def main() -> int:
             **e2e8,
             **e2e9,
             **e2e10,
+            "lm": e2e11,
         },
         "phase_start_s": phase_s,
     }), flush=True)

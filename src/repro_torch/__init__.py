@@ -25,9 +25,10 @@ JAX).  Ported so far: the paper's application end to end —
   cluster      the serving cluster: comm layer (inproc / TCP), scheduler,
                heartbeating workers factoring fronts on torch devices,
                engine facade, ``LocalCluster``
-  models       the assigned architectures' configs (the models: item 10)
+  models       the assigned architectures: configs, the models (forward,
+               loss, prefill, decode), weights in and out
   configs      exact public-literature configs (+ the solver's own)
-  launch       the analytic model-flop counters
+  launch       the analytic model-flop counters, the one-card server
   workloads    model computation graphs → malleable task trees, per-platform
                calibrated costs (``h100`` measured on the card), the zoo
   serve        pod-level request placement and online serving

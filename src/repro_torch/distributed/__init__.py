@@ -1,3 +1,11 @@
+from .constraints import (
+    active_mesh,
+    constrain,
+    get_active_mesh,
+    set_active_mesh,
+    shard_model,
+    shard_over_dp,
+)
 from .device_groups import (
     BuddyAllocator,
     DeviceGroup,

@@ -9,9 +9,11 @@ output in q's dtype.  No logsumexp and no backward pass.
 
 The CUDA source is ``repro_torch/csrc/flash_attention.cu`` (its design and
 what bounds it on the card are noted there), built into the port's kernel
-library by :mod:`repro_torch.kernels._build`.  Nothing in the port calls
-this function on its main path, as nothing in ``repro`` calls the TPU
-kernel: it is a public kernel entry point.
+library by :mod:`repro_torch.kernels._build`.  The models' full-sequence
+attention calls it on the card (:func:`repro_torch.models.attention.attend`:
+causal self-attention in prefill and forward, the audio encoder's
+non-causal layers), where the reference runs its XLA blocked attention;
+it is also a public kernel entry point, as the TPU kernel is.
 
 The wrapper takes the plain version when q, k and v lie on the CPU and
 launches a kernel for CUDA tensors of any Dh, any B·H and any strides, in

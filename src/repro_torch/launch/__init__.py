@@ -1,7 +1,8 @@
 """Launch-side accounting (port of ``repro.launch``, in part).
 
 roofline     the analytic model-flop counters the workload zoo reads
+serve        the serving launcher on one card (prefill + greedy decode)
 
-The meshes, launchers, dry run and HLO cost walker are ROADMAP queue 1
-items 10 and 11.
+The meshes, the training launcher, the dry run and the HLO cost walker
+are ROADMAP queue 1 items 10 and 11.
 """

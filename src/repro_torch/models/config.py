@@ -3,9 +3,9 @@
 One frozen dataclass describes every family (dense / moe / ssm / vlm /
 audio / hybrid); ``src/repro_torch/configs/<id>.py`` instantiate the exact
 public-literature dims.  A copy of ``repro.models.config``: the workload
-zoo (:mod:`repro_torch.workloads`) builds task trees from these fields;
-the models themselves, and the reduced variants (``cfg.reduced()``) they
-are smoke-tested at, are ROADMAP item 10.
+zoo (:mod:`repro_torch.workloads`) builds task trees from these fields,
+the models (:mod:`repro_torch.models`) their parameters; reduced variants
+(``cfg.reduced()``) are what the CPU tests run.
 """
 from __future__ import annotations
 

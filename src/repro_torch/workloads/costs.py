@@ -18,8 +18,8 @@ turns them into what the scheduling stack consumes:
   the workload meta instead of the admission footprint.
 
 ``hlo_flop_scale`` is the reference's measured corrective (it compiles the
-reduced model in JAX and walks its HLO); the port has no compiled model
-to count yet, so it raises (ROADMAP queue 1 items 10 and 11) and only
+reduced model in JAX and walks its HLO); the port has no flop counter
+over its models yet, so it raises (ROADMAP queue 1 items 10 and 11) and only
 ``estimator="analytic"`` is offered.
 """
 from __future__ import annotations
@@ -132,8 +132,8 @@ def hlo_flop_scale(cfg, shape=None, attn_block: int = 64) -> float:
     """The reference's measured HLO/analytic flop ratio: not ported.
 
     The reference compiles the reduced config's prefill step in JAX and
-    walks its optimized HLO; the port has neither the model (ROADMAP
-    queue 1 item 10) nor a flop counter over it (item 11) yet.
+    walks its optimized HLO; the port has the models (``repro_torch.models``)
+    but no flop counter over them (ROADMAP queue 1 item 11) yet.
     """
     raise NotImplementedError(
         "hlo_flop_scale needs the port's models and a flop counter over them "

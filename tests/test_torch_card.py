@@ -16,7 +16,9 @@ attention, element by element |got - ref| <= eps * |ref| + 2e-5 (the same
 f32 math within the f32 tolerance, then one rounding each: at most 2 ulps
 of the element).  The frontal kernels are also held
 to determinism and batch invariance bit for bit.  The serving cluster's
-workers, sharing the card, give the executor's factors bit for bit.
+workers, sharing the card, give the executor's factors bit for bit.  The
+models' prefill on the card (flash attention) equals the CPU's (blocked
+attention) within 1e-4 relative to max(1, max |CPU|).
 """
 import time
 
@@ -601,3 +603,79 @@ def test_cluster_on_card_worker_kill(cuda):
     for pa, pw in zip(res.factor.panels, want.panels):
         np.testing.assert_array_equal(pa, pw)
     assert _no_cluster_threads() == []
+
+
+# ----------------------------------------------------------------------
+# The model zoo on the card (chip_smoke.py phase 11)
+# ----------------------------------------------------------------------
+def _flash_layers(cfg, t_dec, t_enc):
+    """Flash launches of one prefill: each causal self-attention, the audio
+    encoder's layers, a cross-attention over a memory of the decoder's
+    length."""
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + cfg.n_layers * (2 if t_enc == t_dec else 1)
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "seamless-m4t-large-v2"])
+def test_model_prefill_on_card_matches_cpu(cuda, name):
+    """Reduced qwen3-4b and seamless (a non-causal encoder, causal decoder,
+    cross-attention): the prefill logits and caches on the card equal the
+    same model's on the CPU within 1e-4 relative to max(1, max |CPU|); one
+    flash launch per attention layer, no plain run."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params, random_batch
+    from repro_torch.models import decode as dec
+    from repro_torch.models.weights import params_from_numpy, params_to_numpy
+
+    cfg = ARCHS[name].reduced()
+    params = init_params(cfg, 0, device="cpu")
+    batch = random_batch(cfg, 2, 40, torch.Generator().manual_seed(1))
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    want, want_cache = dec.prefill(cfg, params, batch["tokens"], extra=extra, remat=False,
+                                   cache_dtype=torch.float32)
+    card_params = params_from_numpy(cfg, params_to_numpy(params), cuda)
+    fa.reset_counters()
+    got, cache = dec.prefill(cfg, card_params, batch["tokens"].to(cuda),
+                             extra={k: v.to(cuda) for k, v in extra.items()}, remat=False,
+                             cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_enc = batch["frames"].shape[1] if "frames" in batch else 0
+    assert fa.LAUNCHES["flash_attention"] == _flash_layers(cfg, 40, t_enc)
+    assert fa.ROUTE_LAUNCHES["mma_3xtf32"] == fa.LAUNCHES["flash_attention"]
+    assert fa.PLAIN_RUNS["flash_attention"] == 0
+    assert _rel(got.cpu(), want) < 1e-4
+    for kk, v in want_cache.items():
+        assert _rel(cache[kk].cpu().double(), v.double()) < 1e-4, kk
+
+
+def test_model_blocked_route_on_card(cuda, monkeypatch):
+    """With ``takes_flash`` answering no, the card runs blocked attention
+    (the test hook of chip_smoke phase 11): no launch, the same logits as
+    the kernel's within 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import attention, forward, init_params, random_batch
+
+    cfg = ARCHS["qwen3-4b"].reduced()
+    params = init_params(cfg, 0, device=cuda)
+    tokens = random_batch(cfg, 2, 64, torch.Generator(cuda).manual_seed(1))["tokens"]
+    fa.reset_counters()
+    got, _ = forward(cfg, params, tokens, remat=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    monkeypatch.setattr(attention, "takes_flash", lambda *a, **k: False)
+    fa.reset_counters()
+    want, _ = forward(cfg, params, tokens, remat=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0 and fa.PLAIN_RUNS["flash_attention"] == 0
+    assert _rel(got, want) < 1e-4
+
+
+def test_serve_launcher_on_card(cuda):
+    """``repro_torch.launch.serve`` on cuda:0 at a reduced config."""
+    from repro_torch.launch import serve
+
+    fa.reset_counters()
+    out = serve.main(["--arch", "qwen3-4b", "--smoke", "--prompt", "48", "--gen", "4"])
+    assert out["tokens"].shape == (4, 4)
+    assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0

@@ -196,8 +196,9 @@ def test_import_isolation():
     the online scheduler and its replay bridge, the elastic module, the
     serving cluster, the efficiency metrics and the dashboard, the demo,
     the flash kernel's wrapper, the workload front end, the model configs
-    and the pod scheduler among them), chip_smoke and the card tests
-    import neither jax nor repro."""
+    and the pod scheduler, the model zoo, the sharding hooks and the serving
+    launcher among them), chip_smoke and the card tests import neither jax
+    nor repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -220,7 +221,12 @@ need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo
         "repro_torch.api._deprecate", "repro_torch.models.config",
         "repro_torch.configs", "repro_torch.launch.roofline",
         "repro_torch.workloads.graph", "repro_torch.workloads.costs",
-        "repro_torch.workloads.zoo", "repro_torch.serve.pod_scheduler"}
+        "repro_torch.workloads.zoo", "repro_torch.serve.pod_scheduler",
+        "repro_torch.models.common", "repro_torch.models.attention",
+        "repro_torch.models.gla", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
+        "repro_torch.models.moe", "repro_torch.models.transformer",
+        "repro_torch.models.decode", "repro_torch.models.model", "repro_torch.models.weights",
+        "repro_torch.distributed.constraints", "repro_torch.launch.serve"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """
