@@ -87,10 +87,22 @@ card → ‖LLᵀ−A‖ check.
    f32 kernel path under ``torch.profiler``; (c) every reduced arch in
    f32: forward (= the CPU's within 1e-4), loss, prefill + 3 decode steps
    within 2e-4 of the teacher-forced forward, flash launches as counted
-   by ``flash_layers``.
+   by ``flash_layers``;
+12. the training path (``repro_torch.{train,data,checkpoint}``): (a)
+   ``repro_torch.launch.train`` trains qwen3-4b at its published widths,
+   depth cut to 12 layers, 2 x 4096 tokens in 2 microbatches, 3 steps in
+   f32: finite losses, no flash launch and no plain run (under grad the
+   models take ``blocked_attention``), step walls, tokens/s, model flop/s
+   against 67 TFLOP/s, peak memory; one more step under ``torch.profiler``
+   (busy share, device time of blocked attention, the optimizer, the other
+   matmuls and the rest); (b) every reduced arch: a train step on the card
+   against the CPU (loss 1e-5 relative, each gradient leaf 1e-4 of its
+   max); qwen2.5-3b reduced overfits one batch; (c) an async checkpoint
+   taken while the next in-place step runs, restored bit for bit, the
+   resumed losses within 1e-6 of the uninterrupted run's.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9, 10 and 11,
+4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9, 10, 11 and 12,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -1423,6 +1435,329 @@ def phase_lm(fa) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 12: the training path
+# ----------------------------------------------------------------------
+TRAIN_LAYERS = 12  # qwen3-4b's depth cut from 36: p, g, mu, nu in f32 + a 4096-token microbatch
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "resume": 1e-6}  # (b) loss rel, grad / leaf max; (c)
+BWD_PREFIX = "autograd::engine::evaluate_function: "
+
+
+@contextlib.contextmanager
+def train_ranges():
+    """Profiler ranges around each ``blocked_attention`` call and each
+    ``adamw_update`` of the train step (the module attributes are wrapped
+    inside the block, so the models and the step call the wrappers)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import attention
+    from repro_torch.train import train_step
+
+    saved = {(attention, "blocked_attention"): attention.blocked_attention,
+             (train_step, "adamw_update"): train_step.adamw_update}
+
+    def ranged(name, fn):
+        def wrapper(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapper
+
+    try:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, ranged(name, fn))
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _with_descendants(ev):
+    """An event and the events under it, without CUDA runtime calls (their
+    ids count in another space than the ops')."""
+    if ev.name.startswith("cu"):
+        return
+    yield ev
+    for c in ev.cpu_children:
+        yield from _with_descendants(c)
+
+
+def train_time_by_group(prof) -> tuple[dict, dict]:
+    """Device seconds of a profiled train step by group, each kernel and
+    copy on the device timeline once, through the op that launched it:
+    blocked attention (ops under a ``blocked_attention`` range, its remat
+    recompute included, or under a backward node whose forward thread and
+    sequence number its ops recorded), the optimizer (under ``adamw_update``), the other matmuls
+    (cuBLAS / CUTLASS by name), copies and memsets, the rest; the busy time
+    (the union of their intervals) and the counts behind the attribution."""
+    ranges = ("blocked_attention", "adamw_update")
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu and not e.name.startswith("cu")]
+    attn_roots = [e for e in events if e.name == ranges[0]]
+    # sequence numbers count per thread: the remat recompute's (on the
+    # autograd thread) are not the numbers of the nodes backward runs
+    seqs = {(d.thread, d.sequence_nr) for r in attn_roots for d in _with_descendants(r)
+            if d.sequence_nr >= 0}
+    attn_bwd = [e for e in events if e.name.startswith(BWD_PREFIX)
+                and (e.fwd_thread, e.sequence_nr) in seqs]
+    attn_fwd = {d.id for r in attn_roots for d in _with_descendants(r)}
+    attn = attn_fwd | {d.id for r in attn_bwd for d in _with_descendants(r)}
+    opt = {d.id for r in events if r.name == ranges[1] for d in _with_descendants(r)}
+    groups = {"blocked_attention": 0.0, "optimizer": 0.0, "matmul": 0.0, "copy": 0.0,
+              "other": 0.0}
+    attn_fwd_s, spans = 0.0, []
+    for k in prof.profiler.kineto_results.events():
+        if k.device_type() == cpu or k.name() in ranges:  # host events; the ranges' annotations
+            continue
+        op, key, dur = k.linked_correlation_id(), k.name().lower(), k.duration_ns() / 1e9
+        group = ("blocked_attention" if op in attn else "optimizer" if op in opt
+                 else "matmul" if any(n in key for n in GEMM_NAMES)
+                 else "copy" if "memcpy" in key or "memset" in key else "other")
+        groups[group] += dur
+        attn_fwd_s += dur if op in attn_fwd else 0.0
+        spans.append((k.start_ns(), k.start_ns() + k.duration_ns()))
+    union, reach = 0, -1
+    for start, end in sorted(spans):
+        union += max(0, end - max(start, reach))
+        reach = max(reach, end)
+    return groups, {"device_events": len(spans), "device_busy_s": union / 1e9,
+                    "blocked_attention_forward_s": attn_fwd_s,
+                    "attention_ranges": len(attn_roots), "attention_backward_nodes": len(attn_bwd)}
+
+
+def _grads_close(got: dict, want: dict) -> float:
+    """max over leaves of |got - want| / max|want| (the card's against the CPU's)."""
+    worst = 0.0
+    for (pg, g), (pw, w) in zip(got, want):
+        check(pg == pw, f"gradient trees differ: {pg} vs {pw}")
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        worst = max(worst, err / scale if scale else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def phase_train(fa) -> dict:
+    """12. The training path (``repro_torch.{train,data,checkpoint}``,
+    ``launch/train.py``).
+
+    (a) ``repro_torch.launch.train.main`` for qwen3-4b at its published
+    widths, depth cut to ``TRAIN_LAYERS``, ``--seq 4096 --global-batch 2
+    --microbatches 2 --steps 3``, f32 (no TF32): every loss finite; flash
+    counters set to 0 just before, read just after: no launch and no plain
+    run (under grad the models take ``blocked_attention``, as the
+    reference trains through XLA's); step walls, tokens/s, model flop/s
+    (``launch/roofline.model_flops``) against 67 TFLOP/s, peak
+    ``max_memory_allocated``.  Then one more step of the same program
+    under ``torch.profiler``: busy share and device time by group.
+    (b) Each of the ten ``cfg.reduced()`` archs: one step (microbatches 2)
+    on cuda:0 and on the CPU from the same seeded weights and tokens: loss
+    within 1e-5 relative, each gradient leaf within 1e-4 of its max |g|,
+    parameters after the update within 2·lr; qwen2.5-3b reduced, 8 steps on
+    one batch: the loss falls.
+    (c) qwen3-4b reduced: 4 steps, ``save(4, async_save=True)``, step 5 at
+    once (in place, while the thread writes), steps 6-7; a restore into
+    fresh tensors equals the state at the save bit for bit, and steps 5-7
+    from it give the uninterrupted losses within 1e-6 relative; the last
+    loss is below the first.  Its tokens are drawn from 64 of the model's
+    512 ids: uniform tokens over all 512 leave the model about 0.02 nats
+    to learn, less than the loss moves from batch to batch."""
+    import gc
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticTokens, place, with_extras
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.weights import params_from_numpy, params_to_numpy
+    from repro_torch.train import (
+        OptConfig,
+        adamw_update,
+        build_train_step,
+        build_value_and_grad,
+        init_opt_state,
+        init_train_state,
+    )
+
+    cuda = torch.device("cuda", 0)
+    out = {}
+
+    t_part = time.perf_counter()
+    part_s = out["part_s"] = {}
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    # (a) the launcher at full width, depth cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "qwen3-4b", "--layers", str(TRAIN_LAYERS), "--seq", "4096",
+            "--global-batch", "2", "--microbatches", "2", "--steps", "3"]
+    fa.reset_counters()
+    res = launch_train.main(argv)
+    counts = flash_counts(fa)
+    cfg = res["cfg"]
+    flops = model_flops(cfg, ShapeCell("train_cut", res["seq"], res["global_batch"], "train"))
+    n_params = sum(p.numel() for p in param_specs(cfg).parameters())
+    steady = min(res["step_s"][1:])
+    rec = {"argv": argv, "layers": cfg.n_layers, "params": n_params, "losses": res["losses"],
+           "step_s": res["step_s"], "tokens_per_step": res["tokens_per_step"],
+           "tokens_per_s": [res["tokens_per_step"] / s for s in res["step_s"]],
+           "model_flops_per_step": flops,
+           "model_flops_per_s": [flops / s for s in res["step_s"]],
+           "peak_bytes": res["peak_bytes"], "flash": counts, "cuts": res["cuts"]}
+    print(f"[12a qwen3-4b train f32, {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"{res['global_batch']} x {res['seq']} tokens, 2 microbatches] losses "
+          f"{', '.join(f'{x:.4f}' for x in res['losses'])}; step walls "
+          f"{', '.join(f'{x:.3f}' for x in res['step_s'])} s; best {steady:.3f} s = "
+          f"{res['tokens_per_step'] / steady:.0f} tokens/s, model flop/s {flops / steady:.4e} "
+          f"({flops / steady / PEAK_FLOPS[torch.float32]:.3f} of 67 TFLOP/s; model flops "
+          f"{flops:.4e} a step); peak allocated {res['peak_bytes'] / 1e9:.3f} GB; flash "
+          f"launches {counts['launches']}, plain {counts['plain']}", flush=True)
+    check(all(np.isfinite(res["losses"])), f"phase 12a: losses {res['losses']}")
+    check(counts["launches"] == 0 and counts["plain"] == 0,
+          f"phase 12a: flash ran under grad: {counts}")
+    check(res["peak_bytes"] <= 60e9, f"phase 12a: peak {res['peak_bytes']} B past 60 GB")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("a_launcher")
+
+    # where a step's time goes: one more step of the launcher's program,
+    # profiled (the process is warm from the launcher's steps)
+    params, opt = init_train_state(cfg, 0, device=cuda)
+    step_fn = build_train_step(cfg, OptConfig(warmup_steps=5, total_steps=10), microbatches=2,
+                               attn_block=512)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 4096, 2))
+    batch = place(with_extras(data.batch_at(0), cfg), cuda)
+    fa.reset_counters()
+    torch.cuda.synchronize()
+    with train_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        params, opt, stats = step_fn(params, opt, batch)
+        loss = float(stats["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    groups, meta = train_time_by_group(prof)
+    busy = meta["device_busy_s"]
+    prof_counts = flash_counts(fa)
+    # the matmuls outside attention: 6 flops per parameter and token (the
+    # tied head included) + the layers' remat forward, 2 per parameter
+    check(groups["matmul"] > 0 and groups["blocked_attention"] > 0,
+          f"phase 12a: the profile holds no matmul or no attention: {groups}")
+    layer_params = sum(p.numel() for p in param_specs(cfg)["layers"].parameters())
+    mm_flops = (6 * n_params + 2 * layer_params) * rec["tokens_per_step"]
+    rec["profile"] = {"wall_s": wall, "busy_share": busy / wall, "device_s_by_group": groups,
+                      **meta, "loss": loss, "matmul_flops": mm_flops,
+                      "matmul_flops_per_s": mm_flops / groups["matmul"]}
+    print(f"[12a profiled step] wall {wall:.4f} s, device busy {busy:.4f} s (the union of "
+          f"{meta['device_events']} kernels and copies; their durations sum to "
+          f"{sum(groups.values()):.4f} s), busy share {busy / wall:.4f} ("
+          f"{meta['attention_ranges']} blocked_attention calls, "
+          f"{meta['attention_backward_nodes']} of their backward nodes; their forwards "
+          f"{meta['blocked_attention_forward_s'] * 1e3:.3f} ms): " + ", ".join(
+              f"{g} {t * 1e3:.3f} ms" for g, t in groups.items())
+          + f"; the other matmuls' {mm_flops:.4e} flop at {mm_flops / groups['matmul']:.4e} "
+          f"flop/s", flush=True)
+    check(np.isfinite(loss) and prof_counts["launches"] == 0 and prof_counts["plain"] == 0,
+          f"phase 12a profiled step: loss {loss}, flash {prof_counts}")
+    out["launcher_full_width"] = rec
+    del params, opt, stats, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("a_profile")
+
+    # (b) card against CPU, every reduced arch
+    out["card_vs_cpu"] = {}
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0)
+    for name in sorted(ARCHS):
+        cfg_r = ARCHS[name].reduced()
+        host = params_to_numpy(init_params(cfg_r, 0, device="cpu"))
+        batch = with_extras(SyntheticTokens(DataConfig(cfg_r.vocab_size, 16, 4, seed=1))
+                            .batch_at(0), cfg_r)
+        vg = build_value_and_grad(cfg_r, microbatches=2, remat=True, attn_block=8)
+        runs = {}
+        fa.reset_counters()
+        for dev in (cuda, torch.device("cpu")):
+            params = params_from_numpy(cfg_r, host, dev)
+            loss, grads = vg(params, place(batch, dev))
+            params, _, _ = adamw_update(params, grads, init_opt_state(params), ocfg)
+            runs[dev.type] = (float(loss), tree_items(grads), tree_items(params))
+        counts = flash_counts(fa)
+        (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+        loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        grad_err = _grads_close(g_gpu, g_cpu)
+        p_err = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in zip(p_gpu, p_cpu))
+        print(f"[12b {name} reduced] loss card {l_gpu:.6f} CPU {l_cpu:.6f} ({loss_err:.3e} rel); "
+              f"grads {grad_err:.3e} of the leaf max; params after the update {p_err:.3e} "
+              f"(2 lr {2 * ocfg.lr:g}); flash {counts['launches']}", flush=True)
+        check(loss_err <= TRAIN_TOL["loss"], f"phase 12b {name}: loss {loss_err}")
+        check(grad_err <= TRAIN_TOL["grad"], f"phase 12b {name}: grads {grad_err}")
+        check(p_err <= 2 * ocfg.lr, f"phase 12b {name}: params after the update {p_err}")
+        check(counts["launches"] == 0 and counts["plain"] == 0, f"phase 12b {name}: flash {counts}")
+        out["card_vs_cpu"][name] = {"loss_rel": loss_err, "grad_rel": grad_err,
+                                    "params_after_update": p_err}
+    cfg_r = ARCHS["qwen2.5-3b"].reduced()
+    params, opt = init_train_state(cfg_r, 0, device=cuda)
+    step = build_train_step(cfg_r, OptConfig(lr=5e-3, warmup_steps=0), attn_block=8)
+    batch = place(SyntheticTokens(DataConfig(cfg_r.vocab_size, 16, 4, seed=2)).batch_at(0), cuda)
+    losses = [float(step(params, opt, batch)[2]["loss"]) for _ in range(8)]
+    print(f"[12b qwen2.5-3b reduced, 8 steps on one batch] losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    check(losses[-1] < losses[0], f"phase 12b: the loss did not fall: {losses}")
+    out["overfit_losses"] = losses
+    part("b_card_vs_cpu")
+
+    # (c) restart on the card, the async save taken while the next step runs
+    cfg_r = ARCHS["qwen3-4b"].reduced()
+    data = SyntheticTokens(DataConfig(64, 16, 4, seed=3))  # 64 of the model's 512 tokens
+    step = build_train_step(cfg_r, OptConfig(lr=3e-3, warmup_steps=0), microbatches=2,
+                            attn_block=8)
+    folder = _build.BUILD_DIR / "phase12_ckpt"
+    shutil.rmtree(folder, ignore_errors=True)
+    ck = Checkpointer(str(folder))
+    params, opt = init_train_state(cfg_r, 0, device=cuda)
+    full = []
+    for i in range(7):
+        if i == 4:
+            at_save = [(p, t.clone()) for p, t in tree_items({"params": params, "opt": opt})]
+            ck.save(4, {"params": params, "opt": opt}, async_save=True)
+        params, opt, stats = step(params, opt, place(with_extras(data.batch_at(i), cfg_r), cuda))
+        full.append(float(stats["loss"]))
+    ck.wait()
+    example = {"params": param_specs(cfg_r), "opt": init_opt_state(param_specs(cfg_r))}
+    saved_step, restored = ck.restore(example)
+    same = [(pa == pb and a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))
+            for (pa, a), (pb, b) in zip(at_save, tree_items(restored))]
+    params2, opt2 = restored["params"], restored["opt"]
+    resumed = []
+    for i in range(4, 7):
+        params2, opt2, stats = step(params2, opt2, place(with_extras(data.batch_at(i), cfg_r),
+                                                         cuda))
+        resumed.append(float(stats["loss"]))
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[4:]))
+    print(f"[12c restart] losses {', '.join(f'{x:.6f}' for x in full)}; restored step "
+          f"{saved_step}, {sum(same)} of {len(same)} tensors bit for bit the state at the save; "
+          f"resumed {', '.join(f'{x:.6f}' for x in resumed)} ({resume_err:.3e} rel)", flush=True)
+    check(saved_step == 4 and len(same) == len(tree_items(example)) and all(same),
+          "phase 12c: the restored state differs from the state at the save")
+    check(resume_err <= TRAIN_TOL["resume"], f"phase 12c: resumed losses {resume_err}")
+    check(full[-1] < full[0], f"phase 12c: the loss did not fall: {full}")
+    shutil.rmtree(folder, ignore_errors=True)
+    out["restart"] = {"losses": full, "resumed": resumed, "resume_rel": resume_err}
+    part("c_restart")
+    print(f"[12] seconds by part: {part_s}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1542,6 +1877,8 @@ def main() -> int:
     stamp("11")
     e2e11 = phase_lm(flash)
     launches11 = e2e11.pop("flash_route_launches")
+    stamp("12")
+    e2e12 = phase_train(flash)
     stamp("end")
 
     replaces = {
@@ -1596,6 +1933,7 @@ def main() -> int:
             **e2e9,
             **e2e10,
             "lm": e2e11,
+            "train": e2e12,
         },
         "phase_start_s": phase_s,
     }), flush=True)

@@ -28,7 +28,12 @@ JAX).  Ported so far: the paper's application end to end —
   models       the assigned architectures: configs, the models (forward,
                loss, prefill, decode), weights in and out
   configs      exact public-literature configs (+ the solver's own)
-  launch       the analytic model-flop counters, the one-card server
+  train        AdamW and the train step (autograd, f32 microbatch
+               accumulation)
+  data         the seeded synthetic token pipeline
+  checkpoint   atomic, async checkpoints under the reference's keys
+  launch       the analytic model-flop counters, the one-card server and
+               trainer
   workloads    model computation graphs → malleable task trees, per-platform
                calibrated costs (``h100`` measured on the card), the zoo
   serve        pod-level request placement and online serving

@@ -2,7 +2,8 @@
 
 roofline     the analytic model-flop counters the workload zoo reads
 serve        the serving launcher on one card (prefill + greedy decode)
+train        the training launcher on one device
 
-The meshes, the training launcher, the dry run and the HLO cost walker
-are ROADMAP queue 1 items 10 and 11.
+The meshes, the dry run and the HLO cost walker are ROADMAP queue 1
+items 10 and 11.
 """

@@ -14,7 +14,7 @@ numbers: parity with the reference goes through
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +87,31 @@ def tree_index(tree: Params, i) -> Dict[str, Any]:
     axis (views; what the reference's ``lax.scan`` hands each step)."""
     return {k: tree_index(v, i) if isinstance(v, Mapping) else v[i]
             for k, v in tree.items()}
+
+
+def tree_items(tree: Params, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of every leaf of a nested mapping, keys sorted at each
+    level: the order in which ``jax.tree_util`` flattens the reference's
+    dicts."""
+    out = []
+    for k in sorted(tree.keys()):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out += tree_items(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def tree_from_items(items) -> Dict[str, Any]:
+    """Nested dicts from (path, leaf) pairs (the inverse of :func:`tree_items`)."""
+    out: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 @dataclass(frozen=True)

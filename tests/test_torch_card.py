@@ -18,7 +18,10 @@ of the element).  The frontal kernels are also held
 to determinism and batch invariance bit for bit.  The serving cluster's
 workers, sharing the card, give the executor's factors bit for bit.  The
 models' prefill on the card (flash attention) equals the CPU's (blocked
-attention) within 1e-4 relative to max(1, max |CPU|).
+attention) within 1e-4 relative to max(1, max |CPU|).  A train step's loss
+on the card equals the CPU's within 1e-5 relative and each gradient leaf
+within 1e-4 of that leaf's max |g|; an async checkpoint taken before an
+in-place step holds the state at the save bit for bit.
 """
 import time
 
@@ -679,3 +682,91 @@ def test_serve_launcher_on_card(cuda):
     out = serve.main(["--arch", "qwen3-4b", "--smoke", "--prompt", "48", "--gen", "4"])
     assert out["tokens"].shape == (4, 4)
     assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0
+
+
+# ----------------------------------------------------------------------
+# Training on the card (chip_smoke.py phase 12)
+# ----------------------------------------------------------------------
+def _train_batch(cfg, seed=1):
+    from repro_torch.data import DataConfig, SyntheticTokens, with_extras
+
+    return with_extras(SyntheticTokens(DataConfig(cfg.vocab_size, 16, 4, seed=seed)).batch_at(0),
+                       cfg)
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One step (microbatches 2, remat on) on the card and on the CPU from the
+    same weights and tokens: the loss within 1e-5 relative, each gradient
+    leaf within 1e-4 of that leaf's max |g| (chip_smoke phase 12 (b)'s
+    tolerances); no flash launch under grad."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import place
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.weights import params_from_numpy, params_to_numpy
+    from repro_torch.train import build_value_and_grad
+
+    cfg = ARCHS[name].reduced()
+    host = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    batch = _train_batch(cfg)
+    vg = build_value_and_grad(cfg, microbatches=2, attn_block=8)
+    want_loss, want = vg(params_from_numpy(cfg, host, "cpu"), place(batch, "cpu"))
+    fa.reset_counters()
+    loss, got = vg(params_from_numpy(cfg, host, cuda), place(batch, cuda))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0 and fa.PLAIN_RUNS["flash_attention"] == 0
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (pg, g), (pw, w) in zip(tree_items(got), tree_items(want)):
+        assert pg == pw
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), pg
+
+
+def test_flash_runs_again_after_a_train_step(cuda):
+    """A train step turns ``requires_grad`` on for its length only: the
+    step launches no flash kernel, the forward after it one per layer."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import place
+    from repro_torch.models import forward
+    from repro_torch.train import OptConfig, build_train_step, init_train_state
+
+    cfg = ARCHS["qwen3-4b"].reduced()
+    params, opt = init_train_state(cfg, 0)
+    batch = place(_train_batch(cfg))
+    fa.reset_counters()
+    params, opt, stats = build_train_step(cfg, OptConfig(), attn_block=8)(params, opt, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0 and np.isfinite(float(stats["loss"]))
+    assert not any(p.requires_grad for p in params.parameters())
+    forward(cfg, params, batch["tokens"], remat=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert fa.PLAIN_RUNS["flash_attention"] == 0
+
+
+def test_async_save_during_step_on_card(cuda, tmp_path):
+    """``save(async_save=True)`` of CUDA tensors, then an in-place step at
+    once: the checkpoint holds the state at the save bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import place
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.model import param_specs
+    from repro_torch.train import OptConfig, build_train_step, init_opt_state, init_train_state
+
+    cfg = ARCHS["qwen3-4b"].reduced()
+    params, opt = init_train_state(cfg, 0)
+    step = build_train_step(cfg, OptConfig(lr=1e-2, warmup_steps=0), attn_block=8)
+    batch = place(_train_batch(cfg))
+    params, opt, _ = step(params, opt, batch)
+    before = [(p, t.clone()) for p, t in tree_items({"params": params, "opt": opt})]
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"params": params, "opt": opt}, async_save=True)
+    params, opt, _ = step(params, opt, batch)
+    ck.wait()
+    assert not torch.equal(params["embed"], dict(before)[("params", "embed")])
+    _, got = ck.restore({"params": param_specs(cfg), "opt": init_opt_state(param_specs(cfg))})
+    for (pa, a), (pb, b) in zip(before, tree_items(got)):
+        assert pa == pb and b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b), pa
