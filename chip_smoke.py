@@ -81,7 +81,8 @@ card → ‖LLᵀ−A‖ check.
 11. the LM path (``repro_torch.models``): (a) ``repro_torch.launch.serve``
    serves qwen3-4b at full width (f32, 4 prompts of 1024 tokens, 32
    generated each), 36 flash launches and no plain run, its prefill and
-   decode walls and peak memory; (b) the same model in bf16 and f32, the
+   decode walls (the decode a CUDA graph, replayed) and peak memory, its
+   tokens equal to eager decode's without a mesh; (b) the same model in bf16 and f32, the
    kernel path against blocked attention on the card (prefill logits and
    4 teacher-forced decode steps, within ``LM_TOL`` of max |logit|), the
    f32 kernel path under ``torch.profiler``; (c) every reduced arch in
@@ -99,10 +100,18 @@ card → ‖LLᵀ−A‖ check.
    against the CPU (loss 1e-5 relative, each gradient leaf 1e-4 of its
    max); qwen2.5-3b reduced overfits one batch; (c) an async checkpoint
    taken while the next in-place step runs, restored bit for bit, the
-   resumed losses within 1e-6 of the uninterrupted run's.
+   resumed losses within 1e-6 of the uninterrupted run's;
+13. the production meshes: (a) qwen3-4b (2 layers, full width) one train
+   step without a mesh and one on ``make_smoke_mesh(cuda:0)``, bit for
+   bit; (b) phase 11's f32 prefill on the 1x1 mesh (``DTensor.from_local``,
+   no copy), logits bit for bit phase 11's, 36 flash launches through
+   ``local_map``; (c) the dry run (``repro_torch.launch.dryrun``, fake CUDA
+   tensors) of qwen3-4b train_4k on 16x16 and qwen2.5-3b train_4k on
+   2x16x16, each in a subprocess, ``ok`` within the reference test's
+   bounds.  Phases 11 (a) and 12 (a) run their launchers on the 1x1 mesh.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6, 7, 8, 9, 10, 11 and 12,
+4 after the executor's untimed warmup; each run of phases 6 to 13,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -1233,6 +1242,26 @@ def lm_serve_case(dec, cfg, params, tokens, t0: int, steps: int, cache_dtype):
     return logits, outs, t_pre - t_start, time.perf_counter() - t_pre
 
 
+def eager_serve_tokens(cfg, batch, prompt, gen, device):
+    """``launch.serve``'s greedy tokens without a mesh, decoded eagerly:
+    its parameters (seed 0), prompts (seed 1) and attention block."""
+    from repro_torch.models import build_decode_fn, build_prefill_fn, init_params, random_batch
+    from repro_torch.models.decode import pad_caches
+
+    params = init_params(cfg, 0, device=device)
+    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(1))
+    logits, cache = build_prefill_fn(cfg, remat=False, attn_block=512)(params, prompts)
+    cache = pad_caches(cache, gen, multiple=1)
+    decode = build_decode_fn(cfg)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    outs = [tok]
+    for _ in range(gen - 1):
+        logits, cache = decode(params, cache, tok)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        outs.append(tok)
+    return torch.cat(outs, dim=1).cpu().numpy()
+
+
 def phase_lm(fa) -> dict:
     """11. The LM path (``repro_torch.models``, ``launch/serve.py``).
 
@@ -1241,6 +1270,8 @@ def phase_lm(fa) -> dict:
     1024 --gen 32``: the prefill and decode walls, the peak of
     ``max_memory_allocated``; flash counters set to 0 just before, read
     just after: 36 launches (one per layer, ``mma_3xtf32``), no plain run.
+    Its decode (one CUDA graph on the 1x1 mesh, replayed) gives the tokens
+    of eager decode without a mesh, from the same parameters and prompts.
     (b) The same model in bf16 (``wgmma_tma``) and in f32: prefill of 4 x
     1024 tokens and 4 teacher-forced decode steps, once on the kernel path
     and once with every attention forced onto ``blocked_attention`` (the
@@ -1278,10 +1309,13 @@ def phase_lm(fa) -> dict:
     counts = flash_counts(fa)
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
+    replay_ms = (res["decode_s"] - res["decode_setup_s"]) / 30 * 1e3
     print(f"[11a serve qwen3-4b f32 B=4 prompt 1024 gen 32] {nvidia_smi()}: prefill "
           f"{res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s (31 steps, "
-          f"{res['decode_s'] / 31 * 1e3:.2f} ms/step), peak allocated {peak / 2**30:.3f} GiB "
-          f"(held before {base / 2**30:.3f}); flash {counts}", flush=True)
+          f"{res['decode_s'] / 31 * 1e3:.2f} ms/step; of it the first step and the graph's "
+          f"capture {res['decode_setup_s']:.4f} s, then {replay_ms:.2f} ms a replayed step), "
+          f"peak allocated {peak / 2**30:.3f} GiB (held before {base / 2**30:.3f}); "
+          f"flash {counts}", flush=True)
     check(counts["launches"] == cfg.n_layers and counts["routes"] == {"mma_3xtf32": 36},
           f"phase 11a: flash launches {counts}, expected 36 on mma_3xtf32")
     check(counts["plain"] == 0, f"phase 11a: plain flash ran {counts}")
@@ -1289,9 +1323,19 @@ def phase_lm(fa) -> dict:
           f"phase 11a: tokens {toks.shape}")
     out["serve_qwen3_4b_f32"] = {
         "batch": 4, "prompt": 1024, "gen": 32, "prefill_s": res["prefill_s"],
-        "decode_s": res["decode_s"], "peak_allocated_bytes": peak, "held_before_bytes": base,
+        "decode_s": res["decode_s"], "decode_setup_s": res["decode_setup_s"],
+        "decode_replay_ms": replay_ms, "peak_allocated_bytes": peak, "held_before_bytes": base,
         "flash": counts, "card": nvidia_smi()}
     del res
+    # the server's decode (a CUDA graph on the 1x1 mesh) against eager decode
+    # without a mesh, from the same parameters and prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = eager_serve_tokens(cfg, 4, 1024, 32, cuda)
+    same = bool(np.array_equal(toks, want))
+    print(f"[11a] tokens == eager decode without a mesh: {same}", flush=True)
+    check(same, "phase 11a: the server's tokens differ from eager decode without a mesh")
+    out["serve_qwen3_4b_f32"]["tokens_equal_eager"] = same
     route_launches = dict.fromkeys(fa.ROUTES, 0)
     route_launches["mma_3xtf32"] += counts["launches"]
 
@@ -1370,6 +1414,8 @@ def phase_lm(fa) -> dict:
             del cache
             rec["profile"] = prof_rec
         out["kernel_vs_blocked"][name] = rec
+        if dtype == torch.float32:  # phase 13 (b) prefills the same under the 1x1 mesh
+            out["f32_prefill"] = (tokens[:, :t0], runs["kernel"][0], runs["kernel"][2])
         del params, runs
 
     # (c) every architecture, reduced, f32
@@ -1546,8 +1592,9 @@ def phase_train(fa) -> dict:
     run (under grad the models take ``blocked_attention``, as the
     reference trains through XLA's); step walls, tokens/s, model flop/s
     (``launch/roofline.model_flops``) against 67 TFLOP/s, peak
-    ``max_memory_allocated``.  Then one more step of the same program
-    under ``torch.profiler``: busy share and device time by group.
+    ``max_memory_allocated``; the launcher runs on its 1x1 mesh (DTensor
+    parameters and batch).  Then one more step of the same program on the
+    1x1 mesh under ``torch.profiler``: busy share and device time by group.
     (b) Each of the ten ``cfg.reduced()`` archs: one step (microbatches 2)
     on cuda:0 and on the CPU from the same seeded weights and tokens: loss
     within 1e-5 relative, each gradient leaf within 1e-4 of its max |g|,
@@ -1568,8 +1615,10 @@ def phase_train(fa) -> dict:
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataConfig, SyntheticTokens, place, with_extras
+    from repro_torch.distributed.constraints import active_mesh
     from repro_torch.kernels import _build
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import smoke_mesh
     from repro_torch.launch.roofline import model_flops
     from repro_torch.models import init_params
     from repro_torch.models.common import tree_items
@@ -1631,21 +1680,22 @@ def phase_train(fa) -> dict:
     torch.cuda.empty_cache()
     part("a_launcher")
 
-    # where a step's time goes: one more step of the launcher's program,
-    # profiled (the process is warm from the launcher's steps)
-    params, opt = init_train_state(cfg, 0, device=cuda)
+    # where a step's time goes: one more step of the launcher's program on
+    # its 1x1 mesh, profiled (the process is warm from the launcher's steps)
     step_fn = build_train_step(cfg, OptConfig(warmup_steps=5, total_steps=10), microbatches=2,
                                attn_block=512)
     data = SyntheticTokens(DataConfig(cfg.vocab_size, 4096, 2))
-    batch = place(with_extras(data.batch_at(0), cfg), cuda)
-    fa.reset_counters()
-    torch.cuda.synchronize()
-    with train_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_start = time.perf_counter()
-        params, opt, stats = step_fn(params, opt, batch)
-        loss = float(stats["loss"])
+    with smoke_mesh(cuda) as mesh:
+        params, opt, batch = mesh_train_state(cfg, data.batch_at(0), mesh)
+        fa.reset_counters()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
+        with active_mesh(mesh), train_ranges(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_start = time.perf_counter()
+            params, opt, stats = step_fn(params, opt, batch)
+            loss = float(stats["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
     groups, meta = train_time_by_group(prof)
     busy = meta["device_busy_s"]
     prof_counts = flash_counts(fa)
@@ -1755,6 +1805,195 @@ def phase_train(fa) -> dict:
     out["restart"] = {"losses": full, "resumed": resumed, "resume_rel": resume_err}
     part("c_restart")
     print(f"[12] seconds by part: {part_s}", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 13: the production meshes
+# ----------------------------------------------------------------------
+MESH_LAYERS = 2  # phase 13 (a): qwen3-4b's depth cut to 2, its widths whole
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", False), ("qwen2.5-3b", "train_4k", True))
+
+
+def mesh_train_state(cfg, host_batch, mesh, device=None):
+    """``init_params(cfg, 0)`` on the card (``init_train_state``'s), placed on
+    ``mesh`` by ``param_pspecs``, the optimizer state made from them, and
+    the host batch placed by ``batch_pspecs`` (the launcher's placement)."""
+    from repro_torch.data import place, with_extras
+    from repro_torch.distributed.sharding import batch_pspecs, distribute, param_pspecs
+    from repro_torch.models import init_params
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import init_opt_state
+
+    device = device or torch.device("cuda", 0)
+    params = init_params(cfg, 0, device=device)
+    params = ParamTree(distribute(params.to_dict(), param_pspecs(cfg, params), mesh))
+    b, t = host_batch["tokens"].shape
+    specs = batch_pspecs(cfg, ShapeCell("train_cut", t, b, "train"), mesh)
+    return params, init_opt_state(params), place(with_extras(host_batch, cfg), device, specs, mesh)
+
+
+def start_dryruns() -> list:
+    """Each of ``DRYRUN_CELLS`` in a subprocess of its own (its fake group
+    of 256 or 512 ranks must be the default group; fake CUDA tensors),
+    all started together: [(cell, process, start)]."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape]
+        procs.append(((arch, shape, multi_pod),
+                      subprocess.Popen(cmd + (["--multi-pod"] if multi_pod else []),
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                       env=env),
+                      time.perf_counter()))
+    return procs
+
+
+def phase_mesh(fa, f32_prefill, dryruns) -> dict:
+    """13. The production meshes (``distributed.sharding``, ``launch.mesh``,
+    ``launch.hlocost``, ``launch.dryrun``).
+
+    (a) qwen3-4b at its published widths, depth cut to ``MESH_LAYERS``,
+    2 x 4096 tokens in 2 microbatches, f32: one ``build_train_step`` step
+    without a mesh, then one from the same seed and tokens on
+    ``make_smoke_mesh(cuda:0)`` (DTensor parameters, batch and optimizer
+    state): the loss and every parameter after the step equal bit for bit
+    (else the first leaf that differs is named).  (b) Phase 11's f32
+    qwen3-4b prefill (4 x 1024 tokens, all 36 layers; its parameters
+    drawn again from phase 11's seed on cuda:0) on the 1x1 mesh, the
+    parameters and tokens placed by ``sharding.distribute`` (each rank's
+    shard made a DTensor with ``DTensor.from_local``: no copy): the logits equal phase 11's bit for bit; flash counters set to
+    0 just before, read just after: 36 launches on each rank's heads
+    (``local_map``), no plain run.  (c) The dry run of qwen3-4b train_4k
+    on 16x16 and qwen2.5-3b train_4k on 2x16x16, started before (a), each
+    in its subprocess: their JSON lines and host seconds; each must be
+    ``ok`` with the reference test's bounds (peak < 16e9 B a rank,
+    ``model_hlo_ratio`` > 0.2)."""
+    import dataclasses
+    import gc
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticTokens, place, with_extras
+    from repro_torch.distributed.constraints import active_mesh
+    from repro_torch.distributed.sharding import (
+        batch_pspecs, distribute, param_pspecs, place_tensor)
+    from repro_torch.launch.mesh import smoke_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models import init_params
+    from repro_torch.models.common import ParamTree, tree_items
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import OptConfig, build_train_step, init_train_state
+
+    cuda = torch.device("cuda", 0)
+    out = {}
+    try:
+        # (a) one train step without a mesh and on the 1x1 mesh
+        cfg = dataclasses.replace(ARCHS["qwen3-4b"], n_layers=MESH_LAYERS)
+        host_batch = SyntheticTokens(DataConfig(cfg.vocab_size, 4096, 2)).batch_at(0)
+        step = build_train_step(cfg, OptConfig(warmup_steps=5, total_steps=10), microbatches=2,
+                                attn_block=512)
+
+        def one_step(mesh):
+            if mesh is None:
+                params, opt = init_train_state(cfg, 0, device=cuda)
+                batch = place(with_extras(host_batch, cfg), cuda)
+            else:
+                params, opt, batch = mesh_train_state(cfg, host_batch, mesh)
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            with active_mesh(mesh):
+                params, opt, stats = step(params, opt, batch)
+                loss = stats["loss"]
+                loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            leaves = [(path, p.to_local() if isinstance(p, DTensor) else p)
+                      for path, p in tree_items(params)]
+            return loss, leaves, wall
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_a, plain, wall_plain = one_step(None)
+        with smoke_mesh(cuda) as mesh:
+            loss_m, meshed, wall_mesh = one_step(mesh)
+        differ = [(".".join(path), float((a.float() - b.float()).abs().max()))
+                  for (path, a), (_, b) in zip(plain, meshed) if not torch.equal(a, b)]
+        print(f"[13a qwen3-4b train f32, {MESH_LAYERS} layers, 2 x 4096 tokens] loss without a "
+              f"mesh {loss_a!r}, on the 1x1 mesh {loss_m!r}; step wall {wall_plain:.4f} s "
+              f"without, {wall_mesh:.4f} s on the mesh (first step of each); {len(plain)} "
+              f"parameters, {len(differ)} differ"
+              + (f": first {differ[0][0]} by {differ[0][1]:.3e}" if differ else ""), flush=True)
+        check(loss_a == loss_m, f"phase 13a: loss {loss_a!r} != {loss_m!r} on the mesh")
+        check(not differ, f"phase 13a: parameters differ on the mesh, first {differ[:1]}")
+        out["train_step"] = {"layers": MESH_LAYERS, "loss": loss_a, "wall_s": wall_plain,
+                             "wall_mesh_s": wall_mesh, "leaves": len(plain)}
+        del plain, meshed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) phase 11's f32 prefill on the 1x1 mesh
+        tokens, want, wall11 = f32_prefill
+        cfg = ARCHS["qwen3-4b"]
+        params = init_params(cfg, torch.Generator(cuda).manual_seed(0), dtype=torch.float32,
+                             device=cuda)
+        with smoke_mesh(cuda) as mesh:
+            # DTensor.from_local of each rank's shard: here the whole tensor
+            dparams = ParamTree(distribute(params.to_dict(), param_pspecs(cfg, params), mesh))
+            same_memory = all(d.to_local().data_ptr() == p.data_ptr() for (_, d), (_, p)
+                              in zip(tree_items(dparams), tree_items(params)))
+            cell = ShapeCell("prefill_cut", tokens.shape[1], tokens.shape[0], "prefill")
+            dtokens = place_tensor(tokens, batch_pspecs(cfg, cell, mesh)["tokens"], mesh)
+            fa.reset_counters()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            with active_mesh(mesh):
+                logits, cache = dec.prefill(cfg, dparams, dtokens, remat=False,
+                                            cache_dtype=torch.float32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            counts = flash_counts(fa)
+            got = logits.to_local()
+        same = bool(torch.equal(got, want))
+        print(f"[13b qwen3-4b prefill f32 B=4 T=1024 on the 1x1 mesh] {nvidia_smi()}: wall "
+              f"{wall:.4f} s (phase 11's kernel path {wall11:.4f} s); logits == phase 11's bit "
+              f"for bit: {same} (max |diff| {float((got - want).abs().max()):.3e}); parameters "
+              f"made DTensors without a copy: {same_memory}; flash {counts}", flush=True)
+        check(same, "phase 13b: the prefill's logits on the mesh differ from phase 11's")
+        check(same_memory, "phase 13b: DTensor.from_local copied a parameter")
+        check(counts["launches"] == cfg.n_layers and counts["plain"] == 0,
+              f"phase 13b: flash {counts}, expected {cfg.n_layers} launches and no plain run")
+        out["prefill"] = {"wall_s": wall, "phase11_wall_s": wall11, "flash": counts,
+                          "card": nvidia_smi()}
+        del params, dparams, logits, cache, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the dry-run cells
+        out["dryrun"] = []
+        for cell, proc, t_start in dryruns:
+            stdout, stderr = proc.communicate(timeout=900)
+            host_s = time.perf_counter() - t_start
+            lines = [line for line in stdout.splitlines() if line.startswith("{")]
+            check(proc.returncode == 0 and lines,
+                  f"phase 13c {cell}: exit {proc.returncode}: {stderr[-2000:]}")
+            rec = json.loads(lines[-1])
+            print(f"[13c dry run {cell[0]} {cell[1]} {'2x16x16' if cell[2] else '16x16'}] host "
+                  f"{host_s:.1f} s (start to exit, the cells in parallel): {lines[-1]}",
+                  flush=True)
+            check(rec["status"] == "ok", f"phase 13c {cell}: {rec.get('error', rec)}")
+            check(rec["chips"] == (512 if cell[2] else 256), f"phase 13c {cell}: chips")
+            check(rec["peak_bytes"] < 16e9 and rec["model_hlo_ratio"] > 0.2,
+                  f"phase 13c {cell}: peak {rec['peak_bytes']}, ratio {rec['model_hlo_ratio']}")
+            out["dryrun"].append({**rec, "host_s": host_s})
+    finally:
+        for _, proc, _ in dryruns:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return out
 
 
@@ -1877,8 +2116,12 @@ def main() -> int:
     stamp("11")
     e2e11 = phase_lm(flash)
     launches11 = e2e11.pop("flash_route_launches")
+    f32_prefill = e2e11.pop("f32_prefill")
     stamp("12")
     e2e12 = phase_train(flash)
+    stamp("13")
+    e2e13 = phase_mesh(flash, f32_prefill, start_dryruns())
+    launches13 = e2e13["prefill"]["flash"]["routes"]
     stamp("end")
 
     replaces = {
@@ -1912,12 +2155,14 @@ def main() -> int:
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:77",
             "path": "phase 6 (the kernel entry point) + phase 11 (the LM path: qwen3-4b served "
-                    "through repro_torch.launch.serve, its f32 and bf16 prefills, every reduced "
-                    "arch's forward, loss and prefill)",
+                    "through repro_torch.launch.serve on its 1x1 mesh, its f32 and bf16 "
+                    "prefills, every reduced arch's forward, loss and prefill) + phase 13 (the "
+                    "f32 prefill on the 1x1 mesh, each rank's heads through local_map)",
             **rec["flash_attention"][route],
-            "launches": rec["flash_attention"][route]["launches"] + launches11[route],
+            "launches": rec["flash_attention"][route]["launches"] + launches11[route]
+                        + launches13.get(route, 0),
             "launches_by_phase": {"6": rec["flash_attention"][route]["launches"],
-                                  "11": launches11[route]},
+                                  "11": launches11[route], "13": launches13.get(route, 0)},
         }
         for route in flash.ROUTES
     ]
@@ -1934,6 +2179,7 @@ def main() -> int:
             **e2e10,
             "lm": e2e11,
             "train": e2e12,
+            "mesh": e2e13,
         },
         "phase_start_s": phase_s,
     }), flush=True)

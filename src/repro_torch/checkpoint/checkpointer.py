@@ -17,6 +17,13 @@ bfloat16: a bf16 leaf is stored as f32 (exact) and the manifest's
 train step updates parameters and optimizer state in place, so a copy
 taken later would record a later step) and runs the serialization on a
 worker thread.
+
+Under a mesh the leaves are DTensors.  ``save`` is then called by every
+rank: each leaf is gathered whole (``full_tensor``, one leaf at a time, so
+a card holds at most one whole leaf beyond its shards) and copied to the
+host, and rank 0 alone writes.  ``restore`` with a DTensor example places
+each stored array as the example leaf is placed, every rank keeping its
+own shard.
 """
 from __future__ import annotations
 
@@ -28,15 +35,21 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import from_whole
 from repro_torch.models.common import ParamTree, tree_items
 from repro_torch.models.transformer import resolve_device
 
 def _host_copy(t) -> np.ndarray:
-    """A host copy that no later in-place update of ``t`` can reach."""
+    """A host copy that no later in-place update of ``t`` can reach (of a
+    DTensor: of the whole tensor)."""
     if not isinstance(t, torch.Tensor):
         return np.array(t)
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy()  # a new tensor: exact in f32
     return t.to("cpu", copy=True).numpy()
@@ -71,12 +84,17 @@ def _unflatten(example, flat: Dict[str, np.ndarray], dtypes: Dict[str, str], dev
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(arr.shape) != want:
             raise ValueError(f"checkpoint {key}: shape {arr.shape}, expected {want}")
+        t = torch.from_numpy(arr)  # the stored dtype; bf16 was stored as f32
+        dtype = torch.bfloat16 if dtypes.get(key) == "bfloat16" else None
+        if isinstance(leaf, DTensor):  # placed as the example, each rank its own shard
+            dev = device or leaf.to_local().device
+            out[k] = from_whole(t.to(dtype=dtype), leaf.device_mesh, leaf.placements, dev)
+            continue
         dev = device
         if dev is None:
             dev = getattr(leaf, "device", None)
             dev = resolve_device(None if dev is None or dev.type == "meta" else dev)
-        t = torch.from_numpy(arr)  # the stored dtype; bf16 was stored as f32
-        out[k] = t.to(device=dev, dtype=torch.bfloat16 if dtypes.get(key) == "bfloat16" else None)
+        out[k] = t.to(device=dev, dtype=dtype)
     return ParamTree(out) if isinstance(example, ParamTree) else out
 
 
@@ -91,6 +109,8 @@ class Checkpointer:
     def save(self, step: int, state, async_save: bool = False) -> None:
         # host copies first, synchronously: the next step updates in place
         flat, dtypes = _flatten(state)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # rank 0 writes what every rank gathered
         if async_save:
             self.wait()
             self._thread = threading.Thread(

@@ -9,8 +9,8 @@ alone, which is what checkpoint-restart resumption keys off.
 
 ``DataConfig``, ``SyntheticTokens`` and ``with_extras`` are the reference's
 numpy code unchanged, so every ``(seed, step)`` gives the reference's
-tokens bit for bit.  ``place(batch, device)`` takes the place of the
-reference's ``place(batch, shardings)``: no mesh (ROADMAP item 10c).
+tokens bit for bit.  ``place(batch, device, shardings, mesh)`` is the
+reference's ``place(batch, shardings)``: DTensors on the mesh.
 """
 from __future__ import annotations
 
@@ -82,9 +82,17 @@ def with_extras(batch: Dict[str, np.ndarray], cfg_model, rng_seed: int = 0):
     return out
 
 
-def place(batch: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+def place(batch: Dict[str, np.ndarray], device=None, shardings=None, mesh=None
+          ) -> Dict[str, torch.Tensor]:
     """Host batch → tensors on ``device`` (the first CUDA device by default;
     raises without one), each in its array's dtype: int32 tokens, f32
-    patches / frames."""
+    patches / frames.  With ``shardings`` ({key: spec}, e.g.
+    ``sharding.batch_pspecs``) and ``mesh``, each becomes a DTensor placed
+    by its spec (the reference's ``place(batch, shardings)``)."""
     device = resolve_device(device)
-    return {k: torch.tensor(v, device=device) for k, v in batch.items()}
+    out = {k: torch.tensor(v, device=device) for k, v in batch.items()}
+    if shardings is None:
+        return out
+    from repro_torch.distributed.sharding import to_spec
+
+    return {k: to_spec(v, shardings[k], mesh) for k, v in out.items()}

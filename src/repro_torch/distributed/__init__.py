@@ -6,6 +6,14 @@ from .constraints import (
     shard_model,
     shard_over_dp,
 )
+from .sharding import (
+    activation_pspec,
+    batch_pspecs,
+    cache_pspecs,
+    dp_axes,
+    named,
+    param_pspecs,
+)
 from .device_groups import (
     BuddyAllocator,
     DeviceGroup,

@@ -1,9 +1,9 @@
-"""Launch-side accounting (port of ``repro.launch``, in part).
+"""Launch-side accounting and entry points (port of ``repro.launch``).
 
-roofline     the analytic model-flop counters the workload zoo reads
-serve        the serving launcher on one card (prefill + greedy decode)
-train        the training launcher on one device
-
-The meshes, the dry run and the HLO cost walker are ROADMAP queue 1
-items 10 and 11.
+mesh         the production meshes (16×16, 2×16×16) and the 1×1 smoke mesh
+roofline     the analytic model-flop counters and the three roofline terms
+hlocost      the per-rank cost counter (flops, bytes, collectives, memory)
+dryrun       the dry run of a cell on a fake group of 256 or 512 ranks
+serve        the serving launcher (prefill + greedy decode) on a mesh
+train        the training launcher on a mesh
 """

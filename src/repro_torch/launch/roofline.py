@@ -1,20 +1,31 @@
-"""Analytic MODEL_FLOPS per cell (a part of ``repro.launch.roofline``).
+"""Roofline accounting (port of ``repro.launch.roofline``): analytic
+MODEL_FLOPS per cell and the dry run's three roofline terms.
 
 MODEL_FLOPS (useful flops, paper-standard formulas):
   train    6 · N_active · tokens            (fwd 2× + bwd 4×)
   prefill  2 · N_active · tokens  (+ attention O(T²) term)
   decode   2 · N_active · batch   (+ attention O(S) KV term per step)
 
-Only the counters :func:`repro_torch.workloads.zoo.pipeline` reads are
-copied: ``_attn_flops_train``, ``model_flops`` and ``d_model``.  The
-reference's peak rates and its ``terms`` (the dry run's three roofline
-terms) are the reference's accelerator's figures and serve the dry run,
-ROADMAP item 11; the port's rates are the measured ``h100`` row of
-:data:`repro_torch.workloads.costs.CALIBRATIONS`.
+:func:`terms` turns a rank's counted flops, bytes and collective bytes
+(:mod:`repro_torch.launch.hlocost`) into seconds at the card's rates: the
+compute and memory rates are the measured ``h100`` row of
+:data:`repro_torch.workloads.costs.CALIBRATIONS` (dense bf16 matmul and a
+device copy, ``chip_smoke.py`` phase 10); the collective rate is a data-sheet
+figure, since one card measures no link: NVLink 4 of the H100 SXM, 450 GB/s
+in each direction.  The reference's TPU rates do not carry over.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 from repro_torch.models.config import ModelConfig, ShapeCell
+from repro_torch.workloads.costs import CALIBRATIONS
+
+PEAK_FLOPS = CALIBRATIONS["h100"].flop_rate  # measured bf16 matmul rate, flop/s
+HBM_BW = CALIBRATIONS["h100"].mem_bw  # measured device-copy bandwidth, B/s
+NVLINK_BW = 450e9  # H100 SXM data sheet: NVLink 4, 450 GB/s per direction
+
+
 def _attn_flops_train(cfg: ModelConfig, tokens_per_seq: int, n_seqs: int) -> float:
     """Exact causal attention flops (qkᵀ + pv), true head count, fwd only."""
     if cfg.family == "ssm":
@@ -76,3 +87,12 @@ def model_flops(cfg: ModelConfig, shape: ShapeCell) -> float:
 
 def d_model(cfg: ModelConfig) -> int:
     return cfg.d_model
+
+
+def terms(hlo_flops: float, hlo_bytes: float, coll_bytes: float) -> Dict[str, float]:
+    """Per-rank seconds of the three roofline terms."""
+    return {
+        "t_compute": hlo_flops / PEAK_FLOPS,
+        "t_memory": hlo_bytes / HBM_BW,
+        "t_collective": coll_bytes / NVLINK_BW,
+    }

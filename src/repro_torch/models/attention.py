@@ -25,11 +25,17 @@ full-sequence path; decode groups the query heads instead.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.constraints import constrain, mesh_axis_size, on_shards
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.obs.scopes import cost_scope
 
 from .common import Draw, Params, apply_rope, dense_init, rmsnorm
 from .config import ModelConfig
@@ -70,9 +76,9 @@ def _project_qkv(
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.padded_n_heads, dh)
-    k = k.reshape(b, t, cfg.n_kv_heads, dh)
-    v = v.reshape(b, t, cfg.n_kv_heads, dh)
+    q = split_heads(q, cfg.padded_n_heads, dh)
+    k = split_heads(k, cfg.n_kv_heads, dh)
+    v = split_heads(v, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -80,6 +86,16 @@ def _project_qkv(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def split_heads(x: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """(B, T, h·dh) → (B, T, h, dh).  Under a mesh whose "model" axis does
+    not divide h, the column-sharded projection is first gathered on that
+    axis (a shard would cut a head; XLA reshards there, DTensor refuses the
+    reshape)."""
+    if h % mesh_axis_size("model"):
+        x = constrain(x, ("pod", "data"), None, None)
+    return x.reshape(x.shape[0], x.shape[1], h, dh)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -146,12 +162,14 @@ def blocked_attention(
 
 
 def takes_flash(q, k, v, window=None, q_offset: int = 0, kv_len=None) -> bool:
-    """Whether :func:`attend` runs the flash kernel: CUDA tensors, no
-    window, no ``q_offset``, no ``kv_len``, q and k (pre-repeated) of one
-    shape, and no input that requires grad.  A pure function of the
-    arguments: no fallback catches a failing kernel."""
+    """Whether :func:`attend` runs the flash kernel: CUDA tensors (a DTensor
+    counts by its shards, a fake tensor of a dry run does not: it has no
+    memory to launch on), no window, no ``q_offset``, no ``kv_len``, q and
+    k (pre-repeated) of one shape, and no input that requires grad.  A pure
+    function of the arguments: no fallback catches a failing kernel."""
     return (
         q.device.type == "cuda"
+        and not is_fake(q)
         and window is None
         and q_offset == 0
         and kv_len is None
@@ -173,14 +191,26 @@ def attend(
     repeated to H, then the flash kernel or :func:`blocked_attention` as
     :func:`takes_flash` says.  The kernel's tiles are its own: it gets
     blocks of T (the wrapper's rule that they divide T then holds for any
-    T)."""
-    n_rep = q.shape[2] // k.shape[2]
-    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-    if takes_flash(q, k, v, window=window, kv_len=kv_len):
-        t = q.shape[1]
-        return flash_attention(q, k, v, causal=causal, block_q=t, block_kv=t)
-    return blocked_attention(q, k, v, causal=causal, window=window, block=block,
-                             kv_len=kv_len)
+    T).  Counted as the ``"attention"`` scope (``launch.hlocost``).
+
+    Under a mesh q, k and v are held with the batch on the DP axes and the
+    heads on "model" (where those divide them), and each rank attends its
+    own heads on its own shards (``on_shards``): the kernel takes a
+    shard's memory, not a DTensor's, and blocked attention's per-head ops
+    need no sharding rule of DTensor's."""
+    with cost_scope("attention"):
+        n_rep = q.shape[2] // k.shape[2]
+        k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+        if takes_flash(q, k, v, window=window, kv_len=kv_len):
+            t = q.shape[1]
+            fn = functools.partial(flash_attention, causal=causal, block_q=t, block_kv=t)
+        else:
+            if isinstance(kv_len, DTensor):
+                kv_len = kv_len.full_tensor()
+            fn = functools.partial(blocked_attention, causal=causal, window=window,
+                                   block=block, kv_len=kv_len)
+        bh = (0, 2)
+        return on_shards(fn, (q, k, v), (bh, bh, bh), (bh,))
 
 
 def attention_forward(
@@ -231,20 +261,102 @@ def decode_attention(
     q, k, v = _project_qkv(x, p, cfg, position.reshape(1) if position.ndim == 0 else position)
     slot = (position if write_slot is None else write_slot).reshape(1).long()
     cache_k, cache_v = cache["k"], cache["v"]
-    cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
-    kv_pos = torch.arange(cache_k.shape[1], device=x.device)
-    valid = kv_pos <= position
-    if window is not None and write_slot is None:
-        valid = valid & (kv_pos > position - window)
+    write_row(cache_k, slot, k)
+    write_row(cache_v, slot, v)
+    win = window if write_slot is None else None
     n_rep = cfg.padded_n_heads // cfg.n_kv_heads
-    qg = (q * dh**-0.5).reshape(b, 1, cfg.n_kv_heads, n_rep, dh)
-    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.float())
-    logits = torch.where(valid, logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkrqs,bskd->bqkrd", w.to(cache_v.dtype).float(), cache_v.float())
+    if isinstance(cache_k, DTensor):
+        o = _decode_on_shards(q, cache_k, cache_v, position, win, n_rep)
+    else:
+        o = _grouped_attention(q, cache_k, cache_v, position, win, n_rep, 0, None)
     out = o.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
     return out, {"k": cache_k, "v": cache_v}
+
+
+def _grouped_attention(q, cache_k, cache_v, position, window, n_rep: int, start: int, group):
+    """One query (B, 1, H, Dh) over a cache (B, S, Hkv, Dh) whose slots
+    are positions ``start`` … ``start + S − 1``, the heads grouped over
+    their KV head: (B, 1, H, Dh) in f32.  With ``group`` the cache is this
+    rank's part of the sequence, and the softmax's max and sums and the
+    output are combined over the group (flash-decoding)."""
+    b, dh = q.shape[0], q.shape[-1]
+    kv_pos = start + torch.arange(cache_k.shape[1], device=q.device)
+    valid = kv_pos <= position
+    if window is not None:
+        valid = valid & (kv_pos > position - window)
+    qg = (q * dh**-0.5).reshape(b, 1, cache_k.shape[2], n_rep, dh)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), cache_k.float())
+    logits = torch.where(valid, logits, NEG_INF)
+    if group is None:
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bkrqs,bskd->bqkrd", w.to(cache_v.dtype).float(), cache_v.float())
+    else:
+        import torch.distributed._functional_collectives as funcol
+
+        m = funcol.wait_tensor(funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group))
+        e = torch.exp(logits - m)
+        den = funcol.wait_tensor(funcol.all_reduce(e.sum(-1, keepdim=True), "sum", group))
+        o = torch.einsum("bkrqs,bskd->bqkrd", (e / den).to(cache_v.dtype).float(),
+                         cache_v.float())
+        o = funcol.wait_tensor(funcol.all_reduce(o, "sum", group))
+    return o.reshape(b, 1, -1, dh)
+
+
+def _decode_on_shards(q, cache_k, cache_v, position, window, n_rep: int):
+    """:func:`_grouped_attention` on each rank's shards of a DTensor cache:
+    the query held as the cache is on its batch and heads; a cache split on
+    its sequence (``cache_pspecs``' policy for kv_heads < TP) combines the
+    softmax over the ranks that split it.  DTensor has no rule for the
+    grouped heads' reshape in every torch release, and would gather the
+    sequence for the softmax."""
+    mesh, place = cache_k.device_mesh, cache_k.placements
+    q_place = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in place)
+    if tuple(q.placements) != q_place:
+        q = q.redistribute(mesh, q_place)
+    if isinstance(position, DTensor):
+        position = position.full_tensor()
+    seq_dims = [i for i, p in enumerate(place) if p == Shard(1)]
+    group = mesh.get_group(seq_dims[0]) if seq_dims else None
+    start = shard_start(cache_k.shape[1], mesh, place, 1)
+    fn = functools.partial(_grouped_attention, position=position, window=window, n_rep=n_rep,
+                           start=start, group=group)
+    return local_map(fn, out_placements=list(q_place), in_placements=(q_place, place, place),
+                     device_mesh=mesh)(q, cache_k, cache_v)
+
+
+def write_row(cache: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> None:
+    """``cache[:, slot] = row`` in place: cache (B, S, H, Dh), row (B, 1, H,
+    Dh), slot a 1-element index.  Under a mesh the cache is a DTensor, and
+    DTensor has no sharding strategy for ``index_copy_`` in every torch
+    release: the row, laid out as the cache but whole on the sequence, is
+    written into each rank's own shard, by the rank whose sequence range
+    holds the slot (the others write their own rows back: no host sync)."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, slot, row.to(cache.dtype))
+        return
+    mesh, place = cache.device_mesh, cache.placements
+    whole = tuple(Replicate() if p == Shard(1) else p for p in place)
+    local_row = row.to(cache.dtype).redistribute(mesh, whole).to_local()
+    if isinstance(slot, DTensor):
+        slot = slot.full_tensor()
+    local = cache.to_local()
+    start = shard_start(cache.shape[1], mesh, place, 1)
+    idx = (slot - start).clamp(0, local.shape[1] - 1)
+    own = (slot >= start) & (slot < start + local.shape[1])
+    local.index_copy_(1, idx, torch.where(own, local_row, local.index_select(1, idx)))
+
+
+def shard_start(size: int, mesh, place, dim: int) -> int:
+    """Where this rank's shard of a tensor dim of ``size`` begins (DTensor's
+    ``Shard`` split: chunks of ceil(size / n), mesh dims in order)."""
+    coord = mesh.get_coordinate()
+    start = 0
+    for i, p in enumerate(place):
+        if p == Shard(dim):
+            chunk = -(-size // mesh.size(i))
+            start += coord[i] * chunk
+            size = chunk
+    return start
 
 
 # ----------------------------------------------------------------------
@@ -263,7 +375,7 @@ def cross_attention(
 ) -> torch.Tensor:
     """x: (B, Tq, D); memory_kv: precomputed (K, V) of the encoder output."""
     b, tq, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, tq, cfg.padded_n_heads, cfg.resolved_head_dim)
+    q = split_heads(x @ p["wq"], cfg.padded_n_heads, cfg.resolved_head_dim)
     k, v = memory_kv
     o = attend(q, k, v, causal=False, kv_len=kv_len)
     return o.reshape(b, tq, -1) @ p["wo"]
@@ -274,6 +386,6 @@ def encode_memory_kv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, t, _ = enc_out.shape
     dh = cfg.resolved_head_dim
-    k = (enc_out @ p["wk"]).reshape(b, t, cfg.n_kv_heads, dh)
-    v = (enc_out @ p["wv"]).reshape(b, t, cfg.n_kv_heads, dh)
+    k = split_heads(enc_out @ p["wk"], cfg.n_kv_heads, dh)
+    v = split_heads(enc_out @ p["wv"], cfg.n_kv_heads, dh)
     return k, v

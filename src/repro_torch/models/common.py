@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.constraints import constrain, on_shards
+
 Params = Mapping[str, Any]  # a dict of tensors / subtrees, or a ParamTree node
 
 
@@ -87,6 +89,13 @@ def tree_index(tree: Params, i) -> Dict[str, Any]:
     axis (views; what the reference's ``lax.scan`` hands each step)."""
     return {k: tree_index(v, i) if isinstance(v, Mapping) else v[i]
             for k, v in tree.items()}
+
+
+def tree_at(tree: Params, path) -> Any:
+    """The node of ``tree`` at ``path`` (a sequence of keys)."""
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def tree_items(tree: Params, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -168,6 +177,12 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: flo
 
 
 def apply_norm(x: torch.Tensor, p: Params, kind: str, eps: float) -> torch.Tensor:
+    """The pre-norm of a block.  Under a mesh its input, the residual
+    stream, is first held with the batch on the DP axes and the rest
+    replicated: a row-parallel projection leaves the stream a partial sum,
+    which is reduced here (Megatron's all-reduce; XLA chooses it, DTensor
+    would otherwise shard the sequence and gather the next weights)."""
+    x = constrain(x, ("pod", "data"))
     if kind == "layernorm":
         return layernorm(x, p["scale"], p["bias"], eps)
     return rmsnorm(x, p["scale"], eps)
@@ -231,12 +246,22 @@ def mlp_apply(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
 def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Mean token cross-entropy in fp32; labels < 0 are ignored."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = lse - ll
+    """Mean token cross-entropy in fp32; labels < 0 are ignored.
+
+    Under a mesh the positions are held on "model" with the vocabulary
+    whole (an all-to-all from the vocab-sharded head), and each rank takes
+    its positions' log-likelihoods itself (``on_shards``): DTensor has no
+    sharded rule for ``logsumexp``, and the gather's backward it runs makes
+    a zero tensor of the global shape on every rank."""
+    nll = on_shards(_nll, (logits.float(), labels), ((0, 1), (0, 1)), ((0, 1),))
     valid = (labels >= 0).float()
     if mask is not None:
         valid = valid * mask.float()
     return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def _nll(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(lf)[label] per position (f32 logits; labels < 0 read
+    class 0, masked by the caller)."""
+    lse = torch.logsumexp(lf, dim=-1)
+    return lse - lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]

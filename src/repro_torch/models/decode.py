@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.constraints import pad_end, shard_over_dp
+
 from . import attention as attn
 from . import mamba2 as m2
 from . import moe as moe_mod
@@ -83,6 +85,24 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
     raise ValueError(cfg.family)
 
 
+def pad_caches(cache: Cache, n: int, multiple: int = 1) -> Cache:
+    """The prefill's caches with room for ``n`` more tokens: zero slots on
+    the sequence axis of every attention cache (masked until written).
+    The self- and cross-attention caches (k, v, xk, xv) are padded further
+    to a multiple of ``multiple``: a cache sharded on its sequence (the
+    ``kv_heads < TP`` policy) then splits evenly over the ranks, as XLA pads
+    an uneven shard; their validity is positional, so the extra slots stay
+    masked.  The ring buffers of zamba2 (ak, av) take ``n`` only."""
+    out = dict(cache)
+    for key in ("k", "v", "xk", "xv", "ak", "av"):
+        if key in out:
+            s = out[key].shape[2] + n
+            if key in ("k", "v", "xk", "xv"):
+                s = -(-s // multiple) * multiple
+            out[key] = pad_end(out[key], 2, s - out[key].shape[2])
+    return out
+
+
 # ======================================================================
 # Decode step
 # ======================================================================
@@ -95,7 +115,10 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step.  Returns (logits (B, 1, Vp), the cache)."""
     pos = cache["pos"]
-    x = params["embed"][token]  # (B, 1, D)
+    # pinned to the DP axes as forward pins it: the reference leaves this to
+    # XLA, which propagates the batch-sharded cache's layout back to here;
+    # DTensor propagates forward only
+    x = shard_over_dp(params["embed"][token])  # (B, 1, D)
 
     if cfg.family in ("dense", "vlm", "moe"):
         x = _attn_decode_stack(cfg, params, cache, x, pos)
@@ -217,7 +240,7 @@ def prefill(
     """``remat`` is accepted for the reference's signature: prefill runs
     without autograd, where it changes nothing."""
     b, t = tokens.shape
-    x = params["embed"][tokens]
+    x = shard_over_dp(params["embed"][tokens])
     if cfg.family == "vlm":
         patches = extra["patches"] @ params["frontend_proj"]
         x = torch.cat([patches.to(x.dtype), x], dim=1)

@@ -19,10 +19,13 @@ The reference's ``lax.scan`` over chunks is a Python loop here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.constraints import on_shards
 
 
 def gla_chunked(
@@ -36,6 +39,15 @@ def gla_chunked(
     initial_state: Optional[torch.Tensor] = None,
     intra: str = "scan",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under a mesh each rank scans its own batch rows and heads
+    (``on_shards``)."""
+    fn = functools.partial(_gla_chunked, mode=mode, chunk=chunk, intra=intra)
+    bh = (0, 2)
+    return on_shards(fn, (q, k, v, g, u, initial_state),
+                             (bh, bh, bh, bh, (None, 0), (0, 1)), (bh, (0, 1)))
+
+
+def _gla_chunked(q, k, v, g, u, initial_state, mode, chunk, intra):
     b, t, h, dk = q.shape
     dv = v.shape[-1]
     l = min(chunk, t)
@@ -114,7 +126,14 @@ def gla_decode_step(
     u: Optional[torch.Tensor] = None,
     mode: str = "post",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token recurrence: q,k,g (B,H,dk), v (B,H,dv), state (B,H,dk,dv)."""
+    """One-token recurrence: q,k,g (B,H,dk), v (B,H,dv), state (B,H,dk,dv)
+    (under a mesh, each rank's own rows and heads)."""
+    bh = (0, 1)
+    return on_shards(functools.partial(_gla_decode_step, mode=mode),
+                             (q, k, v, g, state, u), (bh, bh, bh, bh, bh, (None, 0)), (bh, bh))
+
+
+def _gla_decode_step(q, k, v, g, state, u, mode):
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     st = state.float()
     st_new = st * torch.exp(gf)[..., None] + kf[..., None] * vf[..., None, :]

@@ -10,10 +10,13 @@ short causal conv (width 4) runs on the concatenated (x, B, C) projections.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.constraints import on_shards
 
 from .common import Draw, Params, dense_init, rmsnorm
 from .config import ModelConfig
@@ -48,7 +51,13 @@ def mamba2_params(draw: Draw, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along time: x (B, T, C), w (K, C)."""
+    """Depthwise causal conv along time: x (B, T, C), w (K, C) (under a
+    mesh, each rank's own batch rows, the channels whole)."""
+    return on_shards(_conv, (x, w, b), ((0, None), (None, None), (None, None)),
+                             ((0, None),))
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(k))
@@ -67,7 +76,13 @@ def _ssd_chunked(
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Head-shared SSD chunked scan: the (L, L) gram once per chunk, shared
-    across heads; decays enter as per-(b, l, h) scalars."""
+    across heads; decays enter as per-(b, l, h) scalars.  Under a mesh each
+    rank scans its own batch rows and heads (``on_shards``)."""
+    return on_shards(functools.partial(_ssd_scan, chunk=chunk), (q, k, v, g),
+                             ((0, None), (0, None), (0, 2), (0, 2)), ((0, 2), (0, 1)))
+
+
+def _ssd_scan(q, k, v, g, chunk):
     b, t, n = q.shape
     h, p_dim = v.shape[2], v.shape[3]
     l = min(chunk, t)

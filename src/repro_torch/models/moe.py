@@ -20,12 +20,13 @@ leave them to chance:
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.constraints import constrain, shard_over_dp
+from repro_torch.distributed.constraints import constrain, on_shards
 
 from .common import Draw, Params, dense_init
 from .config import ModelConfig, MoEConfig
@@ -99,10 +100,38 @@ def _dispatch_row(idx: torch.Tensor, gate: torch.Tensor, e: int, c: int
     return table[0], gates[0]
 
 
+def _gather(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The expert batch (B, E, C, D): each slot's token row of x (B, T, D)
+    by the dispatch table (B, E, C), zeros in empty slots."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[rows, table.clamp(min=0)] * (table >= 0)[..., None]
+
+
+def _combine(y: torch.Tensor, table: torch.Tensor, t: int) -> torch.Tensor:
+    """Scatter-combine y (B, E, C, D) back to (B, T, D) by the dispatch
+    table (B, E, C); empty slots add nothing."""
+    b, d = y.shape[0], y.shape[-1]
+    rows = torch.arange(b, device=y.device)[:, None, None]
+    out = torch.zeros(b * t, d, dtype=y.dtype, device=y.device)
+    out.index_add_(0, (rows * t + table.clamp(min=0)).reshape(-1),
+                   (y * (table >= 0)[..., None]).reshape(-1, d))
+    return out.reshape(b, t, d)
+
+
+def _expert_counts(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert (f32) of each row of idx (B, T, k): (B, E).
+    A sum of ones, exact: ``bincount`` reads its input's max on the host,
+    which a CUDA graph's capture (the server's decode) cannot do."""
+    flat = idx.reshape(idx.shape[0], -1)
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=idx.device)
+    return torch.zeros(flat.shape[0], e, dtype=torch.float32,
+                       device=idx.device).scatter_add_(1, flat, ones)
+
+
 def moe_apply(x: torch.Tensor, p: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) → (out, aux_loss)."""
     m = cfg.moe
-    b, t, d = x.shape
+    t = x.shape[1]
     e, k = m.n_experts, m.top_k
     c = _capacity(t, m)
     e_pad = cfg.padded_n_experts  # == e unless "ep" sharding pads
@@ -112,13 +141,15 @@ def moe_apply(x: torch.Tensor, p: Params, cfg: ModelConfig) -> Tuple[torch.Tenso
     top_p, top_i = _top_k(probs, k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    table, gates = _dispatch(top_i, top_p, e_pad, c)
+    # dispatch, gather and combine are row-local, and DTensor has no
+    # strategy for their index ops: each rank takes its own rows
+    rows = (0, None)
+    table, gates = on_shards(functools.partial(_dispatch, e=e_pad, c=c), (top_i, top_p),
+                             (rows, rows), (rows, rows))
     e_axis = "model" if cfg.moe_sharding == "ep" else None  # experts sharded under EP
     table = constrain(table, ("pod", "data"), e_axis)
     gates = constrain(gates, ("pod", "data"), e_axis)
-    rows = torch.arange(b, device=x.device)[:, None, None]
-    filled = table >= 0
-    xg = x[rows, table.clamp(min=0)] * filled[..., None]  # (B, E, C, D)
+    xg = on_shards(_gather, (x, table), (rows, rows), (rows,))  # (B, E, C, D)
     xg = constrain(xg, ("pod", "data"), e_axis)
 
     h = torch.einsum("becd,edf->becf", xg, p["w_gate"])
@@ -126,11 +157,7 @@ def moe_apply(x: torch.Tensor, p: Params, cfg: ModelConfig) -> Tuple[torch.Tenso
     y = torch.einsum("becf,efd->becd", F.silu(h) * u, p["w_down"])
     y = constrain(y, ("pod", "data"), e_axis) * gates[..., None].to(y.dtype)
 
-    # scatter-combine back to (B, T, D)
-    out = torch.zeros(b * t, d, dtype=y.dtype, device=x.device)
-    out.index_add_(0, (rows * t + table.clamp(min=0)).reshape(-1),
-                   (y * filled[..., None]).reshape(-1, d))
-    out = shard_over_dp(out.reshape(b, t, d))
+    out = on_shards(functools.partial(_combine, t=t), (y, table), (rows, rows), (rows,))
 
     if m.n_shared > 0:
         g = F.silu(x @ p["shared_gate"])
@@ -138,7 +165,7 @@ def moe_apply(x: torch.Tensor, p: Params, cfg: ModelConfig) -> Tuple[torch.Tenso
 
     # load-balancing aux loss (Switch): E · Σ_e f_e · P_e
     me = probs.mean(dim=(0, 1))  # mean router prob per expert
-    counts = torch.bincount(top_i.reshape(-1), minlength=e).float()
+    counts = on_shards(functools.partial(_expert_counts, e=e), (top_i,), (rows,), (rows,)).sum(0)
     fe = counts / counts.sum()
     aux = e * (fe * me).sum() * m.aux_loss_weight
     return out.to(x.dtype), aux

@@ -318,6 +318,9 @@ def loss_fn(
 ) -> torch.Tensor:
     logits, aux = forward(cfg, params, batch["tokens"], extra=batch, remat=remat,
                           attn_block=attn_block)
-    t = batch["tokens"].shape[1]
-    logits = logits[:, -t:, :]  # drop patch positions (vlm)
-    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:]) + aux
+    tokens = batch["tokens"]
+    logits = logits[:, -tokens.shape[1]:, :]  # drop patch positions (vlm)
+    # next-token labels; the last position has none (-1: ignored), which
+    # keeps T whole for a mesh to split
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    return cross_entropy(logits, labels) + aux

@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.constraints import zeros_like
 from repro_torch.models.common import Params, tree_from_items, tree_items
 
 
@@ -40,11 +41,12 @@ class OptConfig:
 
 
 def init_opt_state(params: Params) -> Dict[str, Any]:
-    """mu and nu (f32 zeros under the parameters' keys, as nested dicts)
-    and ``step`` (a 0-d int32 zero) on the parameters' device."""
+    """mu and nu (f32 zeros under the parameters' keys, as nested dicts,
+    placed as the parameters are) and ``step`` (a 0-d int32 zero) on the
+    parameters' device."""
     items = tree_items(params)
-    zeros = [(path, torch.zeros(p.shape, dtype=torch.float32, device=p.device))
-             for path, p in items]
+    # zeros_like: a DTensor parameter's moments take its placements
+    zeros = [(path, zeros_like(p, torch.float32)) for path, p in items]
     return {
         "mu": tree_from_items(zeros),
         "nu": tree_from_items((path, z.clone()) for path, z in zeros),

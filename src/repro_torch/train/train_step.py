@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.constraints import zeros_like
 from repro_torch.models import build_loss_fn
 from repro_torch.models.common import Params, tree_from_items, tree_items
 from repro_torch.models.config import ModelConfig
@@ -28,7 +29,9 @@ from .optimizer import OptConfig, adamw_update, init_opt_state
 
 def _split(batch: Dict[str, torch.Tensor], microbatches: int):
     """The batch's rows in ``microbatches`` equal consecutive slices (the
-    reference's reshape to (microbatches, B / microbatches, ...))."""
+    reference's reshape to (microbatches, B / microbatches, ...)).  Under a
+    mesh a slice of the batch-sharded rows is gathered (the tokens: small)
+    and the model shards its rows again at the embedding."""
     b = next(iter(batch.values())).shape[0]
     if b % microbatches:
         raise ValueError(f"global batch {b} is not a multiple of {microbatches} microbatches")
@@ -62,8 +65,7 @@ def build_value_and_grad(
                     loss, grads = grad_of(params, batch, leaves)
                 else:
                     loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-                    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                             for p in leaves]
+                    grads = [zeros_like(p, torch.float32) for p in leaves]
                     for mb in _split(batch, microbatches):
                         l, g = grad_of(params, mb, leaves)
                         with torch.no_grad():

@@ -17,10 +17,9 @@ turns them into what the scheduling stack consumes:
   are platform-resident, not per-request — their total is reported in
   the workload meta instead of the admission footprint.
 
-``hlo_flop_scale`` is the reference's measured corrective (it compiles the
-reduced model in JAX and walks its HLO); the port has no flop counter
-over its models yet, so it raises (ROADMAP queue 1 items 10 and 11) and only
-``estimator="analytic"`` is offered.
+``hlo_flop_scale`` is the reference's measured corrective: the reduced
+model's prefill counted by :mod:`repro_torch.launch.hlocost` over the
+analytic flops of the same cell (``estimator="hlo"``).
 """
 from __future__ import annotations
 
@@ -129,16 +128,38 @@ def task_footprints(tf: Treeified, itemsize: int = 2) -> Footprints:
 
 
 def hlo_flop_scale(cfg, shape=None, attn_block: int = 64) -> float:
-    """The reference's measured HLO/analytic flop ratio: not ported.
+    """Measured counted/analytic flop ratio for ``cfg``'s family (the
+    reference's definition).
 
-    The reference compiles the reduced config's prefill step in JAX and
-    walks its optimized HLO; the port has the models (``repro_torch.models``)
-    but no flop counter over them (ROADMAP queue 1 item 11) yet.
+    Runs the *reduced* config's prefill (T = min(seq, 64), B = 2,
+    ``attn_block`` 64) once on the CPU with no mesh, counts its flops with
+    :func:`repro_torch.launch.hlocost.count_costs`, and divides by the
+    analytic flops of the same reduced cell.  The ratio is applied
+    uniformly to the full config's task lengths: padding, masked attention
+    blocks and dispatch overheads are whole-graph effects.
     """
-    raise NotImplementedError(
-        "hlo_flop_scale needs the port's models and a flop counter over them "
-        "(ROADMAP queue 1 items 10 and 11); use estimator='analytic'"
-    )
+    import torch
+
+    from repro_torch.launch.hlocost import count_costs
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import build_prefill_fn, init_params, random_batch
+    from repro_torch.models.config import ShapeCell, shape_by_name
+
+    if shape is None:
+        shape = ShapeCell("prefill_tiny", 64, 2, "prefill")
+    elif isinstance(shape, str):
+        shape = shape_by_name(shape)
+    red = cfg.reduced()
+    cell = ShapeCell("prefill_tiny", min(shape.seq_len, 64), 2, "prefill")
+    params = init_params(red, 0, device="cpu")
+    batch = random_batch(red, cell.global_batch, cell.seq_len, torch.Generator().manual_seed(0))
+    fn = build_prefill_fn(red, remat=False, attn_block=attn_block)
+    with count_costs() as c:
+        fn(params, batch)
+    measured, analytic = c.summary.flops, model_flops(red, cell)
+    if measured <= 0 or analytic <= 0:
+        return 1.0
+    return float(measured / analytic)
 
 
 def mixed_calibrations(platform) -> Optional[Tuple[Calibration, ...]]:

@@ -127,9 +127,8 @@ class Workload:
         """Build the standard scheduling :class:`~repro_torch.api.problem.Problem`.
 
         ``estimator="analytic"`` uses the roofline counts as-is;
-        ``"hlo"`` would rescale by the measured
-        :func:`~repro_torch.workloads.costs.hlo_flop_scale` ratio, which
-        raises in the port (ROADMAP queue 1 items 10 and 11).
+        ``"hlo"`` rescales them by the measured
+        :func:`~repro_torch.workloads.costs.hlo_flop_scale` ratio.
         """
         from repro_torch.api.problem import Problem
 

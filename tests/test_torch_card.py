@@ -21,7 +21,9 @@ models' prefill on the card (flash attention) equals the CPU's (blocked
 attention) within 1e-4 relative to max(1, max |CPU|).  A train step's loss
 on the card equals the CPU's within 1e-5 relative and each gradient leaf
 within 1e-4 of that leaf's max |g|; an async checkpoint taken before an
-in-place step holds the state at the save bit for bit.
+in-place step holds the state at the save bit for bit.  On the 1×1 mesh
+(``make_smoke_mesh``) a train step and a prefill equal their runs without
+a mesh bit for bit, the prefill launching the flash kernel once a layer.
 """
 import time
 
@@ -34,6 +36,7 @@ import repro_torch.kernels.ops as ops
 import repro_torch.sparse as tsparse
 from repro_torch.api import DeviceMesh, Problem, Session
 from repro_torch.cluster import LocalCluster, leaked_threads
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import partial_cholesky_ref
 from repro_torch.online import LognormalNoise, execute_online
@@ -674,14 +677,41 @@ def test_model_blocked_route_on_card(cuda, monkeypatch):
     assert _rel(got, want) < 1e-4
 
 
-def test_serve_launcher_on_card(cuda):
-    """``repro_torch.launch.serve`` on cuda:0 at a reduced config."""
+def _eager_tokens(cfg, batch, prompt, gen, device):
+    """The serve launcher's tokens without a mesh, decoded eagerly: its
+    parameters (seed 0) and prompts (seed 1) on ``device``."""
+    from repro_torch.models import build_decode_fn, build_prefill_fn, init_params, random_batch
+    from repro_torch.models.decode import pad_caches
+
+    params = init_params(cfg, 0, device=device)
+    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(1))
+    logits, cache = build_prefill_fn(cfg, remat=False, attn_block=32)(params, prompts)
+    cache = pad_caches(cache, gen, multiple=1)
+    decode = build_decode_fn(cfg)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    outs = [tok]
+    for _ in range(gen - 1):
+        logits, cache = decode(params, cache, tok)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        outs.append(tok)
+    return torch.cat(outs, dim=1).cpu().numpy()
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_serve_launcher_on_card(cuda, name):
+    """``repro_torch.launch.serve`` on cuda:0 at each arch's reduced config:
+    its decode, one CUDA graph replayed on the 1x1 mesh, gives the tokens
+    of eager decode without a mesh; qwen3-4b's prefill launches flash once
+    a layer."""
     from repro_torch.launch import serve
 
     fa.reset_counters()
-    out = serve.main(["--arch", "qwen3-4b", "--smoke", "--prompt", "48", "--gen", "4"])
-    assert out["tokens"].shape == (4, 4)
-    assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0
+    out = serve.main(["--arch", name, "--smoke", "--prompt", "48", "--gen", "6"])
+    assert out["tokens"].shape == (4, 6)
+    if name == "qwen3-4b":
+        assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0
+    want = _eager_tokens(ARCHS[name].reduced(), 4, 48, 6, torch.device("cuda", 0))
+    np.testing.assert_array_equal(out["tokens"], want)
 
 
 # ----------------------------------------------------------------------
@@ -770,3 +800,85 @@ def test_async_save_during_step_on_card(cuda, tmp_path):
     for (pa, a), (pb, b) in zip(before, tree_items(got)):
         assert pa == pb and b.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b), pa
+
+
+# ----------------------------------------------------------------------
+# the production meshes on the card: the 1x1 mesh
+# ----------------------------------------------------------------------
+@pytest.fixture
+def mesh11(cuda):
+    """``make_smoke_mesh(cuda:0)``; the one-rank group it makes is destroyed
+    after the test."""
+    from repro_torch.launch.mesh import smoke_mesh
+
+    with smoke_mesh(torch.device("cuda", 0)) as mesh:
+        yield mesh
+
+
+def test_train_step_on_mesh_is_bit_for_bit(mesh11):
+    """qwen3-4b at full width, 2 layers, 2 x 4096 tokens, f32: one step
+    without a mesh and one from the same seed on the 1x1 mesh give the
+    same loss and parameters bit for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticTokens, place
+    from repro_torch.distributed.constraints import active_mesh
+    from repro_torch.distributed.sharding import batch_pspecs, distribute, param_pspecs
+    from repro_torch.models.common import ParamTree, tree_items
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import OptConfig, build_train_step, init_opt_state, init_train_state
+
+    cuda = torch.device("cuda", 0)
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], n_layers=2)
+    host = SyntheticTokens(DataConfig(cfg.vocab_size, 4096, 2)).batch_at(0)
+    step = build_train_step(cfg, OptConfig(), microbatches=2, attn_block=512)
+    params, opt = init_train_state(cfg, 0, device=cuda)
+    params, _, stats = step(params, opt, place(host, cuda))
+    want_loss, want = float(stats["loss"]), [p.clone() for _, p in tree_items(params)]
+    del params, opt
+    params, _ = init_train_state(cfg, 0, device=cuda)
+    params = ParamTree(distribute(params.to_dict(), param_pspecs(cfg, params), mesh11))
+    specs = batch_pspecs(cfg, ShapeCell("t", 4096, 2, "train"), mesh11)
+    with active_mesh(mesh11):
+        params, _, stats = step(params, init_opt_state(params), place(host, cuda, specs, mesh11))
+        loss = stats["loss"]
+        loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+    assert loss == want_loss
+    for (path, p), w in zip(tree_items(params), want):
+        assert torch.equal(p.to_local(), w), path
+
+
+def test_prefill_on_mesh_launches_flash_per_layer(mesh11):
+    """qwen3-4b f32, 2 layers, B=4 T=1024: the prefill on the 1x1 mesh
+    (parameters made DTensors with ``from_local``, no copy) equals the
+    prefill without a mesh bit for bit, and launches the flash kernel once
+    a layer on the rank's heads, with no plain run."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.constraints import active_mesh
+    from repro_torch.distributed.sharding import distribute, param_pspecs, place_tensor
+    from repro_torch.models import init_params, random_batch
+    from repro_torch.models import decode as dec
+    from repro_torch.models.common import ParamTree, tree_items
+
+    cuda = torch.device("cuda", 0)
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], n_layers=2)
+    params = init_params(cfg, 0, dtype=torch.float32, device=cuda)
+    tokens = random_batch(cfg, 4, 1024, torch.Generator(cuda).manual_seed(1))["tokens"]
+    want, _ = dec.prefill(cfg, params, tokens, remat=False, cache_dtype=torch.float32)
+    dparams = ParamTree(distribute(params.to_dict(), param_pspecs(cfg, params), mesh11))
+    assert all(isinstance(d, DTensor) and d.to_local().data_ptr() == p.data_ptr()
+               for (_, d), (_, p) in zip(tree_items(dparams), tree_items(params)))
+    dtokens = place_tensor(tokens, (None, None), mesh11)
+    fa.reset_counters()
+    with active_mesh(mesh11):
+        got, _ = dec.prefill(cfg, dparams, dtokens, remat=False, cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0
+    assert torch.equal(got.to_local(), want)

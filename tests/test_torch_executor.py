@@ -197,8 +197,9 @@ def test_import_isolation():
     serving cluster, the efficiency metrics and the dashboard, the demo,
     the flash kernel's wrapper, the workload front end, the model configs
     and the pod scheduler, the model zoo, the sharding hooks and the serving
-    launcher among them), chip_smoke and the card tests import neither jax
-    nor repro."""
+    launcher, the sharding rules, the meshes, the cost counter and the dry
+    run among them), chip_smoke and the card tests import neither jax nor
+    repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -226,7 +227,10 @@ need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo
         "repro_torch.models.gla", "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
         "repro_torch.models.moe", "repro_torch.models.transformer",
         "repro_torch.models.decode", "repro_torch.models.model", "repro_torch.models.weights",
-        "repro_torch.distributed.constraints", "repro_torch.launch.serve"}
+        "repro_torch.distributed.constraints", "repro_torch.launch.serve",
+        "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch.hlocost", "repro_torch.launch.dryrun",
+        "repro_torch.launch.train", "repro_torch.obs.scopes"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """

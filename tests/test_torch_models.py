@@ -14,6 +14,7 @@ body (``cross_entropy`` of its forward logits + aux), computed from the
 forward it already ran.
 """
 import dataclasses
+from types import SimpleNamespace
 import functools
 
 import jax
@@ -446,11 +447,13 @@ def test_models_raise_without_cuda(monkeypatch):
 
 
 def test_constraints_are_identity_without_a_mesh_and_raise_under_one():
+    """Without a mesh the hooks return x itself; under one they take
+    DTensors only, and a plain tensor raises, naming the caller."""
     x = torch.ones(4, 3)
     assert get_active_mesh() is None
     assert constrain(x, ("pod", "data"), None) is x and shard_over_dp(x) is x
-    with active_mesh("a mesh"):
-        with pytest.raises(NotImplementedError, match="10c"):
+    with active_mesh(SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))):
+        with pytest.raises(TypeError, match="test_constraints_are_identity.*plain tensor"):
             shard_over_dp(x)
     assert get_active_mesh() is None
 

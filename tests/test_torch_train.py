@@ -607,6 +607,40 @@ def test_train_launcher_smoke_on_cpu(capsys, tmp_path):
     assert "step    2 loss" in capsys.readouterr().out
 
 
+def test_train_launcher_checkpoint_on_the_mesh_restores_bit_for_bit(tmp_path):
+    """The launcher's parameters and moments are DTensors (the 1x1 mesh):
+    its checkpoint holds them whole, and a restore into DTensors placed on
+    a new mesh gives them back bit for bit, placed as the example."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import distribute, param_pspecs
+    from repro_torch.launch.mesh import smoke_mesh
+    from repro_torch.models.common import ParamTree
+    from repro_torch.train.optimizer import init_opt_state
+
+    out = ttrain.main(["--smoke", "--device", "cpu", "--steps", "3", "--layers", "1",
+                       "--seq", "16", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    ck = Checkpointer(str(tmp_path))
+    assert ck.all_steps() == [2]  # after the last step: the run's final state
+    cfg = out["cfg"]
+    with smoke_mesh("cpu") as mesh:
+        params = init_params(cfg, 0, device="cpu")
+        params = ParamTree(distribute(params.to_dict(), param_pspecs(cfg, params), mesh))
+        step, got = ck.restore({"params": params, "opt": init_opt_state(params)})
+    assert step == 2
+    want = tree_items(out["state"])
+    assert [p for p, _ in tree_items(got)] == [p for p, _ in want]
+    n_dtensors = 0
+    for (path, g), (_, w) in zip(tree_items(got), want):
+        assert isinstance(g, DTensor) == isinstance(w, DTensor), path
+        if isinstance(w, DTensor):  # all but the optimizer's step count
+            assert g.placements == w.placements, path
+            g, w = g.to_local(), w.to_local()
+            n_dtensors += 1
+        assert g.dtype == w.dtype and torch.equal(g, w), path
+    assert n_dtensors == len(want) - 1
+
+
 def test_train_launcher_cuts_are_printed(capsys):
     out = ttrain.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--steps", "1",
                        "--layers", "1", "--seq", "32", "--global-batch", "2",
@@ -618,8 +652,42 @@ def test_train_launcher_cuts_are_printed(capsys):
 
 
 def test_train_launcher_multi_pod_raises():
-    with pytest.raises(NotImplementedError, match="10c"):
+    """--multi-pod needs a 512-rank world (2x16x16); one process raises and
+    says so, before any group is made."""
+    with pytest.raises(RuntimeError, match="512 ranks"):
         ttrain.main(["--smoke", "--device", "cpu", "--multi-pod"])
+
+
+def test_train_launcher_under_torchrun_on_four_cpu_ranks():
+    """The production path's set-up: ``torchrun``'s environment makes the
+    default group (gloo, 4 CPU ranks; ``--mesh 2x2`` cuts the 16x16 mesh
+    to the world), and every rank prints the one-process run's loss."""
+    import re
+    import subprocess
+    import sys
+
+    args = ["--smoke", "--device", "cpu", "--steps", "1", "--layers", "1", "--seq", "16",
+            "--mesh", "2x2"]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *args],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    losses = re.findall(r"step +0 loss +([0-9.]+)", out.stdout)
+    want = ttrain.main(args[:-2])["losses"][0]
+    assert losses == [f"{want:.4f}"] * 4, (losses, want)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x1x1", "4"])
+def test_train_launcher_mesh_must_fit_the_world(mesh):
+    """--mesh cuts the 16x16 mesh to a world of its size: in one process
+    a 2x2 mesh, or one of another rank, raises before any group is made."""
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="--mesh"):
+        ttrain.main(["--smoke", "--device", "cpu", "--mesh", mesh])
+    assert not dist.is_initialized()
 
 
 def test_training_raises_without_cuda(monkeypatch, tmp_path):

@@ -419,20 +419,28 @@ def test_analyze_workload_serves_in_process():
 
 
 def test_hlo_estimator_rescales_analytic_lengths():
-    """The reference compiles the reduced qwen3-4b in JAX and rescales
-    every length by one measured HLO/analytic flop ratio.  That does not
-    carry over: the port has no model to compile and no flop counter over
-    one yet, so ``estimator="hlo"`` raises, naming ROADMAP items 10 and 11;
-    the analytic lengths stay the reference's, and an unknown estimator is
-    refused as the reference refuses it."""
+    """The twin of the reference's: ``estimator="hlo"`` rescales every
+    analytic length by one counted/analytic flop ratio
+    (``hlo_flop_scale``, the reduced qwen3-4b's prefill through the port's
+    cost counter), the same ratio as the reference's to 1e-9; the analytic
+    lengths stay the reference's, and an unknown estimator is refused as
+    the reference refuses it."""
     wl = pipeline(ARCHS["qwen3-4b"])
     a = wl.problem(SharedMemory(8), estimator="analytic")
     same_problem(a, rwl.pipeline(RARCHS["qwen3-4b"]).problem(
         rapi.SharedMemory(8), estimator="analytic"))
-    with pytest.raises(NotImplementedError, match="items 10 and 11"):
-        wl.problem(SharedMemory(8), estimator="hlo")
-    with pytest.raises(NotImplementedError, match="items 10 and 11"):
-        Session(SharedMemory(8)).analyze_workload("qwen3-4b", estimator="hlo")
+    h = wl.problem(SharedMemory(8), estimator="hlo")
+    ra = np.asarray(a.tree.lengths)
+    rh = np.asarray(h.tree.lengths)
+    mask = ra > 0
+    scale = rh[mask] / ra[mask]
+    # one global counted-vs-analytic flop scale, applied uniformly
+    assert scale.std() / scale.mean() < 1e-6
+    assert 0.1 < scale.mean() < 10.0
+    want = rwl.pipeline(RARCHS["qwen3-4b"]).problem(rapi.SharedMemory(8), estimator="hlo")
+    np.testing.assert_allclose(rh, np.asarray(want.tree.lengths), rtol=1e-9)
+    prob = Session(SharedMemory(8)).analyze_workload("qwen3-4b", estimator="hlo").problem
+    np.testing.assert_allclose(np.asarray(prob.tree.lengths), rh, rtol=1e-12)
     with pytest.raises(ValueError, match="unknown estimator"):
         wl.problem(SharedMemory(8), estimator="xla")
 
