@@ -108,10 +108,19 @@ card → ‖LLᵀ−A‖ check.
    ``local_map``; (c) the dry run (``repro_torch.launch.dryrun``, fake CUDA
    tensors) of qwen3-4b train_4k on 16x16 and qwen2.5-3b train_4k on
    2x16x16, each in a subprocess, ``ok`` within the reference test's
-   bounds.  Phases 11 (a) and 12 (a) run their launchers on the 1x1 mesh.
+   bounds.  Phases 11 (a) and 12 (a) run their launchers on the 1x1 mesh;
+14. sharded dispatch (``PlanExecutor(shard_dispatch=True)``): (a) phase 3's
+   Poisson 200 (f64) planned for 4 devices and executed async on
+   ``[cuda:0] * 4``, sharded and unsharded, panels bit for bit phase 3's,
+   the sharded run's ``front_factor`` launches equal to Σ of its
+   dispatches' ``dispatch_devices`` (> 1 somewhere), its wall beside phase
+   3's and ``fit_alpha()``; (b) phase 5's Poisson 60 by the wave runner,
+   sharded on the same lanes, bit for bit phase 5's; (c) where the machine
+   has more than one card, (a) over the distinct cards, each launching
+   (``DEVICE_LAUNCHES``); on one card a line says (c) was not run.
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6 to 13,
+4 after the executor's untimed warmup; each run of phases 6 to 14,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -1997,6 +2006,97 @@ def phase_mesh(fa, f32_prefill, dryruns) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 14: one batch of fronts split over the lanes of its carved group
+# ----------------------------------------------------------------------
+def lanes_launched(symb, report) -> int:
+    """Σ over the run's small-front dispatches of the lanes each engaged:
+    a sharded dispatch launches ``front_factor`` once per lane."""
+    from repro_torch.kernels.frontal_cholesky import VMEM_FRONT_MAX
+    from repro_torch.kernels.ops import padded_shape
+
+    lanes = {}
+    for e in report.trace:
+        sn = symb.supernodes[e.front]
+        if padded_shape(sn.m, sn.nb)[0] <= VMEM_FRONT_MAX:
+            lanes[e.wave, e.t_start] = e.dispatch_devices  # one entry a dispatch
+    return sum(lanes.values())
+
+
+def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
+    """``shard_dispatch`` on the card: (a) phase 3's Poisson 200 (f64),
+    planned for 4 devices and executed async on ``[device] * 4``, sharded
+    and not, each panel bit for bit phase 3's, the sharded run's
+    ``front_factor`` launches = Σ ``dispatch_devices`` over its dispatches;
+    (b) phase 5's Poisson 60 by the wave runner, sharded on the same lanes,
+    bit for bit phase 5's; (c) where the machine has more than one card,
+    (a) again over the distinct cards, each of them launching.  Counters
+    set to 0 just before each run, read just after; the process is warm
+    on ``device`` (phases 3-5), so the runs skip the warmup there."""
+    from repro_torch.runtime import PlanExecutor
+    from repro_torch.sparse import analyze, make_plan
+
+    def run(what, ap, symb, plan, devices, mode, shard, ref):
+        ex = PlanExecutor(symb, plan, devices=devices, dtype=torch.float64, mode=mode,
+                          shard_dispatch=shard)
+        if len(set(devices)) > 1:
+            ex.warmup()  # every lane's card: its first launch stays out of the run
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (fact, report), launches = counted(fc, what, lambda: ex.run(ap, warmup=False))
+        wall = time.perf_counter() - t0
+        per_card = {i: n for (k, i), n in fc.DEVICE_LAUNCHES.items() if k == "front_factor"}
+        lanes = lanes_launched(symb, report)
+        used = max(e.dispatch_devices for e in report.trace)
+        same = same_panels(fact, ref)
+        print(f"[{what}] {nvidia_smi()}: wall {wall:.3f} s, makespan "
+              f"{report.measured_makespan:.3f} s, {report.n_dispatches} dispatches, front_factor "
+              f"launches {launches['front_factor']} (Σ dispatch_devices {lanes}, by card "
+              f"{per_card}), max dispatch_devices {used}, fit_alpha {report.fit_alpha()} (lanes "
+              f"of one card take turns: no claim on α), panels bit for bit: {same}", flush=True)
+        check(same, f"{what}: panels differ")
+        check(launches["front_factor"] == lanes,
+              f"{what}: {launches['front_factor']} launches, Σ dispatch_devices {lanes}")
+        check((used > 1) == shard, f"{what}: max dispatch_devices {used}")
+        return {"wall_s": wall, "makespan_s": report.measured_makespan,
+                "n_dispatches": report.n_dispatches, "launches": launches["front_factor"],
+                "launches_by_card": per_card, "max_dispatch_devices": used,
+                "fit_alpha": report.fit_alpha(), "card": nvidia_smi()}
+
+    lanes4 = [device] * 4
+    out, launches = {}, 0
+    symb3 = analyze(ap3, relax=2)
+    plan3 = make_plan(symb3.task_tree(), 4, 0.9)
+    walls = {}
+    for shard in (True, False):
+        key = f"poisson200_f64_async_4lanes_{'sharded' if shard else 'unsharded'}"
+        out[key] = run(f"14a poisson200 f64 async [{device}]*4 shard={shard}", ap3, symb3, plan3,
+                       lanes4, "async", shard, fact3)
+        launches += out[key]["launches"]
+        walls[shard] = out[key]["wall_s"]
+    print(f"[14a] walls: sharded {walls[True]:.3f} s, unsharded {walls[False]:.3f} s, phase 3 "
+          f"{wall3:.3f} s", flush=True)
+    symb5 = analyze(ap5, relax=2)
+    out["poisson60_f64_waves_4lanes_sharded"] = run(
+        f"14b poisson60 f64 waves [{device}]*4 shard=True", ap5, symb5,
+        make_plan(symb5.task_tree(), 4, 0.9), lanes4, "waves", True, fact5)
+    launches += out["poisson60_f64_waves_4lanes_sharded"]["launches"]
+    n = torch.cuda.device_count()
+    if n > 1:
+        cards = [torch.device("cuda", i) for i in range(n)]
+        rec = run(f"14c poisson200 f64 async on {n} cards shard=True", ap3, symb3, plan3, cards,
+                  "async", True, fact3)
+        check(sorted(rec["launches_by_card"]) == list(range(n)),
+              f"phase 14c: cards that launched {rec['launches_by_card']}")
+        out[f"poisson200_f64_async_{n}cards_sharded"] = rec
+        launches += rec["launches"]
+    else:
+        print("[14c] not run: the machine has one card (a split over distinct cards needs two)",
+              flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2122,6 +2222,9 @@ def main() -> int:
     stamp("13")
     e2e13 = phase_mesh(flash, f32_prefill, start_dryruns())
     launches13 = e2e13["prefill"]["flash"]["routes"]
+    stamp("14")
+    e2e14 = phase_shard(fc, ap, fact, wall, ap5, fa, torch.device("cuda", 0))
+    launches14 = {"front_factor": e2e14.pop("launches"), "panel_factor": 0, "syrk_downdate": 0}
     stamp("end")
 
     replaces = {
@@ -2139,11 +2242,13 @@ def main() -> int:
                     "(execute_online, random SPD 2500; plan('online') Poisson 60, async and "
                     "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
                     "killed, Session.serve(cluster=2)); phase 10 (Session.analyze_workload("
-                    "'multifrontal') executed in f32, and the same grid through analyze)",
+                    "'multifrontal') executed in f32, and the same grid through analyze); "
+                    "phase 14 (Poisson 200 and 60 sharded over [cuda:0] * 4: one launch a lane)",
             "launches": launches[k] + launches7[k] + launches8[k] + launches9[k]
-                        + launches10[k],
+                        + launches10[k] + launches14[k],
             "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],
-                                  "8": launches8[k], "9": launches9[k], "10": launches10[k]},
+                                  "8": launches8[k], "9": launches9[k], "10": launches10[k],
+                                  "14": launches14[k]},
             **rec[k],
         }
         for k in fc.KERNELS
@@ -2180,6 +2285,7 @@ def main() -> int:
             "lm": e2e11,
             "train": e2e12,
             "mesh": e2e13,
+            "shard": e2e14,
         },
         "phase_start_s": phase_s,
     }), flush=True)

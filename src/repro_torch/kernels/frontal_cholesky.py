@@ -27,7 +27,9 @@ Each wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor, after checking device, dtype, shape, the
 multiple-of-128 constraints and contiguity; it raises on anything else.
 ``LAUNCHES`` counts kernel launches and ``PLAIN_RUNS`` runs of the plain
-versions, so a run can show which path it took.
+versions, so a run can show which path it took; ``DEVICE_LAUNCHES``
+counts the launches by (kernel, CUDA device index), so a run split over
+cards can show that each card launched.
 
 Conventions (shared with the TPU kernels): fronts are symmetric, only the
 lower triangle is kept correct, factored columns end with zeros above the
@@ -50,6 +52,7 @@ VMEM_FRONT_MAX = 1024  # fronts up to this padded order take front_factor
 KERNELS = ("front_factor", "panel_factor", "syrk_downdate")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
+DEVICE_LAUNCHES: Dict[Tuple[str, int], int] = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -59,6 +62,7 @@ def reset_counters() -> None:
         for k in KERNELS:
             LAUNCHES[k] = 0
             PLAIN_RUNS[k] = 0
+        DEVICE_LAUNCHES.clear()
 
 
 def _count(table: Dict[str, int], name: str) -> None:
@@ -91,7 +95,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> str:
 
 def _launch(name: str, suffix: str, device: torch.device, *args) -> None:
     launch(f"{name}_{suffix}", device, *args)
-    _count(LAUNCHES, name)
+    key = (name, device.index)  # a CUDA tensor's device always has its index
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        DEVICE_LAUNCHES[key] = DEVICE_LAUNCHES.get(key, 0) + 1
 
 
 def cluster_room(mp: int, dtype: torch.dtype, device: torch.device) -> Tuple[int, int]:

@@ -56,8 +56,17 @@ sharing a dispatch share its interval, and throughput is measured at
 dispatch granularity (one point per kernel launch — see
 ``ExecutionReport.dispatch_points``) for the α re-fit.  ``warmup=True``
 builds or loads the kernel library and runs identity fronts of every
-shape class once, untimed, so no build lands inside the trace.  A list of devices may repeat one
-card as several logical lanes.
+shape class once on every lane it will use, untimed, so no build lands
+inside the trace.  A list of devices may repeat one card as several
+logical lanes.
+
+Sharded dispatch (``shard_dispatch``, on by default for CUDA devices): a
+batch of small fronts whose carved groups span several lanes is padded
+with identity fronts to a multiple of the lane count and split into equal
+shards, one kernel launch per lane, all issued before the first copy back;
+the trace's ``dispatch_devices`` is the number of lanes the dispatch
+engaged.  Fronts are independent, so no collective is needed, and a
+front's bits depend on neither its batch nor its lane.
 """
 from __future__ import annotations
 
@@ -324,15 +333,18 @@ class PlanExecutor:
     devices : torch devices to execute on; defaults to every CUDA device
         and raises when there is none.  ``[torch.device("cpu")] * k`` runs
         the kernels' plain versions on the CPU over k logical lanes; a list
-        may repeat one card the same way.
+        may repeat one card the same way.  A list that mixes CPU and CUDA
+        devices raises ``ValueError``.
     dtype : front dtype, ``torch.float32`` (default) or ``torch.float64``.
     max_batch : cap on fronts per dispatch (bounds padded-batch memory).
     mode : ``"async"`` (per-front futures, the default) or ``"waves"``
         (the legacy barrier-synchronous runner, kept for A/B runs).
-    shard_dispatch : shard a batch over its device-group union.  Not
-        ported yet (splitting a batch across cards is later work): only
-        False is accepted.  Group carving still governs placement — a
-        dispatch runs on the first device of its carved group.
+    shard_dispatch : split a batch of small fronts over the lanes of its
+        carved groups' union, one launch per lane (default: on for CUDA
+        devices, off on CPU lanes, as the reference turns it off in
+        interpret mode).  Off, a dispatch runs on the first lane of its
+        group.  Large fronts and amalgamated group dispatches always run
+        on one lane.
     delay_fn : optional front id → seconds straggler injection (see
         :class:`repro_torch.runtime.straggler.FrontDelays`); stretches the
         front's dispatch in both modes.
@@ -361,7 +373,7 @@ class PlanExecutor:
         dtype: torch.dtype = torch.float32,
         max_batch: int = 32,
         mode: str = "async",
-        shard_dispatch: bool = False,
+        shard_dispatch: Optional[bool] = None,
         delay_fn: Optional[DelayFn] = None,
         memory_cap_bytes: Optional[float] = None,
         max_workers: Optional[int] = None,
@@ -369,10 +381,6 @@ class PlanExecutor:
     ) -> None:
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if shard_dispatch:
-            raise NotImplementedError(
-                "shard_dispatch: splitting a batch across cards is not ported yet"
-            )
         if dtype not in _NP_DTYPE:
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
         self.symb = symb
@@ -382,8 +390,17 @@ class PlanExecutor:
             if devices is not None
             else _default_devices()
         )
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1:
+            raise ValueError(
+                f"PlanExecutor: devices must be all CPU lanes or all CUDA "
+                f"devices, got {sorted(kinds)}"
+            )
         # the report's field: True exactly when the plain versions run
-        self.interpret = all(d.type == "cpu" for d in self.devices)
+        self.interpret = kinds == {"cpu"}
+        self.shard_dispatch = (
+            not self.interpret if shard_dispatch is None else bool(shard_dispatch)
+        )
         self.dtype = np.dtype(_NP_DTYPE[dtype])
         self.max_batch = int(max_batch)
         self.mode = mode
@@ -510,13 +527,32 @@ class PlanExecutor:
     def _run_batch(
         self, batch: np.ndarray, nbp: int, group_devices: List
     ) -> np.ndarray:
-        """Factor a (B, mp, mp) padded stack in one launch on the first
-        device of ``group_devices``; returns the factored stack (host)."""
+        """Factor a (B, mp, mp) padded stack, split over ``group_devices``
+        when more than one is given and sharding is on, else in one launch
+        on its first device; returns the factored stack (host).
+
+        Sharded, the stack is padded with identity fronts to a multiple
+        of the lane count and cut into equal shards, one launch per lane;
+        every shard is copied and launched before the first copy back, so
+        distinct cards work at once (lanes that repeat a card take turns
+        on its current stream)."""
         mp = batch.shape[1]
         assert mp <= VMEM_FRONT_MAX, "large fronts take the per-front path"
-        x = torch.from_numpy(batch).to(group_devices[0])
-        # .cpu() waits for the launch on the calling thread's current stream
-        return batched_front_factor(x, nbp).cpu().numpy()
+        if len(group_devices) == 1 or not self.shard_dispatch:
+            x = torch.from_numpy(batch).to(group_devices[0])
+            # .cpu() waits for the launch on the calling thread's current stream
+            return batched_front_factor(x, nbp).cpu().numpy()
+        b = batch.shape[0]
+        pad = (-b) % len(group_devices)
+        if pad:
+            eye = np.broadcast_to(np.eye(mp, dtype=batch.dtype), (pad, mp, mp))
+            batch = np.concatenate([batch, eye])
+        shards = [
+            batched_front_factor(torch.from_numpy(part).to(dev), nbp)
+            for part, dev in zip(np.split(batch, len(group_devices)), group_devices)
+        ]
+        # in lane order; each .cpu() waits only for its own card's stream
+        return np.concatenate([o.cpu().numpy() for o in shards])[:b]
 
     def _run_large(
         self, front: np.ndarray, nb: int, device: torch.device
@@ -533,23 +569,28 @@ class PlanExecutor:
     ) -> None:
         """Build or load the kernel library and run one identity front of
         every small wave-dispatch shape class on each device it will use
-        (untimed)."""
+        (untimed): with sharding on, every lane of the dispatch's group,
+        so no card's first launch (module load, shared-memory opt-in)
+        lands inside the timed run."""
         groups = self._wave_groups() if groups is None else groups
         seen = set()
         for d in self.dispatches() if ds is None else ds:
             mp, nbp = d.key
             if mp > VMEM_FRONT_MAX:
                 continue
-            dev = self._dispatch_devices(d.supernodes, groups)[0]
-            if (mp, nbp, dev) in seen:
-                continue
-            seen.add((mp, nbp, dev))
-            self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
+            devs = self._dispatch_devices(d.supernodes, groups)
+            for dev in devs if self.shard_dispatch else devs[:1]:
+                if (mp, nbp, dev) in seen:
+                    continue
+                seen.add((mp, nbp, dev))
+                self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
 
     def _warmup_async(self) -> None:
         """Build or load the kernel library and run one identity front of
         every small shape class on every distinct device (untimed), so no
-        build lands inside the timed region."""
+        build lands inside the timed region.  This covers every lane a
+        sharded dispatch can engage, so the async runners need no
+        plan-derived ``warmup`` beside it."""
         keys = sorted(
             {
                 padded_shape(sn.m, sn.nb)
@@ -742,7 +783,9 @@ class PlanExecutor:
             self._mem_updates -= consumed
 
             mp, nbp = d.key
-            disp_devs = self._dispatch_devices(d.supernodes, groups)[:1]
+            disp_devs = self._dispatch_devices(d.supernodes, groups)
+            if not self.shard_dispatch or mp > VMEM_FRONT_MAX:
+                disp_devs = disp_devs[:1]  # large fronts run on one lane
             delay = self._delay_for(d.supernodes)
             t0 = time.perf_counter() - t_run0
             if delay > 0:
@@ -1006,10 +1049,11 @@ class PlanExecutor:
                 self._mem_updates -= consumed
                 delay = self._delay_for(members)
 
-                devs = self._dispatch_devices(members, groups)[:1]
+                devs = self._dispatch_devices(members, groups)
+                if not self.shard_dispatch or mp > VMEM_FRONT_MAX:
+                    devs = devs[:1]  # large fronts run on one lane
                 if mp > VMEM_FRONT_MAX:
                     held = fronts_bytes
-                    disp_dev = 1
                     fut = pool.submit(
                         worker_large, list(zip(members, fronts)), devs[0], delay
                     )
@@ -1029,7 +1073,6 @@ class PlanExecutor:
                         + float(batch.nbytes),
                     )
                     held = float(batch.nbytes)
-                    disp_dev = len(devs)
                     fut = pool.submit(worker_small, batch, nbp, devs, delay)
                 del fronts
                 mem_inflight += held
@@ -1038,7 +1081,7 @@ class PlanExecutor:
                     supernodes=tuple(members),
                     key=key,
                     groups=groups,
-                    dispatch_devices=disp_dev,
+                    dispatch_devices=len(devs),
                     held_bytes=held,
                     t_submit=t_sub,
                     large=mp > VMEM_FRONT_MAX,

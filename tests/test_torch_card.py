@@ -16,7 +16,9 @@ attention, element by element |got - ref| <= eps * |ref| + 2e-5 (the same
 f32 math within the f32 tolerance, then one rounding each: at most 2 ulps
 of the element).  The frontal kernels are also held
 to determinism and batch invariance bit for bit.  The serving cluster's
-workers, sharing the card, give the executor's factors bit for bit.  The
+workers, sharing the card, give the executor's factors bit for bit, and so
+does a batch split over several lanes (``shard_dispatch``: one launch a
+lane, on one card or on each of several).  The
 models' prefill on the card (flash attention) equals the CPU's (blocked
 attention) within 1e-4 relative to max(1, max |CPU|).  A train step's loss
 on the card equals the CPU's within 1e-5 relative and each gradient leaf
@@ -200,6 +202,75 @@ def test_executor_on_card(cuda):
     for pa, pw, pc in zip(runs[0][0].panels, runs[1][0].panels, cpu.panels):
         np.testing.assert_array_equal(pa, pw)
         assert np.abs(pa - pc).max() / max(1.0, np.abs(pc).max()) < 1e-11
+
+
+def _lanes_launched(symb, report) -> int:
+    """Σ over the run's small-front dispatches of the lanes each engaged."""
+    lanes = {}
+    for e in report.trace:
+        sn = symb.supernodes[e.front]
+        if ops.padded_shape(sn.m, sn.nb)[0] <= fc.VMEM_FRONT_MAX:
+            lanes[e.wave, e.t_start] = e.dispatch_devices
+    return sum(lanes.values())
+
+
+@pytest.mark.parametrize("b", [1, 5, 8])
+def test_sharded_run_batch_on_card(cuda, b, rng):
+    """A batch split over [cuda:0] * 4 is the one-lane batch bit for bit:
+    one launch a lane, identity shards included, no plain run."""
+    a = tsparse.grid_laplacian_2d(9)
+    symb = tsparse.analyze(a, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 4, alpha=0.9)
+    lanes = [torch.device("cuda", 0)] * 4
+    ex = PlanExecutor(symb, plan, devices=lanes, dtype=torch.float64)
+    assert ex.shard_dispatch and not ex.interpret
+    x = rng.normal(size=(b, 256, 256))
+    batch = x @ x.transpose(0, 2, 1) + 256 * np.eye(256)
+    one = ex._run_batch(batch, 128, lanes[:1])
+    fc.reset_counters()
+    got = ex._run_batch(batch, 128, lanes)
+    assert fc.LAUNCHES["front_factor"] == 4
+    assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+    assert got.shape == (b, 256, 256)
+    np.testing.assert_array_equal(got, one)
+
+
+def _sharded_grid23(devices):
+    """Grid 23 (f64) planned for 4 devices, run async and waves on
+    ``devices`` with sharding on, held bit for bit against one lane of the
+    first card; each run's launches = Σ dispatch_devices, no plain run."""
+    a = tsparse.grid_laplacian_2d(23)
+    ap = tsparse.permute_symmetric(a, tsparse.nested_dissection_2d(23))
+    symb = tsparse.analyze(ap, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 4, alpha=0.9)
+    one, _ = PlanExecutor(symb, plan, devices=devices[:1], dtype=torch.float64).run(ap)
+    by_card = {}
+    for mode in ("async", "waves"):
+        ex = PlanExecutor(symb, plan, devices=devices, dtype=torch.float64, mode=mode)
+        ex.warmup()
+        fc.reset_counters()
+        fact, rep = ex.run(ap, warmup=False)
+        assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
+        assert fc.LAUNCHES["front_factor"] == _lanes_launched(symb, rep)
+        assert max(e.dispatch_devices for e in rep.trace) > 1
+        for p, q in zip(fact.panels, one.panels):
+            np.testing.assert_array_equal(p, q)
+        for (k, i), n in fc.DEVICE_LAUNCHES.items():
+            by_card[i] = by_card.get(i, 0) + n * (k == "front_factor")
+    return by_card
+
+
+def test_sharded_executor_on_card(cuda):
+    assert set(_sharded_grid23([torch.device("cuda", 0)] * 4)) == {0}
+
+
+def test_sharded_executor_on_two_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices to split a batch across cards; this machine has {n}")
+    cards = [torch.device("cuda", i) for i in range(min(n, 4))]
+    by_card = _sharded_grid23(cards)
+    assert sorted(i for i, launches in by_card.items() if launches) == list(range(len(cards)))
 
 
 FLASH_SHAPES = [

@@ -181,14 +181,63 @@ def test_executor_contracts(grid23):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PlanExecutor(symb, plan)
-    with pytest.raises(NotImplementedError):
-        PlanExecutor(symb, plan, devices=CPU4, shard_dispatch=True)
+    assert PlanExecutor(symb, plan, devices=CPU4, shard_dispatch=True).shard_dispatch
     with pytest.raises(ValueError):
         PlanExecutor(symb, plan, devices=CPU4, mode="eager")
     with pytest.raises(TypeError):
         PlanExecutor(symb, plan, devices=CPU4, dtype=torch.float16)
     ex = PlanExecutor(symb, plan, devices=CPU4)
     assert ex.dtype == np.float32 and ex.interpret
+
+
+def test_dispatch_schedule_batches_same_shapes(grid23):
+    """Twin of ``tests/test_executor.py::test_dispatch_schedule_batches_same_shapes``:
+    every front dispatched once, fewer dispatches than fronts, no dispatch
+    mixing shape classes; the schedule is the reference's, dispatch by
+    dispatch."""
+    from repro_torch.kernels.ops import padded_shape
+
+    ap, symb, plan = grid23
+    ds = PlanExecutor(symb, plan, devices=CPU4).dispatches()
+    assert sorted(s for d in ds for s in d.supernodes) == list(range(symb.n_supernodes))
+    assert len(ds) < symb.n_supernodes
+    for d in ds:
+        for s in d.supernodes:
+            sn = symb.supernodes[s]
+            assert padded_shape(sn.m, sn.nb) == d.key
+    rsymb = rsparse.analyze(ap, relax=1)
+    ref = RefExecutor(rsymb, rmake_plan(rsymb.task_tree(), 8, alpha=0.9)).dispatches()
+    assert [(d.wave, d.key, d.supernodes) for d in ds] == [
+        (d.wave, d.key, d.supernodes) for d in ref
+    ]
+
+
+def test_pow2_floor():
+    """Twin of ``tests/test_executor.py::test_pow2_floor``."""
+    from repro.distributed.device_groups import pow2_floor as rpow2_floor
+    from repro_torch.distributed.device_groups import pow2_floor
+
+    assert [pow2_floor(x) for x in (1, 2, 3, 7, 8, 9)] == [1, 2, 2, 4, 8, 8]
+    assert [pow2_floor(x) for x in range(1, 600)] == [rpow2_floor(x) for x in range(1, 600)]
+
+
+def test_assign_wave_groups_oversubscribed():
+    """Twin of ``tests/test_executor.py::test_assign_wave_groups_oversubscribed``:
+    more demand than devices degrades to time-sharing, never raises; the
+    groups are the reference's."""
+    from repro.distributed import device_groups as rdg
+    from repro_torch.distributed import device_groups as tdg
+
+    for req, n in (({i: 2 for i in range(5)}, 4), ({0: 4, 1: 4, 2: 2, 3: 1}, 4)):
+        groups = tdg.assign_wave_groups(req, n)
+        assert len(groups) == len(req)
+        _, max_load = tdg.groups_footprint(groups)
+        assert max_load >= 2
+        ref = rdg.assign_wave_groups(req, n)
+        assert {k: (g.offset, g.size) for k, g in groups.items()} == {
+            k: (g.offset, g.size) for k, g in ref.items()
+        }
+        assert max_load == rdg.groups_footprint(ref)[1]
 
 
 def test_import_isolation():
