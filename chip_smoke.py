@@ -117,10 +117,19 @@ card → ‖LLᵀ−A‖ check.
    3's and ``fit_alpha()``; (b) phase 5's Poisson 60 by the wave runner,
    sharded on the same lanes, bit for bit phase 5's; (c) where the machine
    has more than one card, (a) over the distinct cards, each launching
-   (``DEVICE_LAUNCHES``); on one card a line says (c) was not run.
+   (``DEVICE_LAUNCHES``); on one card a line says (c) was not run;
+15. the reference's example scripts as ported (``repro_torch.examples``),
+   each ``main`` at the reference's configs and defaults: (a)
+   ``quickstart`` (its 21x21 grid factored in f64: ``front_factor``
+   launches = the dispatches' lanes, residual <= 1e-12), (b)
+   ``elastic_rescale`` and (e) ``workload_serving`` (host only: no
+   launch), (c) ``serve_lm`` (flash once a layer in the prefill, the
+   CUDA-graph decode's tokens those of eager decode, prefill logits within
+   1e-4 of the CPU's), (d) ``train_lm`` (40 steps of the ~100M qwen3, then
+   ``--resume`` one step).
 
 Launch counters are set to 0 just before each main-path run (phases 3 and
-4 after the executor's untimed warmup; each run of phases 6 to 14,
+4 after the executor's untimed warmup; each run of phases 6 to 15,
 whose executors and workers skip the warmup in the process phases 3-5
 warmed) and
 read just after: every kernel must have run on the main path, and no
@@ -1251,15 +1260,16 @@ def lm_serve_case(dec, cfg, params, tokens, t0: int, steps: int, cache_dtype):
     return logits, outs, t_pre - t_start, time.perf_counter() - t_pre
 
 
-def eager_serve_tokens(cfg, batch, prompt, gen, device):
+def eager_serve_tokens(cfg, batch, prompt, gen, device, prompt_seed=1, attn_block=512):
     """``launch.serve``'s greedy tokens without a mesh, decoded eagerly:
-    its parameters (seed 0), prompts (seed 1) and attention block."""
+    its parameters (seed 0), prompts (seed 1) and attention block (or
+    those given)."""
     from repro_torch.models import build_decode_fn, build_prefill_fn, init_params, random_batch
     from repro_torch.models.decode import pad_caches
 
     params = init_params(cfg, 0, device=device)
-    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(1))
-    logits, cache = build_prefill_fn(cfg, remat=False, attn_block=512)(params, prompts)
+    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(prompt_seed))
+    logits, cache = build_prefill_fn(cfg, remat=False, attn_block=attn_block)(params, prompts)
     cache = pad_caches(cache, gen, multiple=1)
     decode = build_decode_fn(cfg)
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
@@ -2096,6 +2106,149 @@ def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
     out["launches"] = launches
     return out
 
+# ----------------------------------------------------------------------
+# phase 15: the example entry points
+# ----------------------------------------------------------------------
+def phase_examples(fc, fa, device) -> dict:
+    """15. The reference's example scripts as ported
+    (``repro_torch.examples``), each ``main`` on the card at the reference's
+    own configs and defaults (no cut), the frontal and flash counters set
+    to 0 just before each and read just after.  (a) ``quickstart``: PM vs
+    the baselines and a capacity loss in virtual time, the 21x21 grid
+    factored in f64 through ``Session.execute`` (warmup skipped: the process
+    is warm): ``front_factor`` launches = the dispatches' lanes, residual
+    <= 1e-12; (b) ``elastic_rescale`` and (e) ``workload_serving``: host
+    only, no launch; (c) ``serve_lm`` (reduced qwen2.5-3b, f32): the
+    prefill launches flash once a layer, no plain run, the CUDA-graph
+    decode's tokens equal eager decode's, the prefill logits within 1e-4 of
+    the same weights' on the CPU; (d) ``train_lm`` (the ~100M qwen3, 40
+    steps of 8 x 256 tokens): finite losses, the mean of the last ten below
+    that of the first ten, no flash launch (under grad), then ``--resume``
+    one step from the step-40 checkpoint.  ``device``: the card the mains take by default (for the
+    comparisons beside them)."""
+    import shutil
+
+    from repro_torch.examples import (
+        elastic_rescale,
+        quickstart,
+        serve_lm,
+        train_lm,
+        workload_serving,
+    )
+    from repro_torch.kernels import _build
+
+    out = {}
+    print("[15] cuts: none (each main at the reference's configs and defaults)", flush=True)
+
+    def run(what, fn):
+        fc.reset_counters()
+        fa.reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        frontal, flash = dict(fc.LAUNCHES), flash_counts(fa)
+        plain = {**fc.PLAIN_RUNS, "flash_attention": flash["plain"]}
+        print(f"[15 {what}] {nvidia_smi()}: wall {wall:.3f} s; frontal launches {frontal}; "
+              f"flash {flash}", flush=True)
+        check(all(v == 0 for v in plain.values()), f"phase 15 {what}: plain versions ran: {plain}")
+        return res, wall, frontal, flash
+
+    # (a) quickstart: a factorization on the card
+    res, wall, frontal, flash = run("a quickstart", lambda: quickstart.main([], warmup=False))
+    report = res["report"]
+    lanes = sum({(e.wave, e.t_start): e.dispatch_devices for e in report.trace}.values())
+    print(f"[15a] {res['n_fronts']} fronts, {res['n_dispatches']} dispatches (Σ lanes {lanes}), "
+          f"residual {res['residual']:.3e}; PM {res['makespans']['pm']!r}, with failure "
+          f"{res['failure_makespan']!r} ({res['n_reshares']} re-shares)", flush=True)
+    check(frontal["panel_factor"] == 0 and frontal["syrk_downdate"] == 0,
+          f"phase 15a: large-front kernels launched {frontal}")
+    check(frontal["front_factor"] == lanes > 0,
+          f"phase 15a: {frontal['front_factor']} front_factor launches, Σ lanes {lanes}")
+    check(res["residual"] <= quickstart.RESIDUAL_MAX, f"phase 15a residual {res['residual']}")
+    check(flash["launches"] == 0, "phase 15a: flash launched")
+    out["quickstart"] = {
+        "wall_s": wall, "front_factor_launches": frontal["front_factor"],
+        "n_dispatches": res["n_dispatches"], "residual": res["residual"],
+        "makespans": res["makespans"], "failure_makespan": res["failure_makespan"],
+        "fluid_bound": res["fluid_bound"], "card": nvidia_smi()}
+
+    # (b) elastic_rescale: host only
+    res, wall, frontal, flash = run("b elastic_rescale", lambda: elastic_rescale.main([]))
+    check(sum(frontal.values()) == 0 and flash["launches"] == 0,
+          "phase 15b: a kernel launched in a host-only script")
+    check(res["dead"] == [5] and res["n_plans"] == 2, f"phase 15b: {res}")
+    out["elastic_rescale"] = {"wall_s": wall, "elastic_makespan": res["elastic_makespan"],
+                              "fluid_elastic": res["fluid_elastic"]}
+
+    # (c) serve_lm: flash in the prefill, the decode a CUDA graph
+    res, wall, frontal, flash = run("c serve_lm", lambda: serve_lm.main([]))
+    cfg = serve_lm.ARCHS["qwen2.5-3b"].reduced()
+    want = eager_serve_tokens(cfg, 4, 32, 16, device, prompt_seed=0, attn_block=16)
+    same = bool(np.array_equal(res["tokens"], want))
+    params = serve_lm.init_params(cfg, 0, device=device).to("cpu")
+    batch = serve_lm.random_batch(cfg, 4, 32, torch.Generator(device).manual_seed(0))
+    cpu_logits, _ = serve_lm.build_prefill_fn(cfg, remat=False, attn_block=16)(
+        params, {k: v.cpu() for k, v in batch.items()})
+    cpu_logits = cpu_logits[:, -1].numpy()
+    cpu_err = float(np.abs(res["prefill_logits"] - cpu_logits).max()
+                    / max(1.0, np.abs(cpu_logits).max()))
+    print(f"[15c] tokens {res['tokens'].shape} == eager decode: {same}; prefill logits vs CPU "
+          f"{cpu_err:.3e}; wall {res['wall_s']:.4f} s", flush=True)
+    check(flash["launches"] == flash_layers(cfg, 32) and flash["plain"] == 0,
+          f"phase 15c: flash {flash}, expected {flash_layers(cfg, 32)} launches")
+    check(sum(frontal.values()) == 0, f"phase 15c: frontal kernels launched {frontal}")
+    check(same, "phase 15c: the CUDA-graph decode's tokens differ from eager decode's")
+    check(cpu_err <= 1e-4, f"phase 15c: card vs CPU prefill logits {cpu_err}")
+    out["serve_lm"] = {"wall_s": res["wall_s"], "flash": flash, "tokens_equal_eager": same,
+                       "prefill_vs_cpu": cpu_err, "card": nvidia_smi()}
+    route_launches = dict(flash["routes"])
+
+    # (d) train_lm at the reference's defaults, then one resumed step
+    ckpt = _build.BUILD_DIR / "phase15_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res, wall, frontal, flash = run("d train_lm", lambda: train_lm.main(["--ckpt-dir", str(ckpt)]))
+    losses = res["losses"]
+    walls = res["step_s"]
+    print(f"[15d train_lm {res['n_params'] / 1e6:.1f}M params, 40 steps of "
+          f"{res['tokens_per_step']} tokens, f32] {nvidia_smi()}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; steps {sum(walls):.3f} s (first {walls[0]:.3f} s, median of the "
+          f"rest {statistics.median(walls[1:]) * 1e3:.1f} ms, "
+          f"{res['tokens_per_step'] / statistics.median(walls[1:]):.0f} tokens/s), whole run "
+          f"with the final checkpoint {res['total_s']:.3f} s; peak allocated "
+          f"{res['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    check(len(losses) == 40 and all(np.isfinite(losses)), f"phase 15d: losses {losses}")
+    # the tokens are uniform (SyntheticTokens), so the loss can only fall
+    # toward ln(vocab); over 40 steps it falls by a few hundredths
+    check(statistics.mean(losses[-10:]) < statistics.mean(losses[:10]),
+          f"phase 15d: the loss did not fall: {losses}")
+    check(flash["launches"] == 0 and sum(frontal.values()) == 0,
+          f"phase 15d: kernels launched under grad: {frontal}, {flash}")
+    resumed, _, _, flash_r = run("d train_lm --resume",
+                                 lambda: train_lm.main(["--ckpt-dir", str(ckpt), "--steps", "41",
+                                                        "--resume"]))
+    check(resumed["start"] == 40 and len(resumed["losses"]) == 1
+          and np.isfinite(resumed["losses"][0]), f"phase 15d resume: {resumed['losses']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["train_lm"] = {
+        "n_params": res["n_params"], "steps": 40, "tokens_per_step": res["tokens_per_step"],
+        "losses": losses, "step_s": walls, "steps_s": sum(walls), "total_s": res["total_s"],
+        "main_wall_s": wall, "peak_bytes": res["peak_bytes"],
+        "resumed_loss": resumed["losses"][0], "card": nvidia_smi()}
+
+    # (e) workload_serving: host only (virtual time)
+    res, wall, frontal, flash = run("e workload_serving", lambda: workload_serving.main([]))
+    check(sum(frontal.values()) == 0 and flash["launches"] == 0,
+          "phase 15e: a kernel launched in a host-only script")
+    check(abs(res["pipeline_efficiency"] - 1.0) <= 1e-9,
+          f"phase 15e: pipeline efficiency {res['pipeline_efficiency']}")
+    out["workload_serving"] = {"wall_s": wall, "moe_makespans": res["moe_makespans"],
+                               "mean_latency": res["mean_latency"],
+                               "mixed_makespan": res["mixed_makespan"]}
+    out["front_factor_launches"] = out["quickstart"]["front_factor_launches"]
+    out["flash_route_launches"] = route_launches
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2225,6 +2378,11 @@ def main() -> int:
     stamp("14")
     e2e14 = phase_shard(fc, ap, fact, wall, ap5, fa, torch.device("cuda", 0))
     launches14 = {"front_factor": e2e14.pop("launches"), "panel_factor": 0, "syrk_downdate": 0}
+    stamp("15")
+    e2e15 = phase_examples(fc, flash, torch.device("cuda", 0))
+    launches15 = {"front_factor": e2e15.pop("front_factor_launches"), "panel_factor": 0,
+                  "syrk_downdate": 0}
+    flash15 = e2e15.pop("flash_route_launches")
     stamp("end")
 
     replaces = {
@@ -2243,12 +2401,13 @@ def main() -> int:
                     "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
                     "killed, Session.serve(cluster=2)); phase 10 (Session.analyze_workload("
                     "'multifrontal') executed in f32, and the same grid through analyze); "
-                    "phase 14 (Poisson 200 and 60 sharded over [cuda:0] * 4: one launch a lane)",
+                    "phase 14 (Poisson 200 and 60 sharded over [cuda:0] * 4: one launch a lane); "
+                    "phase 15 (repro_torch.examples.quickstart: the 21x21 grid in f64)",
             "launches": launches[k] + launches7[k] + launches8[k] + launches9[k]
-                        + launches10[k] + launches14[k],
+                        + launches10[k] + launches14[k] + launches15[k],
             "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],
                                   "8": launches8[k], "9": launches9[k], "10": launches10[k],
-                                  "14": launches14[k]},
+                                  "14": launches14[k], "15": launches15[k]},
             **rec[k],
         }
         for k in fc.KERNELS
@@ -2262,12 +2421,14 @@ def main() -> int:
             "path": "phase 6 (the kernel entry point) + phase 11 (the LM path: qwen3-4b served "
                     "through repro_torch.launch.serve on its 1x1 mesh, its f32 and bf16 "
                     "prefills, every reduced arch's forward, loss and prefill) + phase 13 (the "
-                    "f32 prefill on the 1x1 mesh, each rank's heads through local_map)",
+                    "f32 prefill on the 1x1 mesh, each rank's heads through local_map) + phase 15 "
+                    "(repro_torch.examples.serve_lm's prefill)",
             **rec["flash_attention"][route],
             "launches": rec["flash_attention"][route]["launches"] + launches11[route]
-                        + launches13.get(route, 0),
+                        + launches13.get(route, 0) + flash15.get(route, 0),
             "launches_by_phase": {"6": rec["flash_attention"][route]["launches"],
-                                  "11": launches11[route], "13": launches13.get(route, 0)},
+                                  "11": launches11[route], "13": launches13.get(route, 0),
+                                  "15": flash15.get(route, 0)},
         }
         for route in flash.ROUTES
     ]
@@ -2286,6 +2447,7 @@ def main() -> int:
             "train": e2e12,
             "mesh": e2e13,
             "shard": e2e14,
+            "examples": e2e15,
         },
         "phase_start_s": phase_s,
     }), flush=True)

@@ -748,14 +748,15 @@ def test_model_blocked_route_on_card(cuda, monkeypatch):
     assert _rel(got, want) < 1e-4
 
 
-def _eager_tokens(cfg, batch, prompt, gen, device):
+def _eager_tokens(cfg, batch, prompt, gen, device, prompt_seed=1):
     """The serve launcher's tokens without a mesh, decoded eagerly: its
-    parameters (seed 0) and prompts (seed 1) on ``device``."""
+    parameters (seed 0) and prompts (seed 1, or ``prompt_seed``) on
+    ``device``."""
     from repro_torch.models import build_decode_fn, build_prefill_fn, init_params, random_batch
     from repro_torch.models.decode import pad_caches
 
     params = init_params(cfg, 0, device=device)
-    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(1))
+    prompts = random_batch(cfg, batch, prompt, torch.Generator(device).manual_seed(prompt_seed))
     logits, cache = build_prefill_fn(cfg, remat=False, attn_block=32)(params, prompts)
     cache = pad_caches(cache, gen, multiple=1)
     decode = build_decode_fn(cfg)
@@ -953,3 +954,43 @@ def test_prefill_on_mesh_launches_flash_per_layer(mesh11):
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 2 and fa.PLAIN_RUNS["flash_attention"] == 0
     assert torch.equal(got.to_local(), want)
+
+
+# ----------------------------------------------------------------------
+# The example entry points on the card (chip_smoke.py phase 15)
+# ----------------------------------------------------------------------
+def test_serve_lm_example_on_card(cuda):
+    """``repro_torch.examples.serve_lm`` takes cuda:0 by default: its
+    prefill launches the flash kernel once a layer with no plain run, and
+    its CUDA-graph decode gives the tokens of eager decode."""
+    from repro_torch.examples import serve_lm
+
+    fa.reset_counters()
+    fc.reset_counters()
+    out = serve_lm.main([])
+    torch.cuda.synchronize()
+    cfg = ARCHS["qwen2.5-3b"].reduced()
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert fa.PLAIN_RUNS["flash_attention"] == 0 and sum(fc.PLAIN_RUNS.values()) == 0
+    assert sum(fc.LAUNCHES.values()) == 0
+    assert out["device"] == "cuda:0" and out["tokens"].shape == (4, 16)
+    want = _eager_tokens(cfg, 4, 32, 16, torch.device("cuda", 0), prompt_seed=0)
+    np.testing.assert_array_equal(out["tokens"], want)
+
+
+def test_workload_serving_example_on_card(cuda):
+    """``repro_torch.examples.workload_serving`` only simulates (virtual
+    time, on the host): on the card's default devices no kernel launches
+    and no plain version runs, and the pipeline's simulation meets its
+    fluid optimum."""
+    from repro_torch.examples import workload_serving
+
+    fa.reset_counters()
+    fc.reset_counters()
+    out = workload_serving.main([])
+    torch.cuda.synchronize()
+    assert out["devices"][0] == "cuda:0"
+    assert sum(fc.LAUNCHES.values()) == 0 and sum(fc.PLAIN_RUNS.values()) == 0
+    assert fa.LAUNCHES["flash_attention"] == 0 and fa.PLAIN_RUNS["flash_attention"] == 0
+    assert abs(out["pipeline_efficiency"] - 1.0) <= 1e-9
+    assert out["served"] == 4 and out["moe_experts"] == 60

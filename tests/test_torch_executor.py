@@ -246,9 +246,9 @@ def test_import_isolation():
     serving cluster, the efficiency metrics and the dashboard, the demo,
     the flash kernel's wrapper, the workload front end, the model configs
     and the pod scheduler, the model zoo, the sharding hooks and the serving
-    launcher, the sharding rules, the meshes, the cost counter and the dry
-    run among them), chip_smoke and the card tests import neither jax nor
-    repro."""
+    launcher, the sharding rules, the meshes, the cost counter, the dry
+    run and the example entry points among them), chip_smoke and the card
+    tests import neither jax nor repro."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -279,7 +279,10 @@ need = {"repro_torch.api.session", "repro_torch.api.platform", "repro_torch.demo
         "repro_torch.distributed.constraints", "repro_torch.launch.serve",
         "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
         "repro_torch.launch.hlocost", "repro_torch.launch.dryrun",
-        "repro_torch.launch.train", "repro_torch.obs.scopes"}
+        "repro_torch.launch.train", "repro_torch.obs.scopes",
+        "repro_torch.examples", "repro_torch.examples.quickstart",
+        "repro_torch.examples.elastic_rescale", "repro_torch.examples.serve_lm",
+        "repro_torch.examples.train_lm", "repro_torch.examples.workload_serving"}
 assert need <= set(sys.modules), need - set(sys.modules)
 print("ok", len([k for k in sys.modules if k.startswith("repro_torch")]))
 """
