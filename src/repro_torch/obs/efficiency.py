@@ -240,16 +240,26 @@ def device_utilization(
     Returns ``{"per_device": [...], "occupancy": float, "horizon": t}``
     where occupancy is mean engaged-lanes over capacity — the measured
     counterpart of the online scheduler's utilization integral.
+
+    The window is the spans' own, since the bus clock does not start at a
+    run's start: from the earliest ``run`` span's start to the latest one's
+    end, or, given ``horizon``, the ``horizon`` seconds that end at the
+    latest end (a run's makespan picks out the newest run of a bus that
+    holds several).  Busy time is counted inside the window.
     """
     runs = [s for s in spans if s.name == "run"]
+    t_hi = max((s.t1 for s in runs), default=0.0)
     if horizon is None:
-        horizon = max((s.t1 for s in runs), default=0.0)
+        horizon = t_hi - min((s.t0 for s in runs), default=0.0)
+    t_lo = t_hi - horizon
     lanes: List[List[Tuple[float, float]]] = [[] for _ in range(n_devices)]
     for s in runs:
+        if s.t1 <= t_lo:
+            continue
         d0 = max(int(s.device), 0)
         width = max(int(s.attrs.get("devices_used", 1)), 1)
         for lane in range(d0, min(d0 + width, n_devices)):
-            lanes[lane].append((s.t0, s.t1))
+            lanes[lane].append((max(s.t0, t_lo), s.t1))
     per_device: List[float] = []
     for ivs in lanes:
         busy = 0.0

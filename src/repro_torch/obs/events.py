@@ -17,11 +17,17 @@ all three with a single vocabulary:
   events become perfetto counter tracks (resident bytes, queue depth,
   capacity).
 
-**Dual clocks.**  Real runs (the JAX executor) stamp wall time —
-seconds since the bus epoch, monotonic via ``time.perf_counter`` — and
+**Dual clocks.**  Real runs (the executor) stamp wall time — seconds
+since the bus epoch, monotonic via ``time.perf_counter`` — and
 simulated runs (the discrete-event online scheduler) stamp *virtual*
 time.  Every record carries its ``clock`` so the two never mix silently;
-exporters and metrics group by clock domain.
+exporters and metrics group by clock domain.  ``EventBus.epoch`` is the
+``perf_counter`` value of the wall clock's zero, so a reader can place
+spans on any ``perf_counter`` time base.
+
+**Bounded.**  Spans and events are kept in two rings of ``CAPACITY``
+records each; the oldest go first, and ``dropped`` counts them, so a
+process that factors in a loop holds a fixed amount of telemetry.
 
 **Zero-overhead mode.**  ``obs.disable()`` flips one module flag; every
 publish method returns immediately.  Instrumented code may also guard
@@ -38,12 +44,17 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 WALL = "wall"
 VIRTUAL = "virtual"
 CLOCKS = (WALL, VIRTUAL)
+
+# records of each kind a bus keeps: one whole 3-D factorization of the
+# benchmark (about 87,000 spans) fits
+CAPACITY = 1 << 17
 
 
 @dataclass(frozen=True)
@@ -102,14 +113,18 @@ class EventBus:
     ``point(name, value)`` records an :class:`Event`.  ``subscribe``
     registers a callback invoked with each closed span / event (the
     live dashboard polls instead, but external sinks can stream).
+
+    Each kind is kept in a ring of ``CAPACITY`` records: past it the
+    oldest record is dropped and counted in ``dropped``.
     """
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._sid = itertools.count()
         self.reset_epoch()
-        self._spans: List[Span] = []
-        self._events: List[Event] = []
+        self._spans: deque = deque(maxlen=CAPACITY)
+        self._events: deque = deque(maxlen=CAPACITY)
+        self._dropped = 0
         self._open: Dict[int, Tuple[str, str, int, int, float, str, Dict]] = {}
         self._subscribers: List[Callable] = []
 
@@ -121,6 +136,11 @@ class EventBus:
     def wall(self) -> float:
         """Seconds since the bus epoch (the shared monotonic clock)."""
         return time.perf_counter() - self._epoch
+
+    @property
+    def epoch(self) -> float:
+        """The ``time.perf_counter`` value at which ``wall()`` reads 0."""
+        return self._epoch
 
     # -- publishing -----------------------------------------------------
     def begin(
@@ -198,6 +218,7 @@ class EventBus:
             attrs,
         )
         with self._lock:
+            self._dropped += len(self._events) == self._events.maxlen
             self._events.append(ev)
             subs = list(self._subscribers)
         for fn in subs:
@@ -205,6 +226,7 @@ class EventBus:
 
     def _record_span(self, sp: Span) -> None:
         with self._lock:
+            self._dropped += len(self._spans) == self._spans.maxlen
             self._spans.append(sp)
             subs = list(self._subscribers)
         for fn in subs:
@@ -226,6 +248,11 @@ class EventBus:
         if name is not None:
             out = [e for e in out if e.name == name]
         return out
+
+    @property
+    def dropped(self) -> int:
+        """Spans and events dropped, oldest first, past ``CAPACITY``."""
+        return self._dropped
 
     def open_spans(self) -> List[int]:
         """Span ids begun but not ended (must be empty after a clean run)."""
@@ -261,6 +288,7 @@ class EventBus:
             self._spans.clear()
             self._events.clear()
             self._open.clear()
+            self._dropped = 0
         self.reset_epoch()
 
     def __len__(self) -> int:

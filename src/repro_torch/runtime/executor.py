@@ -67,10 +67,34 @@ shards, one kernel launch per lane, all issued before the first copy back;
 the trace's ``dispatch_devices`` is the number of lanes the dispatch
 engaged.  Fronts are independent, so no collective is needed, and a
 front's bits depend on neither its batch nor its lane.
+
+Host stages: every thread of a ``run`` is at each moment in exactly one of
+``STAGES`` (self time; see ``STAGES`` for what each covers).  Each stretch
+of a stage is a bus span of category ``dispatch`` keyed by the dispatch's
+sequence number and, while ``torch.profiler`` records, an
+``executor.<stage>`` range in its trace.  A run's totals (seconds by stage,
+bytes copied between host and device and the useful part of them, the
+pauses of Python's garbage collector) land on ``ExecutionReport.host`` and,
+once per ``run`` (so ``warmup`` adds nothing), in three registry counters:
+``repro_executor_stage_seconds_total{stage}``,
+``repro_executor_copy_bytes_total{kind=copied|useful}`` (useful: each
+front's m² entries sent, its panel and Schur block received) and
+``repro_host_gc_seconds_total`` (a ``gc.callbacks`` hook installed for the
+run).  ``RunReport.metrics`` keeps the reference's names.  Every span and
+point of a run is stamped on the bus clock (``BUS.wall()``; the report's
+run-relative times are shifted by the run's start when published), so
+consecutive runs lie end to end on one axis, and ``BUS.epoch`` places them
+on the ``perf_counter`` base.  A profiler range opened on a worker thread
+started inside the profiled window does not reach the exported trace, so
+``executor.transfer`` may be absent there; it stays a bus span.  The
+``repro_resident_bytes`` gauge keeps no series: the bus's
+``resident_bytes`` point carries it.
 """
 from __future__ import annotations
 
+import gc
 import math
+import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
@@ -113,6 +137,20 @@ MODES = ("async", "waves")
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
+# The host stages of a run.  The main thread's: ``scan`` (the ready scan:
+# shape classes, priorities, device groups, memory bookkeeping, handing a
+# dispatch to a worker; the static schedule on the wave path), ``assemble``
+# (the matrix in CSC, gathering entries and the children's extend-add),
+# ``pad`` (padding fronts to their shape class and stacking them), ``wait``
+# (blocked on the workers, or an injected delay), ``extract`` (panels and
+# Schur blocks out of a factored stack, and the completion's bookkeeping),
+# ``report`` (the projected peak, the report and its publishing).  The
+# thread that runs a dispatch's kernels: ``transfer`` (copy in, launch,
+# wait, copy out; the main thread's own on the wave path; on the fused
+# async path a worker's whole group, its assembly, padding and extraction
+# included).
+STAGES = ("scan", "assemble", "pad", "wait", "extract", "report", "transfer")
+
 
 def _default_devices() -> List[torch.device]:
     """Every CUDA device; raises when there is none (the CPU is only ever
@@ -127,6 +165,24 @@ def _default_devices() -> List[torch.device]:
 
 
 # ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class HostTotals:
+    """One run's host accounting.
+
+    ``seconds``: by stage (every name of ``STAGES``); ``gc_seconds``: the
+    pauses of Python's garbage collector while the run was in progress;
+    ``copied_bytes``: what crossed between host and device (padded stacks
+    both ways, large fronts in, their panels and Schur blocks out);
+    ``useful_bytes``: of those, each front's m² entries sent and its panel
+    and Schur block received.
+    """
+
+    seconds: Dict[str, float]
+    gc_seconds: float
+    copied_bytes: float
+    useful_bytes: float
+
+
 @dataclass(frozen=True)
 class TraceEvent:
     """One front's execution record."""
@@ -179,6 +235,7 @@ class ExecutionReport:
     measured_peak_bytes: float = 0.0
     projected_peak_bytes: float = 0.0
     mode: str = "waves"  # which runner produced this report
+    host: Optional[HostTotals] = None  # set when the run ends
 
     # ------------------------------------------------------------------
     def total_flops(self) -> float:
@@ -297,6 +354,140 @@ class ExecutionReport:
                 f" projected"
             )
         return "\n".join(lines)
+
+
+# ----------------------------------------------------------------------
+class _RunTally:
+    """The totals of one ``run``, merged from its threads' stage clocks
+    and from a ``gc.callbacks`` hook, published once when it ends."""
+
+    def __init__(self, itemsize: int) -> None:
+        self.itemsize = itemsize
+        self.seconds = dict.fromkeys(STAGES, 0.0)
+        self.copied = 0.0
+        self.useful = 0.0
+        self.gc_seconds = 0.0
+        self._gc_t0: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def on_gc(self, phase: str, info: Dict) -> None:
+        """``gc.callbacks`` hook: one collection at a time runs, so the
+        start and stop of a pause come in pairs."""
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gc_seconds += time.perf_counter() - self._gc_t0
+            self._gc_t0 = None
+
+    def merge(self, clock: "_StageClock") -> None:
+        with self._lock:
+            for stage, sec in clock.seconds.items():
+                self.seconds[stage] += sec
+            self.copied += clock.copied
+            self.useful += clock.useful
+
+    def totals(self) -> HostTotals:
+        return HostTotals(dict(self.seconds), self.gc_seconds, self.copied, self.useful)
+
+    def publish(self) -> None:
+        """Add the run's totals to the registry's counters."""
+        if not obs_events.enabled():
+            return
+        reg = obs_metrics.REGISTRY
+        stages = reg.counter(
+            "repro_executor_stage_seconds_total",
+            "host seconds of PlanExecutor.run by stage (self time)",
+            unit="s",
+        )
+        for stage, sec in self.seconds.items():
+            stages.inc(sec, stage=stage)
+        copies = reg.counter(
+            "repro_executor_copy_bytes_total",
+            "bytes between host and device: all copied, and the fronts' own (useful)",
+            unit="bytes",
+        )
+        copies.inc(self.copied, kind="copied")
+        copies.inc(self.useful, kind="useful")
+        reg.counter(
+            "repro_host_gc_seconds_total",
+            "pauses of Python's garbage collector during PlanExecutor.run",
+            unit="s",
+        ).inc(self.gc_seconds)
+
+
+class _StageClock:
+    """One thread's stage clock: from its start to ``close`` the thread is
+    in exactly one stage, so the stages' seconds are self time.
+
+    Each stretch of a stage is a bus span (category ``dispatch``, ``key``
+    the dispatch's sequence number, -1 for none) and, while
+    ``torch.profiler`` records, an ``executor.<stage>`` range.  The
+    seconds and bytes are the thread's own until ``close`` merges them
+    into the run's tally.  A ``fixed`` clock stays in its first stage and
+    ignores ``lap``: a worker thread's, so the main thread's stages stay
+    its own self time whatever code the worker shares with it.
+    """
+
+    def __init__(
+        self,
+        tally: _RunTally,
+        stage: str,
+        key: int = -1,
+        device: int = -1,
+        fixed: bool = False,
+    ) -> None:
+        self.tally = tally
+        self.device = device
+        self.fixed = fixed
+        self.seconds = dict.fromkeys(STAGES, 0.0)
+        self.copied = 0.0
+        self.useful = 0.0
+        self._range = None
+        self._start(stage, key, time.perf_counter())
+
+    def _start(self, stage: str, key: int, t: float) -> None:
+        self._stage, self._key, self._t = stage, key, t
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.autograd.profiler.record_function(f"executor.{stage}")
+            self._range.__enter__()
+
+    def _stop(self, t: float) -> None:
+        self.seconds[self._stage] += t - self._t
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if obs_events.enabled():
+            epoch = obs_events.BUS.epoch
+            obs_events.BUS.span(
+                self._stage, self._t - epoch, t - epoch,
+                cat="dispatch", key=self._key, device=self.device,
+            )
+
+    def lap(self, stage: str, key: int = -1) -> None:
+        """End the current stretch now and start one of ``stage``."""
+        if self.fixed or (stage == self._stage and key == self._key):
+            return
+        t = time.perf_counter()
+        self._stop(t)
+        self._start(stage, key, t)
+
+    def useful_front(self, m: int, panel: np.ndarray, schur: np.ndarray) -> None:
+        """Count a front's useful bytes: its m² entries sent, its panel
+        and Schur block received."""
+        self.useful += m * m * self.tally.itemsize + panel.nbytes + schur.nbytes
+
+    def close(self) -> None:
+        if self._stage is None:
+            return
+        self._stop(time.perf_counter())
+        self._stage = None
+        self.tally.merge(self)
+
+    def __enter__(self) -> "_StageClock":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 # ----------------------------------------------------------------------
@@ -525,11 +716,16 @@ class PlanExecutor:
 
     # ------------------------------------------------------------------
     def _run_batch(
-        self, batch: np.ndarray, nbp: int, group_devices: List
+        self,
+        batch: np.ndarray,
+        nbp: int,
+        group_devices: List,
+        clock: Optional[_StageClock] = None,
     ) -> np.ndarray:
         """Factor a (B, mp, mp) padded stack, split over ``group_devices``
         when more than one is given and sharding is on, else in one launch
-        on its first device; returns the factored stack (host).
+        on its first device; returns the factored stack (host).  The bytes
+        copied both ways are counted on ``clock``.
 
         Sharded, the stack is padded with identity fronts to a multiple
         of the lane count and cut into equal shards, one launch per lane;
@@ -541,7 +737,10 @@ class PlanExecutor:
         if len(group_devices) == 1 or not self.shard_dispatch:
             x = torch.from_numpy(batch).to(group_devices[0])
             # .cpu() waits for the launch on the calling thread's current stream
-            return batched_front_factor(x, nbp).cpu().numpy()
+            out = batched_front_factor(x, nbp).cpu().numpy()
+            if clock is not None:
+                clock.copied += batch.nbytes + out.nbytes
+            return out
         b = batch.shape[0]
         pad = (-b) % len(group_devices)
         if pad:
@@ -552,15 +751,26 @@ class PlanExecutor:
             for part, dev in zip(np.split(batch, len(group_devices)), group_devices)
         ]
         # in lane order; each .cpu() waits only for its own card's stream
-        return np.concatenate([o.cpu().numpy() for o in shards])[:b]
+        out = np.concatenate([o.cpu().numpy() for o in shards])
+        if clock is not None:
+            clock.copied += batch.nbytes + out.nbytes
+        return out[:b]
 
     def _run_large(
-        self, front: np.ndarray, nb: int, device: torch.device
+        self,
+        front: np.ndarray,
+        nb: int,
+        device: torch.device,
+        clock: Optional[_StageClock] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Factor one large front through the panel + SYRK pipeline of
-        ``partial_cholesky``; returns (panel, schur) on the host."""
+        ``partial_cholesky``; returns (panel, schur) on the host.  The
+        bytes copied both ways are counted on ``clock``."""
         panel, schur = partial_cholesky(torch.from_numpy(front).to(device), nb)
-        return panel.cpu().numpy(), schur.cpu().numpy()
+        panel, schur = panel.cpu().numpy(), schur.cpu().numpy()
+        if clock is not None:
+            clock.copied += front.nbytes + panel.nbytes + schur.nbytes
+        return panel, schur
 
     def warmup(
         self,
@@ -649,14 +859,29 @@ class PlanExecutor:
         and the measured-vs-projected report.  Dispatches to the async
         futures runner or the legacy wave runner per ``self.mode``; an
         amalgamated plan (``provenance=``) takes the group-dispatch
-        variants of the same two runners."""
+        variants of the same two runners.  The run's host totals (see
+        ``STAGES``) are kept on the report's ``host``; ``warmup`` adds
+        nothing to them."""
+        if warmup:
+            if self._prov is None and self.mode == "waves":
+                self.warmup()
+            else:
+                self._warmup_async()
         if self._prov is not None:
-            if self.mode == "waves":
-                return self._run_waves_prov(a, warmup)
-            return self._run_async_prov(a, warmup)
-        if self.mode == "waves":
-            return self._run_waves(a, warmup)
-        return self._run_async(a, warmup)
+            runner = self._run_waves_prov if self.mode == "waves" else self._run_async_prov
+        else:
+            runner = self._run_waves if self.mode == "waves" else self._run_async
+        tally = _RunTally(self.dtype.itemsize)
+        hook = tally.on_gc
+        gc.callbacks.append(hook)
+        try:
+            with _StageClock(tally, "assemble") as clock:
+                fact, report = runner(a, clock)
+        finally:
+            gc.callbacks.remove(hook)
+        report.host = tally.totals()
+        tally.publish()
+        return fact, report
 
     # -- shared numeric helpers ----------------------------------------
     def _assemble(
@@ -685,8 +910,8 @@ class PlanExecutor:
             kid_updates.append((rows_c, upd_c))
         f = assemble_front_np(acsc, sn, kid_updates)
         out = f.astype(self.dtype, copy=False)
-        epoch = getattr(self, "_obs_t0", None)
-        if epoch is not None and obs_events.enabled():
+        if obs_events.enabled():
+            epoch = obs_events.BUS.epoch
             obs_events.BUS.span(
                 "assemble",
                 t_a0 - epoch,
@@ -697,10 +922,11 @@ class PlanExecutor:
             )
         return out, consumed
 
-    def _store(self, s, panel, schur, panels, updates) -> None:
+    def _store(self, s, panel, schur, panels, updates, clock: _StageClock) -> None:
         """Record a factored front: keep the panel, queue the Schur
         complement for the parent's extend-add."""
         sn = self.symb.supernodes[s]
+        clock.useful_front(sn.m, panel, schur)
         panels[s] = panel
         self._mem_panels += float(panel.nbytes)
         if sn.m > sn.nb:
@@ -712,15 +938,18 @@ class PlanExecutor:
         trace: List[TraceEvent],
         n_disp: int,
         mem_peak: float,
-        projected_peak: float,
         mode: str,
+        t_run0: float,
     ) -> ExecutionReport:
+        """The report of a run that started at ``t_run0`` (perf_counter),
+        with the plan's projected peak, published to the bus on its
+        clock."""
         measured = max((e.t_end for e in trace), default=0.0)
         report = self._build_report(
-            trace, n_disp, mem_peak, projected_peak, mode, measured
+            trace, n_disp, mem_peak, self._projected_peak(), mode, measured
         )
         if obs_events.enabled():
-            _publish_report_obs(report)
+            _publish_report_obs(report, t_run0 - obs_events.BUS.epoch)
         return report
 
     def _build_report(
@@ -742,17 +971,14 @@ class PlanExecutor:
 
     # -- wave runner (legacy, barrier-synchronous) ---------------------
     def _run_waves(
-        self, a: sp.csr_matrix, warmup: bool = True
+        self, a: sp.csr_matrix, clock: _StageClock
     ) -> Tuple[Factorization, ExecutionReport]:
         symb = self.symb
         acsc = lower_csc(a)
+        clock.lap("scan")
         groups = self._wave_groups()
         ds = self.dispatches()
         by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-        if warmup:
-            self.warmup(ds, groups)
-
-        projected_peak = self._projected_peak()
 
         updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         panels: List[Optional[np.ndarray]] = [None] * symb.n_supernodes
@@ -765,9 +991,9 @@ class PlanExecutor:
         self._mem_updates = 0.0
         mem_peak = 0.0
         t_run0 = time.perf_counter()
-        self._obs_t0 = t_run0
 
         for d in ds:
+            clock.lap("assemble", n_disp)
             fronts = []
             consumed = 0.0
             for s in d.supernodes:
@@ -789,15 +1015,19 @@ class PlanExecutor:
             delay = self._delay_for(d.supernodes)
             t0 = time.perf_counter() - t_run0
             if delay > 0:
+                clock.lap("wait", n_disp)
                 time.sleep(delay)  # the straggling device, behind the barrier
             if mp > VMEM_FRONT_MAX:
                 # large fronts: per-front panel+SYRK pipeline
                 for s, f in zip(d.supernodes, fronts):
                     sn = symb.supernodes[s]
-                    panel, schur = self._run_large(f, sn.nb, disp_devs[0])
-                    self._store(s, panel, schur, panels, updates)
+                    clock.lap("transfer", n_disp)
+                    panel, schur = self._run_large(f, sn.nb, disp_devs[0], clock)
+                    clock.lap("extract", n_disp)
+                    self._store(s, panel, schur, panels, updates, clock)
                 t1 = time.perf_counter() - t_run0
             else:
+                clock.lap("pad", n_disp)
                 batch = np.stack(
                     [
                         pad_front_np(f, symb.supernodes[s].nb, self.dtype)
@@ -811,12 +1041,14 @@ class PlanExecutor:
                     + fronts_bytes
                     + float(batch.nbytes),
                 )
-                out = self._run_batch(batch, nbp, disp_devs)
+                clock.lap("transfer", n_disp)
+                out = self._run_batch(batch, nbp, disp_devs, clock)
                 t1 = time.perf_counter() - t_run0
+                clock.lap("extract", n_disp)
                 for s, o in zip(d.supernodes, out):
                     sn = symb.supernodes[s]
                     panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-                    self._store(s, panel, schur, panels, updates)
+                    self._store(s, panel, schur, panels, updates, clock)
             n_disp += 1
             for s in d.supernodes:
                 sn = symb.supernodes[s]
@@ -836,15 +1068,14 @@ class PlanExecutor:
                     )
                 )
 
+        clock.lap("report")
         assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(
-            trace, n_disp, mem_peak, projected_peak, "waves"
-        )
+        report = self._make_report(trace, n_disp, mem_peak, "waves", t_run0)
         return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
 
     # -- async futures runner (per-front state machine) ----------------
     def _run_async(
-        self, a: sp.csr_matrix, warmup: bool = True
+        self, a: sp.csr_matrix, clock: _StageClock
     ) -> Tuple[Factorization, ExecutionReport]:
         """Event-driven execution: fronts dispatch the instant their
         children's Schur complements land; no wave barrier.
@@ -855,11 +1086,9 @@ class PlanExecutor:
         """
         symb = self.symb
         acsc = lower_csc(a)
+        clock.lap("scan")
         ndev = len(self.devices)
         by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-        if warmup:
-            self._warmup_async()
-        projected_peak = self._projected_peak()
 
         n = symb.n_supernodes
         itemsize = self.dtype.itemsize
@@ -898,24 +1127,20 @@ class PlanExecutor:
         seq = 0
 
         t_run0 = time.perf_counter()
-        self._obs_t0 = t_run0
 
         def now() -> float:
             return time.perf_counter() - t_run0
 
         def publish_state() -> None:
-            """Live counter samples: the bus points become perfetto
-            counter tracks; the gauges feed the dashboard."""
+            """Live counter samples on the bus clock: the bus points become
+            perfetto counter tracks; the gauges feed the dashboard."""
             if not obs_events.enabled():
                 return
-            t = now()
             bus = obs_events.BUS
+            t = bus.wall()
+            resident = self._mem_panels + self._mem_updates + mem_inflight
             bus.point("queue_depth", len(ready), t=t)
-            bus.point(
-                "resident_bytes",
-                self._mem_panels + self._mem_updates + mem_inflight,
-                t=t,
-            )
+            bus.point("resident_bytes", resident, t=t)
             reg = obs_metrics.REGISTRY
             reg.gauge(
                 "repro_queue_depth",
@@ -927,10 +1152,7 @@ class PlanExecutor:
                 "repro_resident_bytes",
                 "live host buffers (panels + CBs + in-flight)",
                 unit="bytes",
-                track=True,
-            ).set(
-                self._mem_panels + self._mem_updates + mem_inflight, t=t
-            )
+            ).set(resident, t=t)
             reg.gauge(
                 "repro_buddy_free_devices",
                 "free devices in the buddy allocator",
@@ -946,28 +1168,32 @@ class PlanExecutor:
                 t_ready[s] = 0.0
                 ready.append(s)
 
-        def worker_small(batch, nbp, devs, delay):
+        def worker_small(batch, nbp, devs, delay, key, lane):
             t0 = now()
             if delay > 0:
                 time.sleep(delay)  # the straggling device — only this
                 # dispatch's ancestors wait for it
-            out = self._run_batch(batch, nbp, devs)
+            with _StageClock(clock.tally, "transfer", key, lane) as wc:
+                out = self._run_batch(batch, nbp, devs, wc)
             return {"out": out, "t0": t0, "t1": now()}
 
-        def worker_large(items, dev, delay):
+        def worker_large(items, dev, delay, key, lane):
             # items: [(supernode, front)] — per-front panel+SYRK pipeline
             t0 = now()
             if delay > 0:
                 time.sleep(delay)
-            outs = [
-                self._run_large(f, symb.supernodes[s].nb, dev) for s, f in items
-            ]
+            with _StageClock(clock.tally, "transfer", key, lane) as wc:
+                outs = [
+                    self._run_large(f, symb.supernodes[s].nb, dev, wc)
+                    for s, f in items
+                ]
             return {"outs": outs, "t0": t0, "t1": now()}
 
         def launch_ready(pool) -> int:
             """Issue as many dispatches as devices/memory admit; returns
             how many were launched."""
             nonlocal mem_inflight, mem_peak, n_disp, seq
+            clock.lap("scan", seq)
             launched = 0
             while ready:
                 if alloc.n_free == 0:
@@ -1030,6 +1256,7 @@ class PlanExecutor:
                     ready.remove(s)
 
                 t_sub = now()
+                clock.lap("assemble", seq)
                 fronts = []
                 consumed = 0.0
                 for s in members:
@@ -1052,18 +1279,23 @@ class PlanExecutor:
                 devs = self._dispatch_devices(members, groups)
                 if not self.shard_dispatch or mp > VMEM_FRONT_MAX:
                     devs = devs[:1]  # large fronts run on one lane
+                lane = min(g.offset for g in groups.values())  # devs[0]'s
                 if mp > VMEM_FRONT_MAX:
+                    clock.lap("scan", seq)
                     held = fronts_bytes
                     fut = pool.submit(
-                        worker_large, list(zip(members, fronts)), devs[0], delay
+                        worker_large, list(zip(members, fronts)), devs[0], delay,
+                        seq, lane,
                     )
                 else:
+                    clock.lap("pad", seq)
                     batch = np.stack(
                         [
                             pad_front_np(f, symb.supernodes[s].nb, self.dtype)
                             for s, f in zip(members, fronts)
                         ]
                     )
+                    clock.lap("scan", seq)
                     mem_peak = max(
                         mem_peak,
                         self._mem_panels
@@ -1073,7 +1305,9 @@ class PlanExecutor:
                         + float(batch.nbytes),
                     )
                     held = float(batch.nbytes)
-                    fut = pool.submit(worker_small, batch, nbp, devs, delay)
+                    fut = pool.submit(
+                        worker_small, batch, nbp, devs, delay, seq, lane
+                    )
                 del fronts
                 mem_inflight += held
                 in_flight[fut] = _Inflight(
@@ -1095,16 +1329,17 @@ class PlanExecutor:
         def complete(fut) -> None:
             nonlocal mem_inflight, mem_peak, n_done
             info = in_flight.pop(fut)
+            clock.lap("extract", info.seq)
             res = fut.result()
             t0, t1 = res["t0"], res["t1"]
             if info.large:
                 for s, (panel, schur) in zip(info.supernodes, res["outs"]):
-                    self._store(s, panel, schur, panels, updates)
+                    self._store(s, panel, schur, panels, updates, clock)
             else:
                 for s, o in zip(info.supernodes, res["out"]):
                     sn = symb.supernodes[s]
                     panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-                    self._store(s, panel, schur, panels, updates)
+                    self._store(s, panel, schur, panels, updates, clock)
             mem_inflight -= info.held_bytes
             mem_peak = max(
                 mem_peak, self._mem_panels + self._mem_updates + mem_inflight
@@ -1147,6 +1382,7 @@ class PlanExecutor:
             while n_done < n:
                 launched = launch_ready(pool)
                 if in_flight:
+                    clock.lap("wait")
                     done, _ = futures_wait(
                         set(in_flight), return_when=FIRST_COMPLETED
                     )
@@ -1156,13 +1392,12 @@ class PlanExecutor:
                     raise RuntimeError(
                         "async executor stalled with ready fronts"
                     )
+            clock.lap("report")
         finally:
             pool.shutdown(wait=True)
 
         assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(
-            trace, n_disp, mem_peak, projected_peak, "async"
-        )
+        report = self._make_report(trace, n_disp, mem_peak, "async", t_run0)
         return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
 
 
@@ -1172,10 +1407,15 @@ class PlanExecutor:
         gid: int,
         acsc: sp.csc_matrix,
         ext_cb: Dict[int, Tuple[np.ndarray, np.ndarray]],
+        clock: _StageClock,
+        seq: int,
     ) -> Dict:
         """Factor one fused group's member fronts; the worker body shared
         by both provenance runners (pure compute — no shared state is
-        mutated, the callers own all bookkeeping).
+        mutated, the callers own all bookkeeping).  Its stages are timed
+        on ``clock``, the calling thread's, under the dispatch's sequence
+        number ``seq``; a worker's ``fixed`` clock counts it all as
+        ``transfer``.
 
         ``ext_cb`` holds the Schur complements crossing into the group
         from already-finished external children.  Levels run children
@@ -1197,6 +1437,7 @@ class PlanExecutor:
         t0 = time.perf_counter()
         delay = self._delay_for(members)
         if delay > 0:
+            clock.lap("wait", seq)
             time.sleep(delay)  # one injected stall per *dispatch*: fused
             # members share the launch, so a group pays its slowest member
             # once — the whole point of amalgamation
@@ -1206,6 +1447,7 @@ class PlanExecutor:
         peak = held
         panels_local: Dict[int, np.ndarray] = {}
         for level in self._group_levels[gid]:
+            clock.lap("assemble", seq)
             fronts: Dict[int, np.ndarray] = {}
             consumed = 0.0
             for s in level:
@@ -1233,15 +1475,18 @@ class PlanExecutor:
                 if mp > VMEM_FRONT_MAX:
                     for s in sns:
                         sn = symb.supernodes[s]
+                        clock.lap("transfer", seq)
                         panel, schur = self._run_large(
-                            fronts[s], sn.nb, self.devices[0]
+                            fronts[s], sn.nb, self.devices[0], clock
                         )
+                        clock.useful_front(sn.m, panel, schur)
                         panels_local[s] = panel
                         if sn.m > sn.nb:
                             cb[s] = (sn.rows[sn.nb :], schur)
                     continue
                 for lo in range(0, len(sns), self.max_batch):
                     chunk = sns[lo : lo + self.max_batch]
+                    clock.lap("pad", seq)
                     batch = np.stack(
                         [
                             pad_front_np(
@@ -1251,10 +1496,13 @@ class PlanExecutor:
                         ]
                     )
                     peak = max(peak, held + float(batch.nbytes))
-                    out = self._run_batch(batch, nbp, self.devices[:1])
+                    clock.lap("transfer", seq)
+                    out = self._run_batch(batch, nbp, self.devices[:1], clock)
+                    clock.lap("extract", seq)
                     for s, o in zip(chunk, out):
                         sn = symb.supernodes[s]
                         panel, schur = extract_panel_schur(o, sn.m, sn.nb)
+                        clock.useful_front(sn.m, panel, schur)
                         panels_local[s] = panel
                         if sn.m > sn.nb:
                             cb[s] = (sn.rows[sn.nb :], schur)
@@ -1310,17 +1558,15 @@ class PlanExecutor:
                 )
 
     def _run_waves_prov(
-        self, a: sp.csr_matrix, warmup: bool = True
+        self, a: sp.csr_matrix, clock: _StageClock
     ) -> Tuple[Factorization, ExecutionReport]:
         """Wave runner over fused groups: same barrier discipline as
         ``_run_waves``, one dispatch per group task."""
         symb = self.symb
         acsc = lower_csc(a)
+        clock.lap("scan")
         groups = self._wave_groups()  # keyed by group label
         by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-        if warmup:
-            self._warmup_async()
-        projected_peak = self._projected_peak()
 
         updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         panels: List[Optional[np.ndarray]] = [None] * symb.n_supernodes
@@ -1336,8 +1582,10 @@ class PlanExecutor:
                 if t.label < 0:
                     continue
                 gid = t.label
+                clock.lap("scan", n_disp)
                 ext_cb, consumed = self._pop_ext_cb(gid, updates)
-                res = self._run_group(gid, acsc, ext_cb)
+                res = self._run_group(gid, acsc, ext_cb, clock, n_disp)
+                clock.lap("extract", n_disp)
                 mem_peak = max(
                     mem_peak,
                     self._mem_panels + self._mem_updates + res["transient"],
@@ -1364,14 +1612,13 @@ class PlanExecutor:
                         )
                     )
 
+        clock.lap("report")
         assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(
-            trace, n_disp, mem_peak, projected_peak, "waves"
-        )
+        report = self._make_report(trace, n_disp, mem_peak, "waves", t_run0)
         return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
 
     def _run_async_prov(
-        self, a: sp.csr_matrix, warmup: bool = True
+        self, a: sp.csr_matrix, clock: _StageClock
     ) -> Tuple[Factorization, ExecutionReport]:
         """Async futures runner over fused groups.
 
@@ -1384,11 +1631,9 @@ class PlanExecutor:
         """
         symb = self.symb
         acsc = lower_csc(a)
+        clock.lap("scan")
         ndev = len(self.devices)
         by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-        if warmup:
-            self._warmup_async()
-        projected_peak = self._projected_peak()
 
         ng = len(self._groups)
         itemsize = self.dtype.itemsize
@@ -1445,14 +1690,11 @@ class PlanExecutor:
         def publish_state() -> None:
             if not obs_events.enabled():
                 return
-            t = now()
             bus = obs_events.BUS
+            t = bus.wall()
+            resident = self._mem_panels + self._mem_updates + mem_inflight
             bus.point("queue_depth", len(ready), t=t)
-            bus.point(
-                "resident_bytes",
-                self._mem_panels + self._mem_updates + mem_inflight,
-                t=t,
-            )
+            bus.point("resident_bytes", resident, t=t)
             reg = obs_metrics.REGISTRY
             reg.gauge(
                 "repro_queue_depth",
@@ -1464,10 +1706,7 @@ class PlanExecutor:
                 "repro_resident_bytes",
                 "live host buffers (panels + CBs + in-flight)",
                 unit="bytes",
-                track=True,
-            ).set(
-                self._mem_panels + self._mem_updates + mem_inflight, t=t
-            )
+            ).set(resident, t=t)
             reg.gauge(
                 "repro_buddy_free_devices",
                 "free devices in the buddy allocator",
@@ -1478,8 +1717,13 @@ class PlanExecutor:
                 "1 - largest free run / free devices",
             ).set(alloc.fragmentation, t=t)
 
+        def worker_group(gid, ext_cb, sq, lane):
+            with _StageClock(clock.tally, "transfer", sq, lane, fixed=True) as wc:
+                return self._run_group(gid, acsc, ext_cb, wc, sq)
+
         def launch_ready(pool) -> int:
             nonlocal mem_inflight, mem_peak, n_disp, seq
+            clock.lap("scan", seq)
             launched = 0
             while ready:
                 if alloc.n_free == 0:
@@ -1511,7 +1755,7 @@ class PlanExecutor:
                 )
                 self._mem_updates -= consumed
                 mem_inflight += held
-                fut = pool.submit(self._run_group, gid, acsc, ext_cb)
+                fut = pool.submit(worker_group, gid, ext_cb, seq, g_alloc.offset)
                 in_flight[fut] = (gid, g_alloc, held, t_sub, seq)
                 seq += 1
                 n_disp += 1
@@ -1522,6 +1766,7 @@ class PlanExecutor:
         def complete(fut) -> None:
             nonlocal mem_inflight, mem_peak, n_done
             gid, g_alloc, held, t_sub, sq = in_flight.pop(fut)
+            clock.lap("extract", sq)
             res = fut.result()
             self._store_group(res, panels, updates)
             mem_inflight -= held
@@ -1568,6 +1813,7 @@ class PlanExecutor:
             while n_done < ng:
                 launched = launch_ready(pool)
                 if in_flight:
+                    clock.lap("wait")
                     done, _ = futures_wait(
                         set(in_flight), return_when=FIRST_COMPLETED
                     )
@@ -1590,27 +1836,27 @@ class PlanExecutor:
                                 t_ready[pg] = now()
                                 ready.append(pg)
                         n_done += 1
+            clock.lap("report")
         finally:
             pool.shutdown(wait=True)
 
         assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(
-            trace, n_disp, mem_peak, projected_peak, "async"
-        )
+        report = self._make_report(trace, n_disp, mem_peak, "async", t_run0)
         return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
 
 
 BATCH_WIDTH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
-def _publish_report_obs(report: ExecutionReport) -> None:
+def _publish_report_obs(report: ExecutionReport, t0: float) -> None:
     """Publish a finished run's trace to the obs bus and registry.
 
-    Spans are pre-timed from the TraceEvent record (seconds since run
-    start, wall clock): a ``run`` phase per front on its device lane,
-    plus ``ready`` / ``submit`` phases when the async runner recorded
-    them.  Aggregates land in the metric registry under the
-    ``repro_*`` names cataloged in docs/OBSERVABILITY.md.
+    Spans are pre-timed from the TraceEvent record, whose times are
+    seconds since the run's start, shifted by ``t0``, the run's start on
+    the bus clock: a ``run`` phase per front on its device lane, plus
+    ``ready`` / ``submit`` phases when the async runner recorded them.
+    Aggregates land in the metric registry under the ``repro_*`` names
+    cataloged in docs/OBSERVABILITY.md.
     """
     bus = obs_events.BUS
     reg = obs_metrics.REGISTRY
@@ -1618,16 +1864,17 @@ def _publish_report_obs(report: ExecutionReport) -> None:
         dev = max(e.device0, 0)
         if not math.isnan(e.t_ready) and e.t_submit > e.t_ready:
             bus.span(
-                "ready", e.t_ready, e.t_submit, cat="front", key=e.front,
-                device=dev,
+                "ready", t0 + e.t_ready, t0 + e.t_submit, cat="front",
+                key=e.front, device=dev,
             )
         if not math.isnan(e.t_submit) and e.t_start > e.t_submit:
             bus.span(
-                "submit", e.t_submit, e.t_start, cat="front", key=e.front,
-                device=dev,
+                "submit", t0 + e.t_submit, t0 + e.t_start, cat="front",
+                key=e.front, device=dev,
             )
         bus.span(
-            "run", e.t_start, e.t_end, cat="front", key=e.front, device=dev,
+            "run", t0 + e.t_start, t0 + e.t_end, cat="front", key=e.front,
+            device=dev,
             devices_used=e.devices_used,
             dispatch_devices=e.dispatch_devices,
             devices_planned=e.devices,

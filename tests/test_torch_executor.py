@@ -171,7 +171,9 @@ def test_obs_metric_names_match_reference(grid23):
         names[reg] = set(reg.names())
         assert len(bus.spans(name="run")) == symb.n_supernodes
     port, ref = names.values()
-    assert port == ref
+    # the port adds its host-stage, copy and GC counters
+    assert port == ref | {"repro_executor_stage_seconds_total",
+                          "repro_executor_copy_bytes_total", "repro_host_gc_seconds_total"}
     assert {"repro_dispatches_total", "repro_queue_depth",
             "repro_batch_width", "repro_peak_resident_bytes"} <= port
 
