@@ -27,7 +27,10 @@ memory accounting) and produce **bit-identical factors**:
    last (only) consumer assembles, which happens as early as possible, so
    the measured peak tightens relative to the wave path; an optional
    ``memory_cap_bytes`` defers dispatches that would exceed a byte budget
-   while anything is in flight.
+   while anything is in flight.  The ready set is one min-heap of
+   ``(priority, front)`` per shape class, the classes fixed per executor,
+   so a dispatch takes the class with the smallest top without rescanning
+   the ready fronts.
 2. *Wave runner* (``mode="waves"``, the legacy path, kept for A/B
    benchmarking) — ``plan.waves()`` gives maximal same-start task sets;
    each wave's fronts are assembled, batched per shape class, and factored
@@ -93,6 +96,7 @@ started inside the profiled window does not reach the exported trace, so
 from __future__ import annotations
 
 import gc
+import heapq
 import math
 import threading
 import time
@@ -150,6 +154,20 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # async path a worker's whole group, its assembly, padding and extraction
 # included).
 STAGES = ("scan", "assemble", "pad", "wait", "extract", "report", "transfer")
+
+
+def _heap_head(heap: list, k: int) -> list:
+    """The ``k`` smallest entries of a heap, in order, without popping: a
+    best-first walk down from the root (the children of ``i`` are at
+    ``2i + 1`` and ``2i + 2``), so O(k log k) whatever the heap's size."""
+    out, frontier = [], [(heap[0], 0)]
+    while frontier and len(out) < k:
+        e, i = heapq.heappop(frontier)
+        out.append(e)
+        for j in (2 * i + 1, 2 * i + 2):
+            if j < len(heap):
+                heapq.heappush(frontier, (heap[j], j))
+    return out
 
 
 def _default_devices() -> List[torch.device]:
@@ -603,6 +621,11 @@ class PlanExecutor:
         for s, sn in enumerate(symb.supernodes):
             if sn.parent >= 0:
                 self._children[sn.parent].append(s)
+        # each supernode's padded shape class: the pattern is fixed, so no
+        # run recomputes one
+        self._shape: List[Tuple[int, int]] = [
+            padded_shape(sn.m, sn.nb) for sn in symb.supernodes
+        ]
 
         self._prov = provenance
         if provenance is not None:
@@ -681,10 +704,7 @@ class PlanExecutor:
             for t in sorted(wave, key=lambda t: t.task):
                 if t.label < 0:
                     continue  # virtual root: no computation
-                sn = self.symb.supernodes[t.label]
-                classes.setdefault(padded_shape(sn.m, sn.nb), []).append(
-                    t.label
-                )
+                classes.setdefault(self._shape[t.label], []).append(t.label)
             for key in sorted(classes):
                 sns = classes[key]
                 for lo in range(0, len(sns), self.max_batch):
@@ -801,13 +821,7 @@ class PlanExecutor:
         build lands inside the timed region.  This covers every lane a
         sharded dispatch can engage, so the async runners need no
         plan-derived ``warmup`` beside it."""
-        keys = sorted(
-            {
-                padded_shape(sn.m, sn.nb)
-                for sn in self.symb.supernodes
-                if padded_shape(sn.m, sn.nb)[0] <= VMEM_FRONT_MAX
-            }
-        )
+        keys = sorted({k for k in self._shape if k[0] <= VMEM_FRONT_MAX})
         for dev in dict.fromkeys(self.devices):
             for mp, nbp in keys:
                 self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
@@ -1117,7 +1131,10 @@ class PlanExecutor:
         alloc = BuddyAllocator(ndev)
         in_flight: Dict = {}  # Future -> _Inflight
         t_ready: Dict[int, float] = {}
-        ready: List[int] = []
+        # the ready fronts: one min-heap of (prio, front) per shape class;
+        # prio ends in the front's id, so heap order is priority order
+        ready: Dict[Tuple[int, int], List[Tuple[Tuple[float, int], int]]] = {}
+        n_ready = 0
         self._mem_panels = 0.0
         self._mem_updates = 0.0
         mem_inflight = 0.0
@@ -1127,6 +1144,12 @@ class PlanExecutor:
         seq = 0
 
         t_run0 = time.perf_counter()
+
+        def make_ready(s: int, t: float) -> None:
+            nonlocal n_ready
+            t_ready[s] = t
+            heapq.heappush(ready.setdefault(self._shape[s], []), (prio[s], s))
+            n_ready += 1
 
         def now() -> float:
             return time.perf_counter() - t_run0
@@ -1139,7 +1162,7 @@ class PlanExecutor:
             bus = obs_events.BUS
             t = bus.wall()
             resident = self._mem_panels + self._mem_updates + mem_inflight
-            bus.point("queue_depth", len(ready), t=t)
+            bus.point("queue_depth", n_ready, t=t)
             bus.point("resident_bytes", resident, t=t)
             reg = obs_metrics.REGISTRY
             reg.gauge(
@@ -1147,7 +1170,7 @@ class PlanExecutor:
                 "ready fronts awaiting dispatch",
                 unit="fronts",
                 track=True,
-            ).set(len(ready), t=t)
+            ).set(n_ready, t=t)
             reg.gauge(
                 "repro_resident_bytes",
                 "live host buffers (panels + CBs + in-flight)",
@@ -1165,8 +1188,7 @@ class PlanExecutor:
 
         for s in range(n):
             if n_unfinished[s] == 0:
-                t_ready[s] = 0.0
-                ready.append(s)
+                make_ready(s, 0.0)
 
         def worker_small(batch, nbp, devs, delay, key, lane):
             t0 = now()
@@ -1192,30 +1214,25 @@ class PlanExecutor:
         def launch_ready(pool) -> int:
             """Issue as many dispatches as devices/memory admit; returns
             how many were launched."""
-            nonlocal mem_inflight, mem_peak, n_disp, seq
+            nonlocal mem_inflight, mem_peak, n_disp, n_ready, seq
             clock.lap("scan", seq)
             launched = 0
-            while ready:
+            while n_ready:
                 if alloc.n_free == 0:
                     break
-                classes: Dict[Tuple[int, int], List[int]] = {}
-                for s in ready:
-                    sn = symb.supernodes[s]
-                    classes.setdefault(padded_shape(sn.m, sn.nb), []).append(s)
-                key = min(
-                    classes, key=lambda k: min(prio[s] for s in classes[k])
-                )
+                # the class holding the highest-priority ready front
+                key = min(ready, key=lambda k: ready[k][0])
+                heap = ready[key]
                 mp, nbp = key
-                members = sorted(classes[key], key=lambda s: prio[s])
-                if mp > VMEM_FRONT_MAX:
-                    members = members[:1]
-                else:
-                    # power-of-two batch sizes only, as in the reference, so
-                    # dispatch counts compare one to one with it (the
-                    # remainder stays ready for the next dispatch)
-                    members = members[
-                        : pow2_floor(min(len(members), self.max_batch))
-                    ]
+                # power-of-two batch sizes only, as in the reference, so
+                # dispatch counts compare one to one with it (the remainder
+                # stays ready for the next dispatch); large fronts one by one
+                k = (
+                    1
+                    if mp > VMEM_FRONT_MAX
+                    else pow2_floor(min(len(heap), self.max_batch))
+                )
+                members = [s for _, s in _heap_head(heap, k)]
 
                 def dispatch_bytes(ms) -> float:
                     fb = sum(
@@ -1252,8 +1269,11 @@ class PlanExecutor:
                 # kernel launch sharded over the carved groups' union, so
                 # fronts beyond the free capacity time-share it (same
                 # discipline as the wave carver's oversubscription rule)
-                for s in members:
-                    ready.remove(s)
+                for _ in members:
+                    heapq.heappop(heap)
+                if not heap:
+                    del ready[key]
+                n_ready -= len(members)
 
                 t_sub = now()
                 clock.lap("assemble", seq)
@@ -1371,8 +1391,7 @@ class PlanExecutor:
                 if p >= 0:
                     n_unfinished[p] -= 1
                     if n_unfinished[p] == 0:
-                        t_ready[p] = t1
-                        ready.append(p)
+                        make_ready(p, t1)
             n_done += len(info.supernodes)
             publish_state()
 
@@ -1467,8 +1486,7 @@ class PlanExecutor:
 
             classes: Dict[Tuple[int, int], List[int]] = {}
             for s in level:
-                sn = symb.supernodes[s]
-                classes.setdefault(padded_shape(sn.m, sn.nb), []).append(s)
+                classes.setdefault(self._shape[s], []).append(s)
             for key in sorted(classes):
                 mp, nbp = key
                 sns = classes[key]
