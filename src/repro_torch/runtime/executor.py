@@ -78,16 +78,22 @@ sequence number and, while ``torch.profiler`` records, an
 ``executor.<stage>`` range in its trace.  A run's totals (seconds by stage,
 bytes copied between host and device and the useful part of them, the
 pauses of Python's garbage collector) land on ``ExecutionReport.host`` and,
-once per ``run`` (so ``warmup`` adds nothing), in three registry counters:
+once per ``run`` (so ``warmup`` adds nothing), in registry counters:
 ``repro_executor_stage_seconds_total{stage}``,
 ``repro_executor_copy_bytes_total{kind=copied|useful}`` (useful: each
-front's m² entries sent, its panel and Schur block received) and
+front's m² entries sent, its panel and Schur block received),
 ``repro_host_gc_seconds_total`` (a ``gc.callbacks`` hook installed for the
-run).  ``RunReport.metrics`` keeps the reference's names.  Every span and
-point of a run is stamped on the bus clock (``BUS.wall()``; the report's
-run-relative times are shifted by the run's start when published), so
-consecutive runs lie end to end on one axis, and ``BUS.epoch`` places them
-on the ``perf_counter`` base.  A profiler range opened on a worker thread
+run) and, from the clocks of the threads that ran the large route and
+apart from their stages, ``repro_executor_large_seconds_total`` (inside
+``_run_large``: copy in, padding on the card, the panel + SYRK loop, the
+gather, copy out), ``repro_executor_large_bytes_total`` (the part of
+``copied`` it moved) and ``repro_executor_large_fronts_total``; each large
+front is an ``executor.large`` profiler range.  ``RunReport.metrics``
+keeps the reference's names.  Every span and point of a run is stamped
+on the bus clock (``BUS.wall()``; the report's run-relative times are
+shifted by the run's start when published), so consecutive runs lie end
+to end on one axis, and ``BUS.epoch`` places them on the ``perf_counter``
+base.  A profiler range opened on a worker thread
 started inside the profiled window does not reach the exported trace, so
 ``executor.transfer`` may be absent there; it stays a bus span.  The
 ``repro_resident_bytes`` gauge keeps no series: the bus's
@@ -95,6 +101,7 @@ started inside the profiled window does not reach the exported trace, so
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import heapq
 import math
@@ -384,6 +391,7 @@ class _RunTally:
         self.seconds = dict.fromkeys(STAGES, 0.0)
         self.copied = 0.0
         self.useful = 0.0
+        self.large = _LargeTally()
         self.gc_seconds = 0.0
         self._gc_t0: Optional[float] = None
         self._lock = threading.Lock()
@@ -403,6 +411,7 @@ class _RunTally:
                 self.seconds[stage] += sec
             self.copied += clock.copied
             self.useful += clock.useful
+            self.large.add(clock.large)
 
     def totals(self) -> HostTotals:
         return HostTotals(dict(self.seconds), self.gc_seconds, self.copied, self.useful)
@@ -431,6 +440,34 @@ class _RunTally:
             "pauses of Python's garbage collector during PlanExecutor.run",
             unit="s",
         ).inc(self.gc_seconds)
+        reg.counter(
+            "repro_executor_large_seconds_total",
+            "seconds of the threads that ran _run_large inside it",
+            unit="s",
+        ).inc(self.large.seconds)
+        reg.counter(
+            "repro_executor_large_bytes_total",
+            "bytes _run_large copied between host and device",
+            unit="bytes",
+        ).inc(self.large.bytes)
+        reg.counter(
+            "repro_executor_large_fronts_total",
+            "fronts factored by _run_large (padded order past VMEM_FRONT_MAX)",
+        ).inc(self.large.fronts)
+
+
+class _LargeTally:
+    """The large route's seconds, bytes and fronts on one clock."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.bytes = 0.0
+        self.fronts = 0
+
+    def add(self, other: "_LargeTally") -> None:
+        self.seconds += other.seconds
+        self.bytes += other.bytes
+        self.fronts += other.fronts
 
 
 class _StageClock:
@@ -460,6 +497,7 @@ class _StageClock:
         self.seconds = dict.fromkeys(STAGES, 0.0)
         self.copied = 0.0
         self.useful = 0.0
+        self.large = _LargeTally()
         self._range = None
         self._start(stage, key, time.perf_counter())
 
@@ -785,11 +823,22 @@ class PlanExecutor:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Factor one large front through the panel + SYRK pipeline of
         ``partial_cholesky``; returns (panel, schur) on the host.  The
-        bytes copied both ways are counted on ``clock``."""
-        panel, schur = partial_cholesky(torch.from_numpy(front).to(device), nb)
-        panel, schur = panel.cpu().numpy(), schur.cpu().numpy()
+        bytes copied both ways, and the seconds and bytes of the large
+        route apart from the stages, are counted on ``clock``; while
+        ``torch.profiler`` records, the front is an ``executor.large``
+        range."""
+        t0 = time.perf_counter()
+        profiled = torch.autograd.profiler._is_profiler_enabled
+        with (torch.autograd.profiler.record_function("executor.large") if profiled
+              else contextlib.nullcontext()):
+            panel, schur = partial_cholesky(torch.from_numpy(front).to(device), nb)
+            panel, schur = panel.cpu().numpy(), schur.cpu().numpy()
         if clock is not None:
-            clock.copied += front.nbytes + panel.nbytes + schur.nbytes
+            nbytes = front.nbytes + panel.nbytes + schur.nbytes
+            clock.copied += nbytes
+            clock.large.seconds += time.perf_counter() - t0
+            clock.large.bytes += nbytes
+            clock.large.fronts += 1
         return panel, schur
 
     def warmup(

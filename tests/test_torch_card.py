@@ -994,3 +994,50 @@ def test_workload_serving_example_on_card(cuda):
     assert fa.LAUNCHES["flash_attention"] == 0 and fa.PLAIN_RUNS["flash_attention"] == 0
     assert abs(out["pipeline_efficiency"] - 1.0) <= 1e-9
     assert out["served"] == 4 and out["moe_experts"] == 60
+
+
+# ----------------------------------------------------------------------
+# 3-D linear elasticity on Q1 hexahedra (the benchmark's elasticity3d-30)
+# ----------------------------------------------------------------------
+def test_elasticity_factor_on_card(cuda):
+    """18³ free nodes, 17,496 unknowns at 3 a node: the executor on cuda:0
+    against the plain dense factor on the card within 1e-11 relative (f64),
+    and the large route's counters count its 9 fronts and their bytes."""
+    import importlib.util
+    from pathlib import Path
+
+    import repro_torch.obs as obs
+    from repro_torch.sparse import plain
+
+    path = Path(__file__).resolve().parents[1] / "bench" / "families" / "q1_elasticity.py"
+    spec = importlib.util.spec_from_file_location("family_q1_elasticity_for_card", path)
+    q1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(q1)
+    op = q1.Operator({
+        "grid": [19, 19, 19], "ordering": {"leaf": 4},
+        "material": {"E0": 1.0, "Emin": 1e-9, "penal": 3, "nu": 0.3},
+        "density": {"law": "uniform", "per": "element", "low": 0.3, "high": 1.0},
+    })
+    seed = 2**33 + 18
+    assert op.n == 17496
+    sess = Session(DeviceMesh([cuda], plan_devices=256)).analyze(
+        op.matrix(seed, 0, original_order=True), 0.9, ordering=op.perm, relax=2).plan("pm")
+    symb = sess.problem.symb
+    large = [sn for sn in symb.supernodes if ops.padded_shape(sn.m, sn.nb)[0] > fc.VMEM_FRONT_MAX]
+    assert len(large) == 9
+    ex = PlanExecutor(symb, sess.schedule.to_execution_plan(), devices=[cuda],
+                      dtype=torch.float64, mode="async")
+    ex.warmup()
+    obs.enable()
+    obs.reset()
+    fact, rep = ex.run(op.matrix(seed, 0), warmup=False)
+    reg = obs.REGISTRY
+    assert reg.get("repro_executor_large_fronts_total").value == 9
+    assert reg.get("repro_executor_large_bytes_total").value == sum(
+        (sn.m * sn.m + sn.m * sn.nb + (sn.m - sn.nb) ** 2) * 8 for sn in large)
+    assert 0 < reg.get("repro_executor_large_seconds_total").value
+    k = plain.assemble_q1(op.dims, torch.from_numpy(op.moduli(seed, 0)), device=cuda)
+    p = torch.from_numpy(op.perm).to(cuda)
+    want = plain.dense_factor(k[p][:, p])
+    got = torch.from_numpy(fact.to_dense_l()).to(cuda)
+    assert _rel(got, want) < 1e-11

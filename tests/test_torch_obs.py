@@ -81,9 +81,13 @@ def grid_problem(P, g: int = 9):
 # What the port's executor publishes beyond the reference's vocabulary:
 # its host stages as spans of category ``dispatch``, and three counters
 PORT_STAGE_SPANS = {("dispatch", stage) for stage in (
-    "scan", "assemble", "pad", "wait", "extract", "report", "transfer")}
+    "scan", "assemble", "pad", "wait", "extract", "report", "transfer")} | {
+    ("analyze", stage) for stage in ("compress", "etree", "patterns", "supernodes")}
 PORT_COUNTERS = {"repro_executor_stage_seconds_total", "repro_executor_copy_bytes_total",
-                 "repro_host_gc_seconds_total"}
+                 "repro_host_gc_seconds_total", "repro_executor_large_seconds_total",
+                 "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
+                 "repro_sparse_analyze_seconds_total",
+                 "repro_sparse_supervariable_width"}
 
 
 def mesh(P, n: int):
