@@ -306,6 +306,17 @@ def syrk_sweep(fc, gen, dtype) -> None:
               f"{lib_ms:.4f}  clone_ms {clone_ms:.4f}", flush=True)
 
 
+def large_front_children(symb) -> int:
+    """The children with a Schur block of every front past VMEM_FRONT_MAX:
+    one ``extend_add`` launch each, as the large route assembles its
+    fronts on the card."""
+    from repro_torch.kernels import ops
+
+    large = {s for s, sn in enumerate(symb.supernodes)
+             if ops.padded_shape(len(sn.rows), len(sn.cols))[0] > ops.VMEM_FRONT_MAX}
+    return sum(sn.parent in large and len(sn.rows) > len(sn.cols) for sn in symb.supernodes)
+
+
 def large_front_syrk_shapes(symb) -> list:
     """(M, K) of every syrk_downdate the large-front route launches for
     ``symb``'s fronts: per outer panel of a padded front above
@@ -396,8 +407,52 @@ def phase_kernels(fc) -> dict:
             kernel_row(rec, "syrk_downdate", dtype, dict(shape=[m, k], tile=tile, uplo="full"),
                        *row, False)
         syrk_sweep(fc, gen, dtype)
+        extend_add_case(fc, gen, dtype, rec)
     rec["front_factor"]["clusters"] = clusters
     return rec
+
+
+def extend_add_case(fc, gen, dtype, rec: dict, mp: int = 4096, off: int = 256,
+                    n: int = 3794) -> None:
+    """``extend_add`` at a separator chain link's shape: the lower triangle
+    of an (n, n) block at ``off`` of a factored (mp, mp) front in ``dtype``
+    (a strided view, signed zeros in it) added into a float64 (mp, mp)
+    parent at n sorted rows; bit for bit its plain version on the card, the
+    same bits twice; beside the plain version and torch's indexed add of
+    the mirrored block (``index_put_(accumulate=True)``: the library's
+    scatter-add)."""
+    size = torch.finfo(dtype).bits // 8
+    out = torch.randn(mp, mp, generator=gen, dtype=torch.float64).to(dtype)
+    out[torch.rand(mp, mp, generator=gen) < 0.01] = -0.0
+    out = out.cuda()
+    src = out[off : off + n, off : off + n]
+    pos = torch.sort(torch.randperm(mp, generator=gen)[:n]).values.to(torch.int32).cuda()
+    parent = torch.randn(mp, mp, generator=gen, dtype=torch.float64).cuda()
+    got, again, want = parent.clone(), parent.clone(), parent.clone()
+    fc.extend_add(got, src, pos)
+    fc.extend_add(again, src, pos)
+    fc.extend_add_plain(want, src, pos)
+    torch.cuda.synchronize()
+    bits = torch.equal(got.view(torch.int64), want.view(torch.int64))
+    same = torch.equal(got.view(torch.int64), again.view(torch.int64))
+    err = float((got - want).abs().max())
+    low = torch.tril(src.to(torch.float64)) + 0.0
+    full = low + low.T - torch.diag(torch.diagonal(low))
+    p = pos.long()
+    ms = cuda_ms(lambda: fc.extend_add(got, src, pos))
+    plain_ms = cuda_ms(lambda: fc.extend_add_plain(got, src, pos))
+    lib_ms = cuda_ms(lambda: got.index_put_((p[:, None], p[None, :]), full, accumulate=True))
+    # the least work: read the block's lower triangle, read and write the
+    # parent's n² entries it touches (float64)
+    bnd, by = bound(n * (n + 1) / 2 * size + 2.0 * n * n * 8, float(n) * n, dtype)
+    print(f"extend_add {str(dtype)[6:]} n={n} from mp={mp} at {off}: bit for bit the plain "
+          f"version {bits} (max_abs_err {err:.3e}), deterministic {same}  ms {ms:.4f}  "
+          f"plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  bound_ms {bnd:.5f} ({by})",
+          flush=True)
+    check(bits, f"extend_add {dtype} n={n}: differs from its plain version")
+    check(same, f"extend_add {dtype} n={n}: two calls differ")
+    kernel_row(rec, "extend_add", dtype, dict(shape=[n, n], front=[mp, mp], offset=off), err, ms,
+               plain_ms, lib_ms, bnd, by, dtype == torch.float64)
 
 
 # phase 6's cases: (dtype, causal, Dh, (B, T, H)); B=2, T=4096, H=32 unless
@@ -913,7 +968,9 @@ def phase_cluster(fc, ap4, fact4, ap5, fact5, sim_makespan: float,
                 wall = time.perf_counter() - t0
             return results, wall, prof
 
-        (results, wall_a, prof), launches_a = counted(fc, "phase 9a", run_a, fc.KERNELS)
+        # the cluster workers factor on the card and extend-add on the host
+        (results, wall_a, prof), launches_a = counted(
+            fc, "phase 9a", run_a, ("front_factor", "panel_factor", "syrk_downdate"))
         stats_a = cl.scheduler.stats()
         sizes = [b for w in cl.workers for b in w.batch_sizes]
         mix = list(cl.scheduler.batch_tenant_mix)
@@ -944,6 +1001,7 @@ def phase_cluster(fc, ap4, fact4, ap5, fact5, sim_makespan: float,
     check(all(same), f"phase 9a: cluster panels differ from phases 5 / 4: {same}")
     check(max(res_a) <= 1e-12, f"phase 9a residuals {res_a}")
     check(max(sizes) > 1, "phase 9a: no dispatch carried more than one front")
+    check(launches_a["extend_add"] == 0, f"phase 9a: extend_add launched {launches_a}")
     check(not leaked_threads(), f"phase 9a: threads left: {leaked_threads()}")
 
     # (b) one worker killed after the first dispatch
@@ -2319,6 +2377,10 @@ def main() -> int:
     shapes4 = large_front_syrk_shapes(symb4)
     check(len(shapes4) == launches4["syrk_downdate"],
           f"phase 4: {launches4['syrk_downdate']} syrk launches, {len(shapes4)} shapes")
+    kids4 = large_front_children(symb4)
+    check(launches4["extend_add"] == kids4,
+          f"phase 4: {launches4['extend_add']} extend_add launches, {kids4} children of large "
+          f"fronts")
     # syrk_downdate alone at the (M, K) phase 4 launches (after the run: not counted)
     gen4 = torch.Generator().manual_seed(4)
     rec["syrk_downdate"]["phase4_cases"] = []
@@ -2377,11 +2439,12 @@ def main() -> int:
     launches13 = e2e13["prefill"]["flash"]["routes"]
     stamp("14")
     e2e14 = phase_shard(fc, ap, fact, wall, ap5, fa, torch.device("cuda", 0))
-    launches14 = {"front_factor": e2e14.pop("launches"), "panel_factor": 0, "syrk_downdate": 0}
+    launches14 = {"front_factor": e2e14.pop("launches"), "panel_factor": 0, "syrk_downdate": 0,
+                  "extend_add": 0}
     stamp("15")
     e2e15 = phase_examples(fc, flash, torch.device("cuda", 0))
     launches15 = {"front_factor": e2e15.pop("front_factor_launches"), "panel_factor": 0,
-                  "syrk_downdate": 0}
+                  "syrk_downdate": 0, "extend_add": 0}
     flash15 = e2e15.pop("flash_route_launches")
     stamp("end")
 
@@ -2389,20 +2452,30 @@ def main() -> int:
         "front_factor": "src/repro/kernels/frontal_cholesky.py:98",
         "panel_factor": "src/repro/kernels/frontal_cholesky.py:145",
         "syrk_downdate": "src/repro/kernels/frontal_cholesky.py:173",
+        # no Pallas counterpart: the reference extend-adds on the host
+        "extend_add": "none (host extend-add: src/repro/sparse/multifrontal.py:75)",
     }
+    paths = {
+        k: "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200) + 8 "
+           "(execute_online, random SPD 2500; plan('online') Poisson 60, async and "
+           "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
+           "killed, Session.serve(cluster=2)); phase 10 (Session.analyze_workload("
+           "'multifrontal') executed in f32, and the same grid through analyze); "
+           "phase 14 (Poisson 200 and 60 sharded over [cuda:0] * 4: one launch a lane); "
+           "phase 15 (repro_torch.examples.quickstart: the 21x21 grid in f64)"
+        for k in fc.KERNELS
+    }
+    paths["extend_add"] = ("PlanExecutor's large route (a front past VMEM_FRONT_MAX assembled "
+                           "on the card, one launch a child): phases 4 + 8a (random SPD 2500); "
+                           "none in phases 3, 7, 8b, 9, 10, 14, 15 (no large front there, or the "
+                           "cluster workers' host assembly)")
     kernels = [
         {
             "name": k,
             "route": "cuda",
             "source": "src/repro_torch/csrc/frontal_cholesky.cu",
             "replaces": replaces[k],
-            "path": "PlanExecutor: phases 3 + 4 + 7 (Session.execute, Poisson 200) + 8 "
-                    "(execute_online, random SPD 2500; plan('online') Poisson 60, async and "
-                    "waves); cluster workers: phase 9 (Poisson 60 + random SPD 2500, a worker "
-                    "killed, Session.serve(cluster=2)); phase 10 (Session.analyze_workload("
-                    "'multifrontal') executed in f32, and the same grid through analyze); "
-                    "phase 14 (Poisson 200 and 60 sharded over [cuda:0] * 4: one launch a lane); "
-                    "phase 15 (repro_torch.examples.quickstart: the 21x21 grid in f64)",
+            "path": paths[k],
             "launches": launches[k] + launches7[k] + launches8[k] + launches9[k]
                         + launches10[k] + launches14[k] + launches15[k],
             "launches_by_phase": {"3": launches3[k], "4": launches4[k], "7": launches7[k],

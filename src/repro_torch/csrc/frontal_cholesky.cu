@@ -7,6 +7,7 @@
 //   front_factor_kernel  <- front_factor_vmem (:98) / _front_factor_body (:76)
 //   panel_factor_kernel  <- panel_factor      (:145) / _panel_factor_body (:120)
 //   syrk_kernel          <- syrk_downdate     (:173) / _syrk_body (:163)
+//   extend_add_kernel    <- none (the TPU executor extend-adds on the host)
 //
 // Layout: row-major, row i of a front aligned with column i.  Only the lower
 // triangle is kept correct, as in the TPU kernels: the factored columns end
@@ -61,6 +62,19 @@
 //     lower tile (i, j) also writes the upper tile (j, i) as C(j, i) less
 //     the transpose of the product it holds, and a diagonal tile writes its
 //     entries above the diagonal from the full 64x64 product it computes.
+//
+// extend_add_kernel adds a child's Schur block into its parent's front, for
+// the large-front route, which assembles its fronts on the card in float64
+// as the host does: it reads the block's lower triangle (straight from the
+// child's factored padded front, or from an uploaded block), upcasts it,
+// and adds entry (i, j), j <= i, at (pos[i], pos[j]) and, off the diagonal,
+// at (pos[j], pos[i]).  pos is strictly increasing, so every entry of the
+// parent is read and written by one thread at most: no atomics, the host's
+// sums bit for bit.  Bound by bytes (a 3,794^2 f64 block: ~115 MB of reads
+// and read-modify-writes, ~35 us at 3.35 TB/s).  A CTA of 32 x 8 threads
+// takes a 32 x 32 tile of the lower triangle through shared memory, so the
+// reads and both writes run along rows (the mirror's rows are the tile's
+// columns); tiles above the diagonal exit at once.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -654,6 +668,58 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+constexpr int EA = 32;  // extend-add tile edge; a CTA is EA x EA_ROWS threads
+constexpr int EA_ROWS = 8;
+
+// x + 0.0 turns -0 into +0 and leaves every other value alone: the host's
+// mirrored block (low + low^T - diag) holds exactly these values.
+template <typename T>
+__global__ void __launch_bounds__(EA* EA_ROWS)
+    extend_add_kernel(const T* __restrict__ src, long long lds, double* __restrict__ dst,
+                      long long ldd, const int* __restrict__ pos, int n) {
+  const int bi = blockIdx.y, bj = blockIdx.x;
+  if (bj > bi) return;
+  __shared__ double tile[EA][EA + 1];
+  __shared__ int prow[EA], pcol[EA];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = bi * EA, j0 = bj * EA;
+  if (ty == 0) {
+    prow[tx] = i0 + tx < n ? pos[i0 + tx] : 0;
+    pcol[tx] = j0 + tx < n ? pos[j0 + tx] : 0;
+  }
+  for (int r = ty; r < EA; r += EA_ROWS) {
+    const int i = i0 + r, j = j0 + tx;
+    tile[r][tx] = (i < n && j <= i) ? static_cast<double>(src[(size_t)i * lds + j]) + 0.0 : 0.0;
+  }
+  __syncthreads();
+  // (pos[i], pos[j]): on or below the parent's diagonal, along its rows
+  for (int r = ty; r < EA; r += EA_ROWS) {
+    const int i = i0 + r, j = j0 + tx;
+    if (i < n && j <= i) {
+      double* d = dst + (size_t)prow[r] * ldd + pcol[tx];
+      *d = *d + tile[r][tx];
+    }
+  }
+  // (pos[j], pos[i]), j < i: strictly above it, along its rows too
+  for (int c = ty; c < EA; c += EA_ROWS) {
+    const int j = j0 + c, i = i0 + tx;
+    if (i < n && j < i) {
+      double* d = dst + (size_t)pcol[c] * ldd + prow[tx];
+      *d = *d + tile[tx][c];
+    }
+  }
+}
+
+template <typename T>
+int launch_extend_add(const void* src, long long lds, void* dst, long long ldd, const void* pos,
+                      int n, void* stream) {
+  const int nt = (n + EA - 1) / EA;
+  extend_add_kernel<T><<<dim3(nt, nt), dim3(EA, EA_ROWS), 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(src), lds, static_cast<double*>(dst), ldd,
+      static_cast<const int*>(pos), n);
+  return (int)cudaGetLastError();
+}
+
 // Launch configuration of one cluster per slab: `slabs` clusters of
 // cluster_size(mp) CTAs.
 struct ClusterLaunch {
@@ -797,6 +863,16 @@ int syrk_downdate_f32(const void* c, const void* a, void* out, int m, int k, int
 int syrk_downdate_f64(const void* c, const void* a, void* out, int m, int k, int lower,
                       void* stream) {
   return launch_syrk<double>(c, a, out, m, k, lower, stream);
+}
+// dst[pos[i] * ldd + pos[j]] += src[i * lds + j] over j <= i < n, and the
+// mirror for j < i; dst float64, src the named type, pos int32.
+int extend_add_f32(const void* src, long long lds, void* dst, long long ldd, const void* pos,
+                   int n, void* stream) {
+  return launch_extend_add<float>(src, lds, dst, ldd, pos, n, stream);
+}
+int extend_add_f64(const void* src, long long lds, void* dst, long long ldd, const void* pos,
+                   int n, void* stream) {
+  return launch_extend_add<double>(src, lds, dst, ldd, pos, n, stream);
 }
 // The cluster that factors an (mp x mp) front (panel_factor: an mp-row
 // slab): its CTA count, and how many such clusters the card holds at once

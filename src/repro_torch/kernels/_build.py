@@ -45,6 +45,8 @@ SIGNATURES = {
             ("syrk_downdate", [_VP, _VP, _VP, _CI, _CI, _CI, _VP]),
             # mp, out: CTAs per cluster, out: clusters resident at once, stream
             ("front_cluster_room", [_CI, _PI, _PI, _VP]),
+            # src, src row stride, dst (float64), dst row stride, pos (int32), n, stream
+            ("extend_add", [_VP, _CLL, _VP, _CLL, _VP, _CI, _VP]),
         )
     },
     # q, k, v, out, B, T, H, Dh, causal, scale, 4 strides each of q, k, v, stream

@@ -12,6 +12,14 @@ Counterparts of the Pallas TPU kernels in ``repro/kernels/frontal_cholesky.py``:
   default, as the reference returns it; ``uplo='L'`` is BLAS ``syrk``: the
   lower triangle holds ``C − A·Aᵀ``, the strictly-upper part holds C
   unchanged (what the large-front route reads: ``tril`` only).
+* ``extend_add`` ← none: the TPU executor extend-adds on the host.  It adds
+  a child's Schur block, read from its lower triangle and upcast to
+  float64, into its parent's float64 front at the child's positions there,
+  mirrored, in place: the large-front route assembles on the card.  At a
+  separator chain link's shape (a 3,794² f64 block into a 4,096² front)
+  it takes 0.16 ms on an H100 (bytes bound 0.086 ms), the plain version
+  1.05 ms and torch's ``index_put_(accumulate=True)`` of the mirrored
+  block 5.3 ms; it needs no n² temporaries (the plain version makes four).
 
 The CUDA source is ``repro_torch/csrc/frontal_cholesky.cu`` (design notes
 and what bounds each kernel on the card are there).  It is built into the
@@ -49,7 +57,7 @@ from ._build import launch
 TILE = 128  # pivot block width of every kernel
 VMEM_FRONT_MAX = 1024  # fronts up to this padded order take front_factor
 
-KERNELS = ("front_factor", "panel_factor", "syrk_downdate")
+KERNELS = ("front_factor", "panel_factor", "syrk_downdate", "extend_add")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_RUNS: Dict[str, int] = {k: 0 for k in KERNELS}
 DEVICE_LAUNCHES: Dict[Tuple[str, int], int] = {}
@@ -169,6 +177,18 @@ def syrk_downdate_plain(
     return out
 
 
+def extend_add_plain(dst: torch.Tensor, src: torch.Tensor, pos: torch.Tensor) -> None:
+    """Plain version of :func:`extend_add`: the child's block mirrored
+    from its lower triangle (``x + 0.0`` turns -0 into +0, as the host's
+    ``low + low.T − diag`` does), added at ``pos`` × ``pos``."""
+    _count(PLAIN_RUNS, "extend_add")
+    n = pos.shape[0]
+    low = torch.tril(src[:n, :n].to(torch.float64)) + 0.0
+    below = torch.ones(n, n, dtype=torch.bool, device=low.device).tril()
+    p = pos.long()
+    dst[p[:, None], p[None, :]] += torch.where(below, low, low.T)
+
+
 # ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
@@ -255,3 +275,34 @@ def syrk_downdate(
         _launch("syrk_downdate", suffix, c.device, c.data_ptr(), a.data_ptr(), out.data_ptr(),
                 m, a.shape[1], int(uplo == "L"))
     return out
+
+
+def extend_add(dst: torch.Tensor, src: torch.Tensor, pos: torch.Tensor) -> None:
+    """In place: ``dst[pos[i], pos[j]] += src[i, j]`` and, for j < i,
+    ``dst[pos[j], pos[i]] += src[i, j]``, over 0 ≤ j ≤ i < n = len(pos).
+
+    ``dst`` is a contiguous square float64 front; ``src`` a child's Schur
+    block in float32 or float64 whose lower triangle is read (a view of a
+    factored padded front will do: its rows need a unit stride only),
+    upcast to float64; ``pos`` (int32) the child's rows in ``dst``,
+    strictly increasing, so no two entries meet and the sums are the
+    host's ``f[ix_(pos, pos)] += block`` bit for bit."""
+    n = pos.shape[0]
+    if (dst.ndim != 2 or dst.shape[0] != dst.shape[1] or dst.dtype != torch.float64
+            or not dst.is_contiguous()):
+        raise ValueError(f"extend_add: dst must be a contiguous square float64 matrix, got "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    if src.ndim != 2 or src.shape[0] < n or src.shape[1] < n or (n and src.stride(1) != 1):
+        raise ValueError(f"extend_add: src {tuple(src.shape)} (strides {src.stride()}) "
+                         f"for {n} positions")
+    if pos.ndim != 1 or pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise ValueError(f"extend_add: pos must be a contiguous int32 vector, got {pos.dtype}")
+    if len({dst.device, src.device, pos.device}) != 1:
+        raise ValueError(f"extend_add: tensors on {dst.device}, {src.device}, {pos.device}")
+    if dst.device.type == "cpu":
+        return extend_add_plain(dst, src, pos)
+    if src.dtype not in _SUFFIX:
+        raise TypeError(f"extend_add: kernel takes float32 or float64, got {src.dtype}")
+    if n:
+        _launch("extend_add", _SUFFIX[src.dtype], dst.device, src.data_ptr(), src.stride(0),
+                dst.data_ptr(), dst.shape[0], pos.data_ptr(), n)

@@ -2,9 +2,11 @@
 
 ``partial_cholesky(front, nb)`` matches ``ref.partial_cholesky_ref`` up to
 dtype roundoff: it pads the front to 128-multiples with a unit diagonal
-(padded pivots factor to no-ops), takes ``front_factor`` for fronts
-≤ VMEM_FRONT_MAX and the panel + SYRK pipeline above that, and slices the
-(panel, schur) outputs back to the caller's shapes.
+(``pad_front``: padded pivots factor to no-ops), takes ``front_factor``
+for fronts ≤ VMEM_FRONT_MAX and the panel + SYRK pipeline above that
+(``factor_padded``), and slices the (panel, schur) outputs back to the
+caller's shapes (``panel_of``, ``schur_of``).  A caller that builds the
+padded front itself enters at ``factor_padded``.
 
 Which backend runs follows from the tensor's device: the CUDA kernels for a
 CUDA tensor, their plain PyTorch versions for a CPU tensor.
@@ -31,55 +33,80 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def partial_cholesky(front: torch.Tensor, nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel-backed partial Cholesky: (panel (m, nb), schur (m−nb, m−nb)),
-    on the front's device and in its dtype."""
+def pad_front(front: torch.Tensor, nb: int) -> torch.Tensor:
+    """An (m, m) front padded to its (mp, mp) shape class with a unit
+    diagonal, on the front's device and in its dtype: pivots occupy
+    [0, nb) and the border [nbp, nbp + mb)."""
     m = front.shape[0]
     mb = m - nb  # border size
     mp, nbp = padded_shape(m, nb)
-
-    # padded front with unit diagonal; pivots occupy [0, nb) and the border
-    # [nbp, nbp+mb)
     f = torch.eye(mp, dtype=front.dtype, device=front.device)
     f[:nb, :nb] = front[:nb, :nb]
     if mb > 0:
         f[nbp : nbp + mb, :nb] = front[nb:, :nb]
         f[:nb, nbp : nbp + mb] = front[:nb, nb:]
         f[nbp : nbp + mb, nbp : nbp + mb] = front[nb:, nb:]
+    return f
 
+
+def factor_padded(f: torch.Tensor, nbp: int) -> torch.Tensor:
+    """Factor the leading ``nbp`` columns of a padded (mp, mp) front:
+    ``front_factor`` up to VMEM_FRONT_MAX, above it the panel + SYRK
+    pipeline, in place.  Only the lower triangle of the result is kept
+    correct: L in columns [0, nbp), the Schur complement below and to the
+    right."""
+    mp = f.shape[0]
     if mp <= VMEM_FRONT_MAX:
-        out = front_factor(f[None], nbp)[0]
-    else:
-        out = f
-        for k in range(0, nbp, OUTER_PANEL):
-            pw = min(OUTER_PANEL, nbp - k)
-            lp = panel_factor(out[k:, k : k + pw].contiguous())
-            out[k:, k : k + pw] = lp
-            trail = mp - k - pw
-            if trail > 0:
-                # the reference's tile rule: syrk_downdate checks M % tile
-                # and otherwise ignores it (its CUDA kernel tiles C by 64);
-                # only the lower triangle is read, so uplo='L'
-                tile = 256 if trail % 256 == 0 else TILE
-                c = syrk_downdate(
-                    out[k + pw :, k + pw :].contiguous(),
-                    lp[pw:].contiguous(),
-                    tile=tile,
-                    uplo="L",
-                )
-                out[k + pw :, k + pw :] = c
+        return front_factor(f[None], nbp)[0]
+    out = f
+    for k in range(0, nbp, OUTER_PANEL):
+        pw = min(OUTER_PANEL, nbp - k)
+        lp = panel_factor(out[k:, k : k + pw].contiguous())
+        out[k:, k : k + pw] = lp
+        trail = mp - k - pw
+        if trail > 0:
+            # the reference's tile rule: syrk_downdate checks M % tile
+            # and otherwise ignores it (its CUDA kernel tiles C by 64);
+            # only the lower triangle is read, so uplo='L'
+            tile = 256 if trail % 256 == 0 else TILE
+            c = syrk_downdate(
+                out[k + pw :, k + pw :].contiguous(),
+                lp[pw:].contiguous(),
+                tile=tile,
+                uplo="L",
+            )
+            out[k + pw :, k + pw :] = c
+    return out
 
-    # gather outputs back to unpadded shapes; the kernels keep the lower
-    # triangle only: zero above L11's diagonal, symmetrize the Schur block
+
+def panel_of(out: torch.Tensor, m: int, nb: int) -> torch.Tensor:
+    """The (m, nb) panel [L11; L21] of a factored padded front, zero above
+    L11's diagonal."""
+    _, nbp = padded_shape(m, nb)
     top = torch.tril(out[:nb, :nb])
-    if mb > 0:
-        panel = torch.cat([top, out[nbp : nbp + mb, :nb]], dim=0)
-        low = torch.tril(out[nbp : nbp + mb, nbp : nbp + mb])
-        schur = low + low.T - torch.diag(torch.diag(low))
-    else:
-        panel = top
-        schur = torch.zeros((0, 0), dtype=front.dtype, device=front.device)
-    return panel, schur
+    if m == nb:
+        return top
+    return torch.cat([top, out[nbp : nbp + m - nb, :nb]], dim=0)
+
+
+def schur_of(out: torch.Tensor, m: int, nb: int) -> torch.Tensor:
+    """The (m−nb)² Schur block of a factored padded front, symmetrized
+    from its lower triangle."""
+    mb = m - nb
+    _, nbp = padded_shape(m, nb)
+    if mb == 0:
+        return torch.zeros((0, 0), dtype=out.dtype, device=out.device)
+    low = torch.tril(out[nbp : nbp + mb, nbp : nbp + mb])
+    return low + low.T - torch.diag(torch.diag(low))
+
+
+def partial_cholesky(front: torch.Tensor, nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-backed partial Cholesky: (panel (m, nb), schur (m−nb, m−nb)),
+    on the front's device and in its dtype."""
+    m = front.shape[0]
+    _, nbp = padded_shape(m, nb)
+    out = factor_padded(pad_front(front, nb), nbp)
+    return panel_of(out, m, nb), schur_of(out, m, nb)
 
 
 def factor_fn():

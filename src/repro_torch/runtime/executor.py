@@ -5,9 +5,34 @@ phase (repro_torch.sparse.symbolic) turns a sparse SPD matrix into an assembly
 tree of malleable tasks, the PM planner (repro_torch.sparse.plan) turns the tree
 into per-front device-group shares with p^α model times — and this module
 actually factorizes the matrix by running those fronts on the card(s): fronts
-are assembled on the host and factored by the hand-written CUDA kernels of
+are assembled and factored by the hand-written CUDA kernels of
 ``repro_torch.kernels`` (their plain PyTorch versions on CPU devices, which
 the caller asks for explicitly with ``devices=[torch.device("cpu")] * k``).
+
+Two routes by a front's padded order.  Both place a front's original
+entries through index maps built once a pattern (``_entry_maps``: one
+vectorised pass over the lower CSC).  A small front (up to
+``VMEM_FRONT_MAX``) is assembled on the host, padded to its shape class,
+batched with others of its class and factored in one launch; its panel
+and Schur block come back to the host.  A large front is assembled on its
+lane (``_run_large``): float64 zeros with a unit diagonal on the padding,
+its original entries scattered through its maps (and ``_kid_pos``; both
+uploaded to a lane on first use), each child's Schur block added in tree
+order by the ``extend_add`` kernel, one cast to the run's dtype — the
+host's arithmetic in the host's order, so the bits are the
+host-assembled front's — then the panel + SYRK pipeline.  Only its panel
+comes back.  Its Schur block stays on the lane, as its factored padded
+output (``_Kept``), when the parent is large too, until the parent's
+worker has added it; to a small parent it comes back as before.  The
+memory bookkeeping counts a kept block as the host copy it replaces, so
+the cap's decisions do not depend on where a block lives: the bookkeeping
+(``memory_cap_bytes``, ``measured_peak_bytes``) models the reference's
+resident bytes, not what a lane holds, which for a kept block is its
+child's whole factored padded output (mp² in the run's dtype, panel and
+padding included; 134 MB at mp = 4,096 in float64 against the 115 MB of
+its Schur block).  The provenance runners assemble every front on the
+host and send a large one through the same panel + SYRK code
+(``_run_large_host``).
 
 Two execution modes share every numeric path (assembly, kernels, extend-add,
 memory accounting) and produce **bit-identical factors**:
@@ -80,15 +105,21 @@ bytes copied between host and device and the useful part of them, the
 pauses of Python's garbage collector) land on ``ExecutionReport.host`` and,
 once per ``run`` (so ``warmup`` adds nothing), in registry counters:
 ``repro_executor_stage_seconds_total{stage}``,
-``repro_executor_copy_bytes_total{kind=copied|useful}`` (useful: each
-front's m² entries sent, its panel and Schur block received),
+``repro_executor_copy_bytes_total{kind=copied|useful}`` (useful: a small
+front's m² entries sent, its panel and Schur block received; everything
+the large route moves, since nothing padded crosses there),
 ``repro_host_gc_seconds_total`` (a ``gc.callbacks`` hook installed for the
 run) and, from the clocks of the threads that ran the large route and
 apart from their stages, ``repro_executor_large_seconds_total`` (inside
-``_run_large``: copy in, padding on the card, the panel + SYRK loop, the
-gather, copy out), ``repro_executor_large_bytes_total`` (the part of
-``copied`` it moved) and ``repro_executor_large_fronts_total``; each large
-front is an ``executor.large`` profiler range.  ``RunReport.metrics``
+``_run_large``: the assembly on the lane, the panel + SYRK loop, the
+copies), ``repro_executor_large_bytes_total`` (the part of ``copied`` it
+moved: original entries and small children's Schur blocks in, panels and
+a small parent's Schur block out), ``repro_executor_large_fronts_total``,
+and ``repro_executor_kept_bytes_total`` / ``repro_executor_kept_blocks_total``
+(the Schur bytes and blocks kept on a lane for a large parent's
+extend-add, counted as the host copies they replace); each large front is
+an ``executor.large`` profiler range.  The index maps' uploads are the
+pattern's, not a run's, and are not counted.  ``RunReport.metrics``
 keeps the reference's names.  Every span and point of a run is stamped
 on the bus clock (``BUS.wall()``; the report's run-relative times are
 shifted by the run's start when published), so consecutive runs lie end
@@ -123,20 +154,24 @@ from repro_torch.distributed.device_groups import (
     pow2_floor,
     scale_group,
 )
-from repro_torch.kernels.frontal_cholesky import VMEM_FRONT_MAX
+from repro_torch.kernels.frontal_cholesky import VMEM_FRONT_MAX, extend_add
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.kernels.ops import (
     batched_front_factor,
     extract_panel_schur,
+    factor_padded,
     pad_front_np,
     padded_shape,
+    panel_of,
     partial_cholesky,
+    schur_of,
 )
 from repro_torch.sparse.multifrontal import (
     Factorization,
     assemble_front_np,
+    extend_add_np,
     lower_csc,
 )
 from repro_torch.sparse.plan import ExecutionPlan
@@ -177,6 +212,14 @@ def _heap_head(heap: list, k: int) -> list:
     return out
 
 
+def _large_range():
+    """An ``executor.large`` profiler range while ``torch.profiler``
+    records, else nothing."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.autograd.profiler.record_function("executor.large")
+    return contextlib.nullcontext()
+
+
 def _default_devices() -> List[torch.device]:
     """Every CUDA device; raises when there is none (the CPU is only ever
     used when the caller passes it explicitly)."""
@@ -197,9 +240,10 @@ class HostTotals:
     ``seconds``: by stage (every name of ``STAGES``); ``gc_seconds``: the
     pauses of Python's garbage collector while the run was in progress;
     ``copied_bytes``: what crossed between host and device (padded stacks
-    both ways, large fronts in, their panels and Schur blocks out);
-    ``useful_bytes``: of those, each front's m² entries sent and its panel
-    and Schur block received.
+    both ways; a large front's original entries and small children's
+    Schur blocks in, its panel and a small parent's Schur block out);
+    ``useful_bytes``: of those, a small front's m² entries sent and its
+    panel and Schur block received, and all the large route moved.
     """
 
     seconds: Dict[str, float]
@@ -454,20 +498,35 @@ class _RunTally:
             "repro_executor_large_fronts_total",
             "fronts factored by _run_large (padded order past VMEM_FRONT_MAX)",
         ).inc(self.large.fronts)
+        reg.counter(
+            "repro_executor_kept_bytes_total",
+            "Schur bytes the large route kept on the card for a large parent's extend-add",
+            unit="bytes",
+        ).inc(self.large.kept_bytes)
+        reg.counter(
+            "repro_executor_kept_blocks_total",
+            "Schur blocks the large route kept on the card for a large parent's extend-add",
+        ).inc(self.large.kept_blocks)
 
 
 class _LargeTally:
-    """The large route's seconds, bytes and fronts on one clock."""
+    """The large route's seconds, bytes and fronts on one clock, and the
+    Schur bytes and blocks it kept on the card for the parents'
+    extend-add."""
 
     def __init__(self) -> None:
         self.seconds = 0.0
         self.bytes = 0.0
         self.fronts = 0
+        self.kept_bytes = 0.0
+        self.kept_blocks = 0
 
     def add(self, other: "_LargeTally") -> None:
         self.seconds += other.seconds
         self.bytes += other.bytes
         self.fronts += other.fronts
+        self.kept_bytes += other.kept_bytes
+        self.kept_blocks += other.kept_blocks
 
 
 class _StageClock:
@@ -567,7 +626,38 @@ class _Inflight:
     dispatch_devices: int
     held_bytes: float  # buffers the worker holds until completion
     t_submit: float
-    large: bool  # per-front partial_cholesky path
+    large: bool  # per-front path: assembled on the lane, panel + SYRK
+
+
+@dataclass
+class _Kept:
+    """A large front's Schur block kept on its lane for a large parent's
+    extend-add: the lower triangle of ``out[off:off+n, off:off+n]``, its
+    factored padded output.  ``nbytes`` is what the block would hold on
+    the host, so the memory bookkeeping counts it as it did there."""
+
+    out: torch.Tensor
+    off: int
+    n: int
+    nbytes: int
+
+    def block(self, device: torch.device) -> torch.Tensor:
+        """The block as a view on ``device``; copied there from another
+        card (the reader's ``.to``), a view of ``out`` on its own."""
+        b = self.out[self.off : self.off + self.n, self.off : self.off + self.n]
+        return b if b.device == torch.device(device) else b.to(device)
+
+
+@dataclass
+class _LargeJob:
+    """What the main thread hands a large front's worker: the front's
+    original entries (float64, in the order of its entry map) and its
+    children's Schur blocks in tree order, each a host array (a small
+    child's) or a :class:`_Kept` (a large child's)."""
+
+    s: int
+    values: np.ndarray
+    kids: List[Tuple[int, object]]
 
 
 class PlanExecutor:
@@ -598,7 +688,9 @@ class PlanExecutor:
     memory_cap_bytes : async-mode byte budget — a dispatch that would push
         resident buffers past the cap is deferred while anything is in
         flight (and shrunk to a single front before being deferred);
-        progress is always guaranteed when the pipeline is empty.
+        progress is always guaranteed when the pipeline is empty.  The
+        resident bytes are the reference's (a block kept on a lane counts
+        as its host copy), not what the lanes hold.
     max_workers : async worker threads; defaults to ``max(2, n_devices)``.
     provenance : amalgamation map
         (:class:`repro_torch.sparse.optimize.Provenance`, or anything with
@@ -664,6 +756,47 @@ class PlanExecutor:
         self._shape: List[Tuple[int, int]] = [
             padded_shape(sn.m, sn.nb) for sn in symb.supernodes
         ]
+        self._tdtype = dtype
+        # index maps: each child's border rows at their padded positions in
+        # a large parent (the pattern's, fixed here); every front's original
+        # entries' places in a matrix's lower CSC, built by the first run of
+        # a pattern (``_entry_maps``); a large front's uploaded to a lane on
+        # first use
+        self._large = [
+            s for s, (mp, _) in enumerate(self._shape) if mp > VMEM_FRONT_MAX
+        ]
+        ns, n = symb.n_supernodes, symb.n
+        nb = [sn.nb for sn in symb.supernodes]
+        cols = np.concatenate([sn.cols for sn in symb.supernodes])
+        self._col_sn = np.empty(n, dtype=np.int64)  # each column's front
+        self._col_sn[cols] = np.repeat(np.arange(ns), nb)
+        self._col_k = np.empty(n, dtype=np.int64)  # and its pivot there
+        self._col_k[cols] = np.concatenate([np.arange(k) for k in nb])
+        # every front's rows as one sorted key (front, row), and where each
+        # front's rows begin in it
+        self._row_key = np.concatenate(
+            [s * n + sn.rows.astype(np.int64) for s, sn in enumerate(symb.supernodes)]
+        )
+        self._row_start = np.concatenate(
+            [[0], np.cumsum([sn.m for sn in symb.supernodes])[:-1]]
+        ).astype(np.int64)
+        self._kid_pos: Dict[int, np.ndarray] = {}
+        for p in self._large:
+            sn = symb.supernodes[p]
+            nbp = self._shape[p][1]
+            for c in self._children[p]:
+                sc = symb.supernodes[c]
+                local = np.searchsorted(sn.rows, sc.rows[sc.nb :])
+                assert np.array_equal(sn.rows[local], sc.rows[sc.nb :]), (
+                    "child border not in front"
+                )
+                self._kid_pos[c] = np.where(
+                    local < sn.nb, local, local + (nbp - sn.nb)
+                ).astype(np.int32)
+        self._entries: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        self._entry_pattern: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._lane_maps: Dict[torch.device, Dict] = {}
+        self._lane_lock = threading.Lock()  # workers upload to one lane at once
 
         self._prov = provenance
         if provenance is not None:
@@ -814,23 +947,143 @@ class PlanExecutor:
             clock.copied += batch.nbytes + out.nbytes
         return out[:b]
 
+    def _entry_maps(self, acsc: sp.csc_matrix) -> None:
+        """Every front's original entries, in one vectorised pass: their
+        indices in the sorted lower CSC's ``data`` and their linear
+        positions in the front, below the diagonal and mirrored
+        (``gather_front_entries``'s assignments; of an entry given twice,
+        the last).  A small front's positions are in its (m, m) block, a
+        large front's in its padded (mp, mp) one.  Built once a pattern: a
+        matrix with other ``indptr`` / ``indices`` rebuilds them and drops
+        what the lanes hold."""
+        if self._entry_pattern is not None and all(
+            np.array_equal(x, y)
+            for x, y in zip(self._entry_pattern, (acsc.indptr, acsc.indices))
+        ):
+            return
+        self._lane_maps = {}
+        symb, n = self.symb, self.symb.n
+        indptr, rows = acsc.indptr, acsc.indices.astype(np.int64)
+        col = np.repeat(np.arange(n), np.diff(indptr))
+        s, k = self._col_sn[col], self._col_k[col]
+        key = s * n + rows
+        g = np.minimum(np.searchsorted(self._row_key, key), len(self._row_key) - 1)
+        # below the diagonal, a row of the front, and not followed by the
+        # same entry again (sorted columns put a repeat next to it)
+        keep = (rows >= col) & (self._row_key[g] == key)
+        keep[:-1] &= ~((col[1:] == col[:-1]) & (rows[1:] == rows[:-1]))
+        idx = np.flatnonzero(keep)
+        idx = idx[np.argsort(s[idx], kind="stable")]  # grouped by front
+        s, k, r = s[idx], k[idx], g[idx] - self._row_start[s[idx]]
+        shape = np.array(self._shape, dtype=np.int64).reshape(-1, 2)
+        m = np.array([sn.m for sn in symb.supernodes], dtype=np.int64)
+        nb = np.array([sn.nb for sn in symb.supernodes], dtype=np.int64)
+        large = shape[:, 0] > VMEM_FRONT_MAX
+        order = np.where(large, shape[:, 0], m)[s]  # the block's order
+        r = np.where(large[s] & (r >= nb[s]), r + (shape[:, 1] - nb)[s], r)
+        lower, mirror = r * order + k, k * order + r
+        bounds = np.searchsorted(s, np.arange(symb.n_supernodes + 1))
+        self._entries = {
+            f: (idx[a:b], lower[a:b], mirror[a:b])
+            for f, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))
+        }
+        self._entry_pattern = (indptr.copy(), acsc.indices.copy())
+
+    def _on_lane(self, key: Tuple[str, int], device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """An index map on ``device``, uploaded on first use: ``("kid",
+        c)`` the child's padded positions (int32), ``("entries", s)`` the
+        front's lower and mirrored linear positions (int64).  The uploads
+        are the pattern's, once a lane, and are not counted as a run's
+        copies."""
+        with self._lane_lock:
+            lane = self._lane_maps.setdefault(device, {})
+            got = lane.get(key)
+            if got is None:
+                kind, i = key
+                arrays = (self._kid_pos[i],) if kind == "kid" else self._entries[i][1:]
+                got = tuple(torch.from_numpy(x).to(device) for x in arrays)
+                lane[key] = got
+        return got
+
     def _run_large(
+        self,
+        job: _LargeJob,
+        device: torch.device,
+        clock: Optional[_StageClock] = None,
+    ) -> Tuple[np.ndarray, object]:
+        """Assemble one large front on ``device`` and factor it through the
+        panel + SYRK pipeline; returns (panel, schur): the panel on the
+        host; the Schur block kept on the lane (:class:`_Kept`) when the
+        parent is large too, else on the host.
+
+        The front is built as the host builds it: float64 zeros (1 on the
+        padding's diagonal), the original entries and their mirror, each
+        child's block added in tree order (``extend_add``), one cast to
+        the run's dtype; so its bits are the host-assembled front's.  The
+        bytes that cross (entries and small children's blocks in, panel
+        and a small parent's Schur block out: all of them the front's
+        own), the seconds, the front and a kept block are counted on
+        ``clock``; while ``torch.profiler`` records, the front is an
+        ``executor.large`` range."""
+        t0 = time.perf_counter()
+        sn = self.symb.supernodes[job.s]
+        m, nb, mb = sn.m, sn.nb, sn.m - sn.nb
+        mp, nbp = self._shape[job.s]
+        with _large_range():
+            f = torch.zeros((mp, mp), dtype=torch.float64, device=device)
+            diag = f.diagonal()
+            diag[nb:nbp] = 1.0
+            diag[nbp + mb :] = 1.0
+            below, mirror = self._on_lane(("entries", job.s), device)
+            values = torch.from_numpy(job.values).to(device)
+            flat = f.view(-1)
+            flat[below] = values
+            flat[mirror] = values
+            moved = job.values.nbytes
+            for c, blk in job.kids:
+                if isinstance(blk, _Kept):
+                    src = blk.block(device)
+                else:
+                    src = torch.from_numpy(blk).to(device)
+                    moved += blk.nbytes
+                extend_add(f, src, self._on_lane(("kid", c), device)[0])
+            job.kids.clear()  # the children's kept blocks go with it
+            src = values = None
+            out = factor_padded(f.to(self._tdtype), nbp)
+            f = None
+            panel = panel_of(out, m, nb).cpu().numpy()
+            moved += panel.nbytes
+            p = sn.parent
+            if mb > 0 and p >= 0 and self._shape[p][0] > VMEM_FRONT_MAX:
+                schur = _Kept(out, nbp, mb, mb * mb * self.dtype.itemsize)
+            else:
+                schur = schur_of(out, m, nb).cpu().numpy()
+                moved += schur.nbytes
+        if clock is not None:
+            clock.copied += moved
+            clock.useful += moved
+            clock.large.seconds += time.perf_counter() - t0
+            clock.large.bytes += moved
+            clock.large.fronts += 1
+            if isinstance(schur, _Kept):
+                clock.large.kept_bytes += schur.nbytes
+                clock.large.kept_blocks += 1
+        return panel, schur
+
+    def _run_large_host(
         self,
         front: np.ndarray,
         nb: int,
         device: torch.device,
         clock: Optional[_StageClock] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Factor one large front through the panel + SYRK pipeline of
-        ``partial_cholesky``; returns (panel, schur) on the host.  The
-        bytes copied both ways, and the seconds and bytes of the large
-        route apart from the stages, are counted on ``clock``; while
-        ``torch.profiler`` records, the front is an ``executor.large``
-        range."""
+        """A large front assembled on the host (the provenance runners')
+        through the same panel + SYRK code (``partial_cholesky``); returns
+        (panel, schur) on the host.  Counted on ``clock`` as
+        ``_run_large`` counts: the front in, its panel and Schur block
+        out."""
         t0 = time.perf_counter()
-        profiled = torch.autograd.profiler._is_profiler_enabled
-        with (torch.autograd.profiler.record_function("executor.large") if profiled
-              else contextlib.nullcontext()):
+        with _large_range():
             panel, schur = partial_cholesky(torch.from_numpy(front).to(device), nb)
             panel, schur = panel.cpu().numpy(), schur.cpu().numpy()
         if clock is not None:
@@ -964,15 +1217,47 @@ class PlanExecutor:
         assert all(panels[c] is not None for c in kids), (
             "dispatch order violates tree precedence"
         )
-        consumed = 0.0
-        kid_updates = []
         t_a0 = time.perf_counter()
-        for c in kids:
-            rows_c, upd_c = updates.pop(c)
-            consumed += float(rows_c.nbytes + upd_c.nbytes)
-            kid_updates.append((rows_c, upd_c))
-        f = assemble_front_np(acsc, sn, kid_updates)
+        kid_updates, consumed = self._pop_children(s, updates)
+        idx, lower, mirror = self._entries[s]
+        f = np.zeros((sn.m, sn.m))
+        flat = f.reshape(-1)
+        flat[lower] = flat[mirror] = acsc.data[idx]
+        for rows_c, upd in kid_updates:
+            extend_add_np(f, sn, rows_c, upd)
         out = f.astype(self.dtype, copy=False)
+        self._assemble_span(s, t_a0)
+        return out, consumed
+
+    def _take_large(
+        self,
+        s: int,
+        acsc: sp.csc_matrix,
+        panels: List[Optional[np.ndarray]],
+        updates: Dict[int, Tuple[np.ndarray, object]],
+    ) -> Tuple[_LargeJob, float]:
+        """The main thread's part of a large front's assembly: pop (free)
+        the children's Schur blocks, kept on a lane or on the host, and
+        gather the front's original entries for its worker.  Returns the
+        job and the consumed CB bytes, counted as ``_assemble`` counts."""
+        assert all(panels[c] is not None for c in self._children[s]), (
+            "dispatch order violates tree precedence"
+        )
+        t_a0 = time.perf_counter()
+        kids, consumed = self._pop_children(s, updates)
+        values = np.asarray(acsc.data[self._entries[s][0]], dtype=np.float64)
+        job = _LargeJob(s, values, [(c, blk) for c, (_, blk) in zip(self._children[s], kids)])
+        self._assemble_span(s, t_a0)
+        return job, consumed
+
+    def _pop_children(self, s: int, updates: Dict) -> Tuple[List, float]:
+        """Pop the children's (rows, Schur block) pairs in tree order, and
+        their bytes (a kept block's as its host copy would hold them)."""
+        kids = [updates.pop(c) for c in self._children[s]]
+        return kids, float(sum(rows.nbytes + blk.nbytes for rows, blk in kids))
+
+    def _assemble_span(self, s: int, t_a0: float) -> None:
+        """The bus span of front ``s``'s assembly, begun at ``t_a0``."""
         if obs_events.enabled():
             epoch = obs_events.BUS.epoch
             obs_events.BUS.span(
@@ -981,15 +1266,17 @@ class PlanExecutor:
                 time.perf_counter() - epoch,
                 cat="front",
                 key=s,
-                children=len(kids),
+                children=len(self._children[s]),
             )
-        return out, consumed
 
     def _store(self, s, panel, schur, panels, updates, clock: _StageClock) -> None:
         """Record a factored front: keep the panel, queue the Schur
-        complement for the parent's extend-add."""
+        complement (a host array, or a block kept on a lane) for the
+        parent's extend-add.  A small front's useful bytes are counted
+        here; the large route counts its own where it copies."""
         sn = self.symb.supernodes[s]
-        clock.useful_front(sn.m, panel, schur)
+        if self._shape[s][0] <= VMEM_FRONT_MAX:
+            clock.useful_front(sn.m, panel, schur)
         panels[s] = panel
         self._mem_panels += float(panel.nbytes)
         if sn.m > sn.nb:
@@ -1038,6 +1325,7 @@ class PlanExecutor:
     ) -> Tuple[Factorization, ExecutionReport]:
         symb = self.symb
         acsc = lower_csc(a)
+        self._entry_maps(acsc)
         clock.lap("scan")
         groups = self._wave_groups()
         ds = self.dispatches()
@@ -1057,13 +1345,18 @@ class PlanExecutor:
 
         for d in ds:
             clock.lap("assemble", n_disp)
-            fronts = []
+            mp, nbp = d.key
+            large = mp > VMEM_FRONT_MAX
+            fronts = []  # assembled fronts; a large front's job for its lane
             consumed = 0.0
             for s in d.supernodes:
-                f, c = self._assemble(s, acsc, panels, updates)
+                f, c = (self._take_large(s, acsc, panels, updates) if large
+                        else self._assemble(s, acsc, panels, updates))
                 consumed += c
                 fronts.append(f)
-            fronts_bytes = float(sum(f.nbytes for f in fronts))
+            fronts_bytes = float(
+                sum(symb.supernodes[s].m ** 2 for s in d.supernodes) * self.dtype.itemsize
+            )
             # extend-add transient: consumed CBs (still counted in
             # _mem_updates) coexist with the assembled fronts
             mem_peak = max(
@@ -1071,21 +1364,19 @@ class PlanExecutor:
             )
             self._mem_updates -= consumed
 
-            mp, nbp = d.key
             disp_devs = self._dispatch_devices(d.supernodes, groups)
-            if not self.shard_dispatch or mp > VMEM_FRONT_MAX:
+            if not self.shard_dispatch or large:
                 disp_devs = disp_devs[:1]  # large fronts run on one lane
             delay = self._delay_for(d.supernodes)
             t0 = time.perf_counter() - t_run0
             if delay > 0:
                 clock.lap("wait", n_disp)
                 time.sleep(delay)  # the straggling device, behind the barrier
-            if mp > VMEM_FRONT_MAX:
-                # large fronts: per-front panel+SYRK pipeline
-                for s, f in zip(d.supernodes, fronts):
-                    sn = symb.supernodes[s]
+            if large:
+                # large fronts: assembled on the lane, per-front panel+SYRK
+                for s, job in zip(d.supernodes, fronts):
                     clock.lap("transfer", n_disp)
-                    panel, schur = self._run_large(f, sn.nb, disp_devs[0], clock)
+                    panel, schur = self._run_large(job, disp_devs[0], clock)
                     clock.lap("extract", n_disp)
                     self._store(s, panel, schur, panels, updates, clock)
                 t1 = time.perf_counter() - t_run0
@@ -1149,6 +1440,7 @@ class PlanExecutor:
         """
         symb = self.symb
         acsc = lower_csc(a)
+        self._entry_maps(acsc)
         clock.lap("scan")
         ndev = len(self.devices)
         by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
@@ -1248,16 +1540,14 @@ class PlanExecutor:
                 out = self._run_batch(batch, nbp, devs, wc)
             return {"out": out, "t0": t0, "t1": now()}
 
-        def worker_large(items, dev, delay, key, lane):
-            # items: [(supernode, front)] — per-front panel+SYRK pipeline
+        def worker_large(jobs, dev, delay, key, lane):
+            # jobs: one _LargeJob a front — assembled on the lane, then
+            # the per-front panel+SYRK pipeline
             t0 = now()
             if delay > 0:
                 time.sleep(delay)
             with _StageClock(clock.tally, "transfer", key, lane) as wc:
-                outs = [
-                    self._run_large(f, symb.supernodes[s].nb, dev, wc)
-                    for s, f in items
-                ]
+                outs = [self._run_large(job, dev, wc) for job in jobs]
             return {"outs": outs, "t0": t0, "t1": now()}
 
         def launch_ready(pool) -> int:
@@ -1326,13 +1616,17 @@ class PlanExecutor:
 
                 t_sub = now()
                 clock.lap("assemble", seq)
-                fronts = []
+                large = mp > VMEM_FRONT_MAX
+                fronts = []  # assembled fronts; a large front's job for its lane
                 consumed = 0.0
                 for s in members:
-                    f, c = self._assemble(s, acsc, panels, updates)
+                    f, c = (self._take_large(s, acsc, panels, updates) if large
+                            else self._assemble(s, acsc, panels, updates))
                     consumed += c
                     fronts.append(f)
-                fronts_bytes = float(sum(f.nbytes for f in fronts))
+                fronts_bytes = float(
+                    sum(symb.supernodes[s].m ** 2 for s in members) * itemsize
+                )
                 # extend-add transient: consumed CBs coexist with the
                 # newly assembled fronts
                 mem_peak = max(
@@ -1346,16 +1640,13 @@ class PlanExecutor:
                 delay = self._delay_for(members)
 
                 devs = self._dispatch_devices(members, groups)
-                if not self.shard_dispatch or mp > VMEM_FRONT_MAX:
+                if not self.shard_dispatch or large:
                     devs = devs[:1]  # large fronts run on one lane
                 lane = min(g.offset for g in groups.values())  # devs[0]'s
-                if mp > VMEM_FRONT_MAX:
+                if large:
                     clock.lap("scan", seq)
                     held = fronts_bytes
-                    fut = pool.submit(
-                        worker_large, list(zip(members, fronts)), devs[0], delay,
-                        seq, lane,
-                    )
+                    fut = pool.submit(worker_large, fronts, devs[0], delay, seq, lane)
                 else:
                     clock.lap("pad", seq)
                     batch = np.stack(
@@ -1387,7 +1678,7 @@ class PlanExecutor:
                     dispatch_devices=len(devs),
                     held_bytes=held,
                     t_submit=t_sub,
-                    large=mp > VMEM_FRONT_MAX,
+                    large=large,
                 )
                 seq += 1
                 n_disp += 1
@@ -1543,7 +1834,7 @@ class PlanExecutor:
                     for s in sns:
                         sn = symb.supernodes[s]
                         clock.lap("transfer", seq)
-                        panel, schur = self._run_large(
+                        panel, schur = self._run_large_host(
                             fronts[s], sn.nb, self.devices[0], clock
                         )
                         clock.useful_front(sn.m, panel, schur)

@@ -176,6 +176,32 @@ def test_syrk_downdate_full_any_k_on_card(cuda, dtype, tol, m, k, rng):
     assert torch.equal(torch.tril(full), torch.tril(lower))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extend_add_on_card(cuda, dtype, rng):
+    """A chain link's extend-add: a 3,794² Schur block, read from the lower
+    triangle of the child's factored 4,096² front at offset 256, into a
+    4,096² float64 parent at strictly increasing positions: the kernel's
+    result is its plain version's bit for bit (signed zeros included), the
+    same bits twice, and one launch each."""
+    n, mp, off = 3794, 4096, 256
+    child = torch.from_numpy(rng.standard_normal((mp, mp))).to(dtype)
+    child[torch.from_numpy(rng.random((mp, mp)) < 0.01)] = -0.0
+    parent = torch.from_numpy(rng.standard_normal((mp, mp)))
+    parent[torch.from_numpy(rng.random((mp, mp)) < 0.01)] = -0.0
+    pos = torch.from_numpy(np.sort(rng.choice(mp, size=n, replace=False)).astype(np.int32))
+    want = parent.clone()
+    fc.extend_add(want, child[off : off + n, off : off + n], pos)
+    outs = []
+    for _ in range(2):
+        got = parent.to(cuda)
+        before = fc.LAUNCHES["extend_add"]
+        fc.extend_add(got, child.to(cuda)[off : off + n, off : off + n], pos.to(cuda))
+        assert fc.LAUNCHES["extend_add"] == before + 1
+        outs.append(got.cpu())
+    for got in outs:
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         fc.front_factor(torch.eye(128, device=cuda, dtype=torch.float16)[None], 128)
@@ -644,7 +670,9 @@ def test_cluster_on_card_two_tenants(cuda):
         sizes = [b for w in cl.workers for b in w.batch_sizes]
     assert all(r.ok for r in results)
     assert stats["n_requeued"] == 0
-    assert all(fc.LAUNCHES[k] > 0 for k in fc.KERNELS)
+    # the workers assemble on the host: the three factor kernels, no extend-add
+    assert all(fc.LAUNCHES[k] > 0 for k in ("front_factor", "panel_factor", "syrk_downdate"))
+    assert fc.LAUNCHES["extend_add"] == 0
     assert fc.PLAIN_RUNS == {k: 0 for k in fc.KERNELS}
     assert max(sizes) > 1
     for r, w, p in zip(results, want, (poisson, spd)):
@@ -1002,9 +1030,12 @@ def test_workload_serving_example_on_card(cuda):
 def test_elasticity_factor_on_card(cuda):
     """18³ free nodes, 17,496 unknowns at 3 a node: the executor on cuda:0
     against the plain dense factor on the card within 1e-11 relative (f64),
-    and the large route's counters count its 9 fronts and their bytes."""
+    and the large route's counters count its 9 fronts, their bytes and the
+    Schur blocks kept on the card."""
     import importlib.util
     from pathlib import Path
+
+    import scipy.sparse as sp
 
     import repro_torch.obs as obs
     from repro_torch.sparse import plain
@@ -1033,8 +1064,24 @@ def test_elasticity_factor_on_card(cuda):
     fact, rep = ex.run(op.matrix(seed, 0), warmup=False)
     reg = obs.REGISTRY
     assert reg.get("repro_executor_large_fronts_total").value == 9
+    # assembled on the card: the entries (float64) and small children's
+    # blocks in, the panel out, and the Schur block only to a small parent
+    lower = sp.tril(op.matrix(seed, 0)).tocsc()
+    sns = symb.supernodes
+
+    def is_large(s):
+        return s >= 0 and ops.padded_shape(sns[s].m, sns[s].nb)[0] > fc.VMEM_FRONT_MAX
+
+    kept = [s for s in range(len(sns)) if is_large(s) and is_large(sns[s].parent)]
+    assert 0 < len(kept) < 9
+    assert reg.get("repro_executor_kept_blocks_total").value == len(kept)
+    assert reg.get("repro_executor_kept_bytes_total").value == sum(
+        (sns[s].m - sns[s].nb) ** 2 * 8 for s in kept)
     assert reg.get("repro_executor_large_bytes_total").value == sum(
-        (sn.m * sn.m + sn.m * sn.nb + (sn.m - sn.nb) ** 2) * 8 for sn in large)
+        (lower.indptr[sn.cols[-1] + 1] - lower.indptr[sn.cols[0]]
+         + sum((k.m - k.nb) ** 2 for c, k in enumerate(sns) if k.parent == s and not is_large(c))
+         + sn.m * sn.nb + (0 if is_large(sn.parent) else (sn.m - sn.nb) ** 2)) * 8
+        for s, sn in enumerate(sns) if is_large(s))
     assert 0 < reg.get("repro_executor_large_seconds_total").value
     k = plain.assemble_q1(op.dims, torch.from_numpy(op.moduli(seed, 0)), device=cuda)
     p = torch.from_numpy(op.perm).to(cuda)

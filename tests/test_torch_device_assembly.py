@@ -1,0 +1,348 @@
+"""The large route's assembly on the lane (``repro_torch.runtime.executor``)
+and its extend-add (``repro_torch.kernels.frontal_cholesky.extend_add``).
+
+A front past ``VMEM_FRONT_MAX`` is built on its lane in float64 as the
+host builds it (``sparse.multifrontal.assemble_front_np``): its original
+entries, then each child's Schur block added in tree order, one cast to
+the run's dtype.  A child that is large too leaves its block on the lane.
+So the panels are held bit for bit to the host-assembled ``factorize``,
+the extend-add bit for bit to the reference's ``extend_add_np``, the
+panels within the reference's front tolerance to the reference's
+``factorize``, the kept blocks' counters to sums over the supernodes, and
+the memory cap's decisions to the reference's async runner (which
+assembles every front on the host).  The port runs on CPU lanes (the
+kernels' plain versions).
+"""
+import itertools
+from concurrent import futures
+
+import jax
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import repro.kernels.ops as rops
+import repro.obs as robs
+import repro.runtime.executor as rexecutor
+import repro.sparse as rsparse
+import repro_torch.kernels.frontal_cholesky as fc
+import repro_torch.kernels.ops as tops
+import repro_torch.obs as obs
+import repro_torch.runtime.executor as texecutor
+import repro_torch.sparse as tsparse
+from repro.sparse.multifrontal import extend_add_np
+from repro.sparse.plan import make_plan as rmake_plan
+from repro.sparse.symbolic import Supernode
+from repro_torch.sparse.multifrontal import factorize, gather_front_entries, lower_csc
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def fresh_obs():
+    obs.enable()
+    obs.reset()
+    yield
+    obs.enable()
+    obs.reset()
+
+
+def bits(x: np.ndarray) -> np.ndarray:
+    """The array's bit patterns (so that -0.0 and +0.0 differ)."""
+    return np.ascontiguousarray(x).view(np.int64 if x.dtype == np.float64 else np.int32)
+
+
+def mirrored(low: np.ndarray) -> np.ndarray:
+    """The host's Schur block from a factored block's lower triangle
+    (``kernels.ops.extract_panel_schur``)."""
+    t = np.tril(low)
+    return t + t.T - np.diag(np.diag(t))
+
+
+# -- the extend-add ----------------------------------------------------------
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("seed", range(4))
+def test_plain_extend_add_is_the_hosts(dtype, seed):
+    """A child's block, read from the lower triangle of a factored padded
+    front (a strided view), added into a float64 parent at a random
+    subset of its rows: ``extend_add_np`` of the mirrored block, bit for
+    bit, signed zeros included."""
+    g = np.random.default_rng(seed)
+    m, n, off = int(g.integers(40, 90)), int(g.integers(1, 40)), int(g.integers(0, 9))
+    rows = np.sort(g.choice(10 * m, size=m, replace=False))
+    rows_c = np.sort(g.choice(rows, size=n, replace=False))
+    parent = g.standard_normal((m, m))
+    parent[g.random((m, m)) < 0.1] = -0.0
+    padded = g.standard_normal((off + n + 3, off + n + 3)).astype(dtype)
+    child = padded[off : off + n, off : off + n]
+    child[g.random((n, n)) < 0.1] = -0.0
+    want = parent.copy()
+    extend_add_np(want, Supernode(cols=rows[:1], rows=rows), rows_c, mirrored(child))
+    got = torch.from_numpy(parent.copy())
+    src = torch.from_numpy(padded)[off : off + n, off : off + n]
+    pos = torch.from_numpy(np.searchsorted(rows, rows_c).astype(np.int32))
+    before = fc.PLAIN_RUNS["extend_add"]
+    fc.extend_add(got, src, pos)
+    assert fc.PLAIN_RUNS["extend_add"] == before + 1
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+    # an uploaded host block (the mirrored one) gives the same bits
+    again = torch.from_numpy(parent.copy())
+    fc.extend_add(again, torch.from_numpy(mirrored(child)), pos)
+    np.testing.assert_array_equal(bits(again.numpy()), bits(want))
+
+
+def test_extend_add_rejects_what_it_does_not_take():
+    dst = torch.zeros(8, 8, dtype=torch.float64)
+    src = torch.ones(4, 4, dtype=torch.float64)
+    pos = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fc.extend_add(dst.float(), src, pos)  # the parent is float64
+    with pytest.raises(ValueError):
+        fc.extend_add(dst, src, pos.long())  # positions are int32
+    with pytest.raises(ValueError):
+        fc.extend_add(dst, src[:2], pos)  # fewer rows than positions
+    with pytest.raises(ValueError):
+        fc.extend_add(dst, torch.ones(8, 8, dtype=torch.float64)[::2, ::2], pos)  # rows not unit-stride
+    fc.extend_add(dst, src[:0, :0], pos[:0])  # nothing to add
+    assert not dst.any()
+
+
+# -- panels against the host's assembly --------------------------------------
+def grid15():
+    a = tsparse.grid_laplacian_2d(15)
+    return tsparse.permute_symmetric(a, tsparse.nested_dissection_2d(15))
+
+
+def dense_chain():
+    """One dense SPD block of order 1,100: a chain of fronts capped at 256
+    pivots, the first padded past 1,024."""
+    g = np.random.default_rng(2**33 + 1100)
+    b = g.standard_normal((1100, 1100))
+    return sp.csr_matrix(b @ b.T / 1100 + np.eye(1100))
+
+
+# (matrix, relax, VMEM_FRONT_MAX): grid 15 with every bordered front large,
+# and the dense chain at the module's threshold (a large leaf, small parents)
+# and at 128 (every link large: each keeps its block for the next)
+MATRICES = {
+    "grid15-128": (grid15, 1, 128),
+    "chain-1024": (dense_chain, 2, None),
+    "chain-128": (dense_chain, 2, 128),
+}
+
+
+def _large(symb, s: int) -> bool:
+    return s >= 0 and tops.padded_shape(symb.supernodes[s].m, symb.supernodes[s].nb)[0] \
+        > texecutor.VMEM_FRONT_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(MATRICES))
+def test_panels_are_the_host_assembled_factorization(case, dtype, monkeypatch):
+    make, relax, vmem = MATRICES[case]
+    if vmem is not None:
+        monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
+    a = make()
+    symb = tsparse.analyze(a, relax=relax)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    want = factorize(a, symb, factor_fn=tops.factor_fn(), dtype=dtype, device="cpu")
+    large = [s for s in range(symb.n_supernodes) if _large(symb, s)]
+    kept = [s for s in large if _large(symb, symb.supernodes[s].parent)]
+    assert large and (bool(kept) == (vmem is not None))
+    item = torch.finfo(dtype).bits // 8
+    for mode, lanes in itertools.product(("async", "waves"), (2, 4)):
+        obs.reset()
+        ex = texecutor.PlanExecutor(symb, plan, devices=[CPU] * lanes, dtype=dtype, mode=mode)
+        fact, _ = ex.run(a, warmup=False)
+        for s, (p, q) in enumerate(zip(fact.panels, want.panels)):
+            assert p.dtype == q.dtype
+            np.testing.assert_array_equal(bits(p), bits(q), err_msg=f"{mode} {lanes} panel {s}")
+        reg = obs.REGISTRY
+        assert reg.get("repro_executor_large_fronts_total").value == len(large)
+        assert reg.get("repro_executor_kept_blocks_total").value == len(kept)
+        assert reg.get("repro_executor_kept_bytes_total").value == sum(
+            (symb.supernodes[s].m - symb.supernodes[s].nb) ** 2 * item for s in kept)
+
+
+# the reference's front tolerance (tests/test_kernels.py), relative to the
+# largest entry: f32 5e-5; f64 1e-12 (tests/test_torch_sparse.py)
+REF_TOL = {torch.float32: 5e-5, torch.float64: 1e-12}
+NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(MATRICES))
+def test_panels_match_the_reference(case, dtype, monkeypatch):
+    """The port's panels, every large front assembled on a lane, against
+    the reference's ``factorize`` (host assembly, its own partial
+    Cholesky) on the same matrix and the same supernodes."""
+    make, relax, vmem = MATRICES[case]
+    if vmem is not None:
+        monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
+    a = make()
+    symb = tsparse.analyze(a, relax=relax)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    fact, _ = texecutor.PlanExecutor(symb, plan, devices=[CPU] * 2, dtype=dtype).run(
+        a, warmup=False)
+    assert obs.REGISTRY.get("repro_executor_large_fronts_total").value > 0
+    x64 = dtype == torch.float64
+    jax.config.update("jax_enable_x64", x64)
+    try:
+        rsymb = rsparse.analyze(a, relax=relax)
+        ref = rsparse.factorize(a, rsymb)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert [(list(x.cols), list(x.rows)) for x in rsymb.supernodes] == [
+        (list(x.cols), list(x.rows)) for x in symb.supernodes]
+    for s, (p, r) in enumerate(zip(fact.panels, ref.panels)):
+        assert p.dtype == r.dtype == NP_DTYPE[dtype]
+        err = np.abs(p.astype(np.float64) - r).max() / max(1.0, np.abs(r).max())
+        assert err <= REF_TOL[dtype], f"panel {s}: {err:.3e}"
+
+
+def test_no_large_front_keeps_nothing():
+    a = grid15()
+    symb = tsparse.analyze(a, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    ex = texecutor.PlanExecutor(symb, plan, devices=[CPU] * 2, dtype=torch.float64)
+    ex.run(a, warmup=False)
+    assert obs.REGISTRY.get("repro_executor_large_fronts_total").value == 0
+    assert obs.REGISTRY.get("repro_executor_kept_blocks_total").value == 0
+    assert obs.REGISTRY.get("repro_executor_kept_bytes_total").value == 0
+
+
+def test_entry_maps_follow_the_pattern(monkeypatch):
+    """A second matrix with another pattern on the same symbolic structure
+    (one entry of the first dropped) rebuilds the maps: its panels are its
+    own host-assembled factorization's."""
+    monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", 128)
+    a = grid15()
+    symb = tsparse.analyze(a, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    ex = texecutor.PlanExecutor(symb, plan, devices=[CPU] * 2, dtype=torch.float64)
+    ex.run(a, warmup=False)
+    b = a.tolil()
+    i, j = sp.tril(a, -1).nonzero()
+    b[i[7], j[7]] = b[j[7], i[7]] = 0.0
+    b = b.tocsr()
+    b.eliminate_zeros()
+    b = b + sp.diags(np.full(a.shape[0], 0.5))
+    assert b.nnz == a.nnz - 2
+    fact, _ = ex.run(b, warmup=False)
+    want = factorize(b, symb, factor_fn=tops.factor_fn(), dtype=torch.float64, device="cpu")
+    for p, q in zip(fact.panels, want.panels):
+        np.testing.assert_array_equal(bits(p), bits(q))
+
+
+@pytest.mark.parametrize("vmem", [128, None])
+def test_entry_maps_are_the_hosts_gather(vmem, monkeypatch):
+    """Every front's original entries placed through its maps (a small
+    front's in its (m, m) block, a large one's in its padded block) are
+    ``gather_front_entries``' block, bit for bit, on a random SPD pattern
+    (fronts of many sizes, rows that skip columns)."""
+    if vmem is not None:
+        monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
+    a = tsparse.random_spd(300, 6.0, np.random.default_rng(2**32 + 7))
+    a = tsparse.permute_symmetric(a, tsparse.min_degree(a))
+    symb = tsparse.analyze(a, relax=2)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    ex = texecutor.PlanExecutor(symb, plan, devices=[CPU], dtype=torch.float64)
+    acsc = lower_csc(a)
+    ex._entry_maps(acsc)
+    assert (len(ex._large) > 0) == (vmem is not None)
+    for s, sn in enumerate(symb.supernodes):
+        idx, lower, mirror = ex._entries[s]
+        mp, nbp = ex._shape[s]
+        order = mp if s in ex._large else sn.m
+        f = np.zeros(order * order)
+        f[lower] = f[mirror] = acsc.data[idx]
+        f = f.reshape(order, order)
+        if s in ex._large:  # the padded layout's rows and columns of the front
+            at = np.r_[0 : sn.nb, nbp : nbp + sn.m - sn.nb]
+            assert not np.delete(np.delete(f, at, 0), at, 1).any()
+            f = f[np.ix_(at, at)]
+        np.testing.assert_array_equal(bits(f), bits(gather_front_entries(acsc, sn)))
+
+
+# -- the memory cap's decisions ----------------------------------------------
+_ORDER = itertools.count()
+
+
+class _OrderedPool(futures.ThreadPoolExecutor):
+    """Real worker threads; each future keeps its place in submission order."""
+
+    def submit(self, fn, *args, **kwargs):
+        fut = super().submit(fn, *args, **kwargs)
+        fut.order = next(_ORDER)
+        return fut
+
+
+def _pin_completions(monkeypatch, module, bus_obs):
+    """Make ``module``'s async runner complete its dispatches oldest first;
+    returns a list that counts deferrals (waits begun with a device free
+    and fronts ready, which only the memory cap causes)."""
+    allocs, deferred = [], []
+
+    class Alloc(module.BuddyAllocator):
+        def __init__(self, *args):
+            super().__init__(*args)
+            allocs.append(self)
+
+    def oldest_first(fs, return_when=None):
+        fut = min(fs, key=lambda f: f.order)
+        futures.wait([fut])
+        depth = bus_obs.BUS.events("queue_depth")
+        if allocs[-1].n_free > 0 and depth and depth[-1].value > 0:
+            deferred.append(fut.order)
+        return {fut}, set(fs) - {fut}
+
+    monkeypatch.setattr(module, "ThreadPoolExecutor", _OrderedPool)
+    monkeypatch.setattr(module, "futures_wait", oldest_first)
+    monkeypatch.setattr(module, "BuddyAllocator", Alloc)
+    return deferred
+
+
+def test_memory_cap_defers_as_the_reference(monkeypatch):
+    """Grid 15 with every bordered front large, on 4 lanes under a cap
+    below its uncapped peak: the port, whose large fronts keep their
+    blocks on the lane, defers and sheds exactly as the reference's async
+    runner, which holds every block on the host."""
+    for module in (texecutor, tops, rexecutor, rops):
+        monkeypatch.setattr(module, "VMEM_FRONT_MAX", 128)
+    a = grid15()
+    cap = 20_000  # an eighth of the uncapped peak (153,464 B): 46 deferrals
+    runs = {}
+    for name, module, bus_obs in (("port", texecutor, obs), ("ref", rexecutor, robs)):
+        deferred = _pin_completions(monkeypatch, module, bus_obs)
+        bus_obs.enable()
+        bus_obs.reset()
+        if name == "port":
+            symb = tsparse.analyze(a, relax=1)
+            plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+            fact, report = texecutor.PlanExecutor(
+                symb, plan, devices=[CPU] * 4, dtype=torch.float64, memory_cap_bytes=cap,
+            ).run(a, warmup=False)
+            kept = obs.REGISTRY.get("repro_executor_kept_blocks_total").value
+        else:
+            jax.config.update("jax_enable_x64", True)
+            try:
+                rsymb = rsparse.analyze(a, relax=1)
+                rplan = rmake_plan(rsymb.task_tree(), 8, alpha=0.9)
+                fact, report = rexecutor.PlanExecutor(
+                    rsymb, rplan, devices=jax.devices()[:1] * 4, mode="async",
+                    memory_cap_bytes=cap,
+                ).run(a, warmup=False)
+            finally:
+                jax.config.update("jax_enable_x64", False)
+        depth = [e.value for e in bus_obs.BUS.events("queue_depth")]
+        runs[name] = (fact, report, depth, len(deferred))
+    (fp, rp, qp, dp), (fr, rr, qr, dr) = runs["port"], runs["ref"]
+    assert kept > 0
+    assert dp == dr and dp > 0
+    assert rp.n_dispatches == rr.n_dispatches
+    assert [(e.wave, e.front) for e in rp.trace] == [(e.wave, e.front) for e in rr.trace]
+    assert qp == qr
+    assert rp.measured_peak_bytes == rr.measured_peak_bytes
+    for p, r in zip(fp.panels, fr.panels):
+        assert np.abs(p - r).max() <= 1e-12 * max(1.0, np.abs(r).max())

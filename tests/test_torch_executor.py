@@ -175,7 +175,8 @@ def test_obs_metric_names_match_reference(grid23):
     assert port == ref | {"repro_executor_stage_seconds_total",
                           "repro_executor_copy_bytes_total", "repro_host_gc_seconds_total",
                           "repro_executor_large_seconds_total",
-                          "repro_executor_large_bytes_total", "repro_executor_large_fronts_total"}
+                          "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
+                          "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total"}
     assert {"repro_dispatches_total", "repro_queue_depth",
             "repro_batch_width", "repro_peak_resident_bytes"} <= port
 

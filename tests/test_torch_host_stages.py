@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -131,12 +132,16 @@ def test_warmup_adds_nothing(grid15):
 @pytest.mark.parametrize("fused", [False, True])
 def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkeypatch, mode,
                                                          large_from, fused):
-    """Batched fronts cross as their padded (mp, mp) stack both ways; a
-    large front crosses as its (m, m) front in, its panel and Schur block
-    out; the useful part is each front's m² entries sent, its (m, nb)
-    panel and (m−nb)² Schur block received.  ``large_from`` lowers the
-    large route's threshold so both routes run; ``fused`` runs the
-    amalgamated plan's group dispatches, which move the same fronts."""
+    """Batched fronts cross as their padded (mp, mp) stack both ways; the
+    useful part is each front's m² entries sent, its (m, nb) panel and
+    (m−nb)² Schur block received.  A large front is assembled on its lane:
+    its original entries (float64) and its small children's Schur blocks
+    cross in, its panel out, and its Schur block only where the parent is
+    small; nothing padded crosses, so all of it is useful.  ``large_from``
+    lowers the large route's threshold so both routes run; ``fused`` runs
+    the amalgamated plan's group dispatches, which assemble on the host
+    and send a large front as its (m, m) front in, its panel and Schur
+    block out."""
     if large_from is not None:
         monkeypatch.setattr(executor_module, "VMEM_FRONT_MAX", large_from)
     limit = executor_module.VMEM_FRONT_MAX
@@ -148,17 +153,30 @@ def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkey
         ex = executor(grid15, mode)
     _, rep = ex.run(grid15[0], warmup=False)
     item = np.dtype(np.float64).itemsize
+    sns = grid15[1].supernodes
+    lower = sp.tril(grid15[0]).tocsc()
+
+    def large(s):
+        return s >= 0 and padded_shape(sns[s].m, sns[s].nb)[0] > limit
+
     copied = useful = n_large = 0
-    for sn in grid15[1].supernodes:
+    for s, sn in enumerate(sns):
         m, nb = sn.m, sn.nb
-        own = (m * m + m * nb + (m - nb) ** 2) * item
         mp, _ = padded_shape(m, nb)
-        useful += own
-        if mp > limit:
-            copied += own
-            n_large += 1
-        else:
+        own = (m * m + m * nb + (m - nb) ** 2) * item
+        if not large(s):
             copied += 2 * mp * mp * item
+            useful += own
+            continue
+        n_large += 1
+        if not fused:
+            entries = lower.indptr[sn.cols[-1] + 1] - lower.indptr[sn.cols[0]]
+            small_kids = sum((k.m - k.nb) ** 2 for c, k in enumerate(sns)
+                             if k.parent == s and not large(c))
+            schur = 0 if large(sn.parent) else (m - nb) ** 2
+            own = entries * 8 + (small_kids + m * nb + schur) * item
+        copied += own
+        useful += own
     assert (n_large > 0) == (large_from is not None)
     assert rep.host.copied_bytes == copied
     assert rep.host.useful_bytes == useful

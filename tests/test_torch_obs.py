@@ -86,6 +86,7 @@ PORT_STAGE_SPANS = {("dispatch", stage) for stage in (
 PORT_COUNTERS = {"repro_executor_stage_seconds_total", "repro_executor_copy_bytes_total",
                  "repro_host_gc_seconds_total", "repro_executor_large_seconds_total",
                  "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
+                 "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total",
                  "repro_sparse_analyze_seconds_total",
                  "repro_sparse_supervariable_width"}
 
