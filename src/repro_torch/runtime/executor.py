@@ -9,33 +9,35 @@ are assembled and factored by the hand-written CUDA kernels of
 ``repro_torch.kernels`` (their plain PyTorch versions on CPU devices, which
 the caller asks for explicitly with ``devices=[torch.device("cpu")] * k``).
 
-Two routes by a front's padded order.  Both place a front's original
-entries through index maps built once a pattern (``_entry_maps``: one
-vectorised pass over the lower CSC).  A small front (up to
-``VMEM_FRONT_MAX``) is assembled on the host, padded to its shape class,
-batched with others of its class and factored in one launch; its panel
-and Schur block come back to the host.  A large front is assembled on its
-lane (``_run_large``): float64 zeros with a unit diagonal on the padding,
-its original entries scattered through its maps (and ``_kid_pos``; both
-uploaded to a lane on first use), each child's Schur block added in tree
-order by the ``extend_add`` kernel, one cast to the run's dtype — the
-host's arithmetic in the host's order, so the bits are the
-host-assembled front's — then the panel + SYRK pipeline.  Only its panel
-comes back.  Its Schur block stays on the lane, as its factored padded
-output (``_Kept``), when the parent is large too, until the parent's
-worker has added it; to a small parent it comes back as before.  The
-memory bookkeeping counts a kept block as the host copy it replaces, so
-the cap's decisions do not depend on where a block lives: the bookkeeping
+One numeric path per front, shared by four runners.  A front's original
+entries are placed through index maps built once a pattern
+(``_entry_maps``: one vectorised pass over the lower CSC), and a front
+takes one of two routes by its padded order.  A small front (up to
+``VMEM_FRONT_MAX``) is assembled on the host (``_assemble``), padded to
+its shape class, batched with others of its class and factored in one
+launch; its panel and Schur block come back to the host.  A large front
+is assembled on its lane (``_take_large`` gathers its entries and its
+children's blocks, ``_run_large`` builds it): float64 zeros with a unit
+diagonal on the padding, its original entries scattered through its maps
+(and ``_kid_pos``; both uploaded to a lane on first use), each child's
+Schur block added in tree order by the ``extend_add`` kernel, one cast to
+the run's dtype — the host's arithmetic in the host's order, so the bits
+are the host-assembled front's — then the panel + SYRK pipeline.  Only
+its panel comes back.  Its Schur block stays on the lane, as its factored
+padded output (``_Kept``), when the parent is large too, until the
+parent's worker has added it; to a small parent it comes back.  The
+memory bookkeeping counts a large front as its m² entries at the run's
+dtype and a kept block as the host copy it replaces, so the cap's
+decisions do not depend on where a block lives: the bookkeeping
 (``memory_cap_bytes``, ``measured_peak_bytes``) models the reference's
 resident bytes, not what a lane holds, which for a kept block is its
 child's whole factored padded output (mp² in the run's dtype, panel and
 padding included; 134 MB at mp = 4,096 in float64 against the 115 MB of
-its Schur block).  The provenance runners assemble every front on the
-host and send a large one through the same panel + SYRK code
-(``_run_large_host``).
+its Schur block).
 
-Two execution modes share every numeric path (assembly, kernels, extend-add,
-memory accounting) and produce **bit-identical factors**:
+The runners differ only in what they dispatch and when; each keeps its
+state on one ``_Run`` (panels, queued Schur blocks, memory counters,
+trace) and produces **bit-identical factors**:
 
 1. *Async futures runner* (``mode="async"``, the default) — the dask-style
    per-front state machine of the online scheduler made real.  A front is
@@ -52,16 +54,22 @@ memory accounting) and produce **bit-identical factors**:
    last (only) consumer assembles, which happens as early as possible, so
    the measured peak tightens relative to the wave path; an optional
    ``memory_cap_bytes`` defers dispatches that would exceed a byte budget
-   while anything is in flight.  The ready set is one min-heap of
-   ``(priority, front)`` per shape class, the classes fixed per executor,
-   so a dispatch takes the class with the smallest top without rescanning
-   the ready fronts.
+   while anything is in flight.  The ready set (``_Ready``) is one
+   min-heap of ``(priority, front)`` per shape class, so a dispatch takes
+   the class with the smallest top without rescanning the ready fronts.
 2. *Wave runner* (``mode="waves"``, the legacy path, kept for A/B
    benchmarking) — ``plan.waves()`` gives maximal same-start task sets;
    each wave's fronts are assembled, batched per shape class, and factored
    before the next wave starts.  One straggler front stalls the entire
    wave front behind the barrier — exactly the rigidity the malleable
    model exists to avoid, and what ``benchmarks.bench_async`` measures.
+
+An amalgamated plan (``provenance=``) runs the same two loops with the
+fused group as the unit: a group is one dispatch (the async runner's
+groups share one heap), and its members factor level by level on the
+first lane through the same per-front path (``_run_group``), a large
+member's Schur block kept there for a large parent inside the group or
+outside it.
 
 Both modes emit a :class:`TraceEvent` per front (planned and carved group
 sizes, dispatch width, wall-clock start/end, flops, and — new with the
@@ -83,9 +91,9 @@ result back to the host (which synchronizes the launching stream); fronts
 sharing a dispatch share its interval, and throughput is measured at
 dispatch granularity (one point per kernel launch — see
 ``ExecutionReport.dispatch_points``) for the α re-fit.  ``warmup=True``
-builds or loads the kernel library and runs identity fronts of every
-shape class once on every lane it will use, untimed, so no build lands
-inside the trace.  A list of devices may repeat one card as several
+builds or loads the kernel library and runs an identity front of every
+small shape class once on every distinct device, untimed, so no build
+lands inside the trace.  A list of devices may repeat one card as several
 logical lanes.
 
 Sharded dispatch (``shard_dispatch``, on by default for CUDA devices): a
@@ -165,12 +173,10 @@ from repro_torch.kernels.ops import (
     pad_front_np,
     padded_shape,
     panel_of,
-    partial_cholesky,
     schur_of,
 )
 from repro_torch.sparse.multifrontal import (
     Factorization,
-    assemble_front_np,
     extend_add_np,
     lower_csc,
 )
@@ -196,20 +202,6 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # async path a worker's whole group, its assembly, padding and extraction
 # included).
 STAGES = ("scan", "assemble", "pad", "wait", "extract", "report", "transfer")
-
-
-def _heap_head(heap: list, k: int) -> list:
-    """The ``k`` smallest entries of a heap, in order, without popping: a
-    best-first walk down from the root (the children of ``i`` are at
-    ``2i + 1`` and ``2i + 2``), so O(k log k) whatever the heap's size."""
-    out, frontier = [], [(heap[0], 0)]
-    while frontier and len(out) < k:
-        e, i = heapq.heappop(frontier)
-        out.append(e)
-        for j in (2 * i + 1, 2 * i + 2):
-            if j < len(heap):
-                heapq.heappush(frontier, (heap[j], j))
-    return out
 
 
 def _large_range():
@@ -604,7 +596,6 @@ class _StageClock:
     def __exit__(self, *exc) -> None:
         self.close()
 
-
 # ----------------------------------------------------------------------
 @dataclass(frozen=True)
 class _Dispatch:
@@ -620,13 +611,11 @@ class _Inflight:
     """Bookkeeping for one issued async dispatch."""
 
     seq: int  # dispatch sequence number (the trace's wave field)
-    supernodes: Tuple[int, ...]
-    key: Tuple[int, int]
+    units: Tuple[int, ...]  # fronts, or one fused group
     groups: Dict[int, DeviceGroup]
     dispatch_devices: int
     held_bytes: float  # buffers the worker holds until completion
     t_submit: float
-    large: bool  # per-front path: assembled on the lane, panel + SYRK
 
 
 @dataclass
@@ -658,6 +647,178 @@ class _LargeJob:
     s: int
     values: np.ndarray
     kids: List[Tuple[int, object]]
+
+
+def _top(item: Tuple[object, list]):
+    return item[1][0]
+
+
+class _Ready:
+    """The ready units of an async run (fronts, or an amalgamated plan's
+    fused groups): one min-heap of priorities per class, a front's padded
+    shape class (fused groups share one class), and their count.  A
+    priority is ``(planned start, id)``; the ids make the keys unique, so
+    heap order is the reference's ``min`` over a ready list."""
+
+    def __init__(self) -> None:
+        self.heaps: Dict[object, list] = {}
+        self.n = 0
+
+    def push(self, key, prio: Tuple[float, int]) -> None:
+        heapq.heappush(self.heaps.setdefault(key, []), prio)
+        self.n += 1
+
+    def top(self) -> Tuple[object, list]:
+        """The class holding the highest-priority ready unit, and its heap."""
+        return min(self.heaps.items(), key=_top)
+
+    @staticmethod
+    def head(heap: list, k: int) -> List[int]:
+        """The ids of a heap's ``k`` smallest entries, in order, without
+        popping: a best-first walk down from the root (the children of
+        ``i`` are at ``2i + 1`` and ``2i + 2``), so O(k log k) whatever
+        the heap's size."""
+        out, frontier = [], [(heap[0], 0)]
+        while frontier and len(out) < k:
+            e, i = heapq.heappop(frontier)
+            out.append(e[-1])
+            for j in (2 * i + 1, 2 * i + 2):
+                if j < len(heap):
+                    heapq.heappush(frontier, (heap[j], j))
+        return out
+
+    def pop(self, key, k: int) -> None:
+        """Remove the ``k`` smallest entries of class ``key``."""
+        heap = self.heaps[key]
+        for _ in range(k):
+            heapq.heappop(heap)
+        if not heap:
+            del self.heaps[key]
+        self.n -= k
+
+    def take(self, pred: Callable[[int], bool]) -> List[int]:
+        """Remove and return the ready ids for which ``pred`` holds."""
+        out = []
+        for key, heap in list(self.heaps.items()):
+            out += [e[-1] for e in heap if pred(e[-1])]
+            heap[:] = [e for e in heap if not pred(e[-1])]
+            heapq.heapify(heap)
+            if not heap:
+                del self.heaps[key]
+        self.n -= len(out)
+        return out
+
+
+class _Run:
+    """What one ``run`` owns: the factor's panels, the Schur blocks queued
+    for their parents' extend-add (``updates``: rows and a host array or a
+    :class:`_Kept`), the memory bookkeeping, the ready set and the
+    allocator of the async runner, the trace and the dispatch count, on a
+    clock (``now``) that starts with it.
+
+    The bookkeeping is the reference's: ``held`` the panels and queued
+    blocks (a kept block at its host copy's bytes), ``inflight`` what
+    issued dispatches hold, ``peak`` the largest resident sum noted."""
+
+    def __init__(
+        self, ex: "PlanExecutor", acsc: sp.csc_matrix, clock: _StageClock
+    ) -> None:
+        self.ex, self.acsc, self.clock = ex, acsc, clock
+        self.panels: List[Optional[np.ndarray]] = [None] * ex.symb.n_supernodes
+        self.updates: Dict[int, Tuple[np.ndarray, object]] = {}
+        self.held = self.inflight = self.peak = 0.0
+        self.ready = _Ready()
+        self.alloc: Optional[BuddyAllocator] = None
+        self.trace: List[TraceEvent] = []
+        self.n_disp = 0
+        self.t_run0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self.t_run0
+
+    def note(self, extra: float = 0.0) -> None:
+        """Raise the peak to the resident bytes plus a transient ``extra``."""
+        self.peak = max(self.peak, self.held + self.inflight + extra)
+
+    def record(self, u: int, g: Optional[DeviceGroup], wave: int, dispatch_devices: int,
+               t0: float, t1: float, batched: int, t_ready: float = math.nan,
+               t_submit: float = math.nan) -> None:
+        """The trace events of unit ``u``'s fronts, on the group ``g``
+        carved for it (None: one device, lane 0)."""
+        ex = self.ex
+        for s in ex._fronts_of[u]:
+            self.trace.append(
+                TraceEvent(
+                    front=s,
+                    wave=wave,
+                    devices=ex._planned[u],
+                    devices_used=g.size if g else 1,
+                    dispatch_devices=dispatch_devices,
+                    t_start=t0,
+                    t_end=t1,
+                    flops=ex.symb.supernodes[s].flops,
+                    batched=batched,
+                    t_ready=t_ready,
+                    t_submit=t_submit,
+                    device0=g.offset if g else 0,
+                )
+            )
+
+    def publish_state(self) -> None:
+        """Live counter samples on the bus clock: the bus points become
+        perfetto counter tracks; the gauges feed the dashboard."""
+        if not obs_events.enabled():
+            return
+        bus = obs_events.BUS
+        t = bus.wall()
+        resident = self.held + self.inflight
+        bus.point("queue_depth", self.ready.n, t=t)
+        bus.point("resident_bytes", resident, t=t)
+        reg = obs_metrics.REGISTRY
+        reg.gauge(
+            "repro_queue_depth",
+            "ready fronts awaiting dispatch",
+            unit="fronts",
+            track=True,
+        ).set(self.ready.n, t=t)
+        reg.gauge(
+            "repro_resident_bytes",
+            "live host buffers (panels + CBs + in-flight)",
+            unit="bytes",
+        ).set(resident, t=t)
+        reg.gauge(
+            "repro_buddy_free_devices",
+            "free devices in the buddy allocator",
+            unit="devices",
+        ).set(self.alloc.n_free, t=t)
+        reg.gauge(
+            "repro_buddy_fragmentation",
+            "1 - largest free run / free devices",
+        ).set(self.alloc.fragmentation, t=t)
+
+    def finish(self, mode: str) -> Tuple[Factorization, ExecutionReport]:
+        """The factorization and the report, with the plan's projected
+        peak, published to the bus on its clock."""
+        self.clock.lap("report")
+        ex = self.ex
+        assert all(p is not None for p in self.panels), "plan missed supernodes"
+        report = ExecutionReport(
+            plan_makespan=ex.plan.makespan,
+            plan_alpha=ex.plan.alpha,
+            plan_devices=ex.plan.total_devices,
+            measured_makespan=max((e.t_end for e in self.trace), default=0.0),
+            trace=self.trace,
+            n_dispatches=self.n_disp,
+            n_devices=len(ex.devices),
+            interpret=ex.interpret,
+            measured_peak_bytes=float(self.peak),
+            projected_peak_bytes=float(ex._projected_peak()),
+            mode=mode,
+        )
+        if obs_events.enabled():
+            _publish_report_obs(report, self.t_run0 - obs_events.BUS.epoch)
+        fact = Factorization(symb=ex.symb, panels=self.panels)  # type: ignore[arg-type]
+        return fact, report
 
 
 class PlanExecutor:
@@ -799,8 +960,36 @@ class PlanExecutor:
         self._lane_lock = threading.Lock()  # workers upload to one lane at once
 
         self._prov = provenance
-        if provenance is not None:
+        # the units a run makes ready and dispatches: fronts, or the fused
+        # groups of an amalgamated plan; each unit's fronts, its parent
+        # unit, how many child units it waits for, its ready class, and
+        # what it adds to a dispatch's byte estimate (a front's m² entries
+        # at the run's dtype, and a small front's padded copy)
+        item = self.dtype.itemsize
+        self._front_bytes = [sn.m * sn.m * item for sn in symb.supernodes]
+        if provenance is None:
+            self._fronts_of: List[Sequence[int]] = [(s,) for s in range(ns)]
+            self._unit_parent = [sn.parent for sn in symb.supernodes]
+            self._unit_kids = [len(c) for c in self._children]
+            self._unit_key: Sequence[object] = self._shape
+            self._unit_bytes = [
+                fb + (0 if mp > VMEM_FRONT_MAX else mp * mp * item)
+                for fb, (mp, _) in zip(self._front_bytes, self._shape)
+            ]
+        else:
             self._build_groups(provenance)
+        # each unit's planned start (its dispatch priority), planned group
+        # size, and that size rescaled to the executing mesh
+        by_task = {t.label: t for t in plan.tasks if t.label >= 0}
+        units = range(len(self._fronts_of))
+        self._prio = [(by_task[u].start if u in by_task else 0.0, u) for u in units]
+        self._planned = [by_task[u].devices if u in by_task else 1 for u in units]
+        self._want = [
+            scale_group(by_task[u].devices, plan.total_devices, len(self.devices))
+            if u in by_task and by_task[u].devices > 0
+            else 1
+            for u in units
+        ]
 
     def _build_groups(self, prov) -> None:
         """Expand the provenance map into executable group structure.
@@ -812,15 +1001,15 @@ class PlanExecutor:
         """
         ns = self.symb.n_supernodes
         self._groups: List[List[int]] = []
-        self._gid_of = np.full(ns, -1, dtype=np.int64)
+        gid_of = np.full(ns, -1, dtype=np.int64)
         for g, mem in enumerate(prov.groups):
             sns = [int(prov.labels[m]) for m in mem if int(prov.labels[m]) >= 0]
             self._groups.append(sns)
             for s in sns:
-                if self._gid_of[s] >= 0:
+                if gid_of[s] >= 0:
                     raise ValueError(f"supernode {s} in two provenance groups")
-                self._gid_of[s] = g
-        missing = np.flatnonzero(self._gid_of < 0)
+                gid_of[s] = g
+        missing = np.flatnonzero(gid_of < 0)
         if missing.size:
             raise ValueError(
                 f"provenance does not cover supernodes {missing[:5].tolist()}"
@@ -841,32 +1030,31 @@ class PlanExecutor:
                     levels.append([])
                 levels[level[s]].append(s)
             self._group_levels.append(levels)
-        # distinct external child groups / the single external parent
-        self._group_ext_children: List[List[int]] = []
-        self._group_parent: List[int] = []
+        # the fronts whose Schur blocks enter a group from outside, the
+        # distinct child groups it waits for, and its single parent group
+        self._group_in: List[List[int]] = []
+        self._unit_kids, self._unit_parent = [], []
         for g, sns in enumerate(self._groups):
-            ext = sorted(
-                {
-                    int(self._gid_of[c])
-                    for s in sns
-                    for c in self._children[s]
-                    if self._gid_of[c] != g
-                }
-            )
-            self._group_ext_children.append(ext)
+            inflow = [c for s in sns for c in self._children[s] if gid_of[c] != g]
+            self._group_in.append(inflow)
+            self._unit_kids.append(len({int(gid_of[c]) for c in inflow}))
             pg = -1
             for s in sns:
                 p = self.symb.supernodes[s].parent
-                if p >= 0 and self._gid_of[p] != g:
-                    pg = int(self._gid_of[p])
-            self._group_parent.append(pg)
+                if p >= 0 and gid_of[p] != g:
+                    pg = int(gid_of[p])
+            self._unit_parent.append(pg)
+        self._fronts_of = self._groups
+        self._unit_key = [None] * len(self._groups)  # one ready class
+        self._unit_bytes = [
+            sum(self._front_bytes[s] for s in sns) for sns in self._groups
+        ]
 
     # ------------------------------------------------------------------
     def dispatches(self) -> List[_Dispatch]:
         """The static wave-mode dispatch schedule (shapes only).
 
-        Derived from the plan alone, so it can drive both warmup
-        compilation and the timed wave run.  The async runner forms its
+        Derived from the plan alone.  The async runner forms its
         dispatches dynamically from the ready set instead.
         """
         out: List[_Dispatch] = []
@@ -1070,64 +1258,16 @@ class PlanExecutor:
                 clock.large.kept_blocks += 1
         return panel, schur
 
-    def _run_large_host(
-        self,
-        front: np.ndarray,
-        nb: int,
-        device: torch.device,
-        clock: Optional[_StageClock] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """A large front assembled on the host (the provenance runners')
-        through the same panel + SYRK code (``partial_cholesky``); returns
-        (panel, schur) on the host.  Counted on ``clock`` as
-        ``_run_large`` counts: the front in, its panel and Schur block
-        out."""
-        t0 = time.perf_counter()
-        with _large_range():
-            panel, schur = partial_cholesky(torch.from_numpy(front).to(device), nb)
-            panel, schur = panel.cpu().numpy(), schur.cpu().numpy()
-        if clock is not None:
-            nbytes = front.nbytes + panel.nbytes + schur.nbytes
-            clock.copied += nbytes
-            clock.large.seconds += time.perf_counter() - t0
-            clock.large.bytes += nbytes
-            clock.large.fronts += 1
-        return panel, schur
-
-    def warmup(
-        self,
-        ds: Optional[List[_Dispatch]] = None,
-        groups: Optional[Dict[int, DeviceGroup]] = None,
-    ) -> None:
-        """Build or load the kernel library and run one identity front of
-        every small wave-dispatch shape class on each device it will use
-        (untimed): with sharding on, every lane of the dispatch's group,
-        so no card's first launch (module load, shared-memory opt-in)
-        lands inside the timed run."""
-        groups = self._wave_groups() if groups is None else groups
-        seen = set()
-        for d in self.dispatches() if ds is None else ds:
-            mp, nbp = d.key
-            if mp > VMEM_FRONT_MAX:
-                continue
-            devs = self._dispatch_devices(d.supernodes, groups)
-            for dev in devs if self.shard_dispatch else devs[:1]:
-                if (mp, nbp, dev) in seen:
-                    continue
-                seen.add((mp, nbp, dev))
-                self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
-
-    def _warmup_async(self) -> None:
+    def warmup(self) -> None:
         """Build or load the kernel library and run one identity front of
         every small shape class on every distinct device (untimed), so no
-        build lands inside the timed region.  This covers every lane a
-        sharded dispatch can engage, so the async runners need no
-        plan-derived ``warmup`` beside it."""
+        card's first launch (module load, shared-memory opt-in) lands
+        inside a timed run.  This covers every lane a dispatch of any
+        runner can engage."""
         keys = sorted({k for k in self._shape if k[0] <= VMEM_FRONT_MAX})
         for dev in dict.fromkeys(self.devices):
             for mp, nbp in keys:
                 self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
-
     def _dispatch_devices(
         self, supernodes: Sequence[int], groups: Dict[int, DeviceGroup]
     ) -> List:
@@ -1172,53 +1312,47 @@ class PlanExecutor:
         self, a: sp.csr_matrix, warmup: bool = True
     ) -> Tuple[Factorization, ExecutionReport]:
         """Factorize ``a`` by executing the plan; returns the factorization
-        and the measured-vs-projected report.  Dispatches to the async
-        futures runner or the legacy wave runner per ``self.mode``; an
-        amalgamated plan (``provenance=``) takes the group-dispatch
-        variants of the same two runners.  The run's host totals (see
-        ``STAGES``) are kept on the report's ``host``; ``warmup`` adds
-        nothing to them."""
+        and the measured-vs-projected report.  Takes the async futures
+        runner or the wave runner per ``self.mode``, over fronts or, for an
+        amalgamated plan (``provenance=``), over fused groups.  The run's
+        host totals (see ``STAGES``) are kept on the report's ``host``;
+        ``warmup`` adds nothing to them."""
         if warmup:
-            if self._prov is None and self.mode == "waves":
-                self.warmup()
-            else:
-                self._warmup_async()
-        if self._prov is not None:
-            runner = self._run_waves_prov if self.mode == "waves" else self._run_async_prov
+            self.warmup()
+        if self.mode == "async":
+            runner = self._run_async
         else:
-            runner = self._run_waves if self.mode == "waves" else self._run_async
+            runner = self._run_waves if self._prov is None else self._run_waves_prov
         tally = _RunTally(self.dtype.itemsize)
         hook = tally.on_gc
         gc.callbacks.append(hook)
         try:
             with _StageClock(tally, "assemble") as clock:
-                fact, report = runner(a, clock)
+                acsc = lower_csc(a)
+                self._entry_maps(acsc)
+                clock.lap("scan")
+                st = _Run(self, acsc, clock)
+                runner(st)
+                fact, report = st.finish(self.mode)
         finally:
             gc.callbacks.remove(hook)
         report.host = tally.totals()
         tally.publish()
         return fact, report
 
-    # -- shared numeric helpers ----------------------------------------
+    # -- one numeric path per front, shared by every runner --------------
     def _assemble(
-        self,
-        s: int,
-        acsc: sp.csc_matrix,
-        panels: List[Optional[np.ndarray]],
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]],
+        self, s: int, acsc: sp.csc_matrix, updates: Dict[int, Tuple[np.ndarray, object]]
     ) -> Tuple[np.ndarray, float]:
-        """Assemble front ``s`` (original entries + children extend-add),
-        popping — i.e. freeing — the children's Schur buffers.  Returns
-        (front, consumed CB bytes).  Children are folded in tree order
-        regardless of completion order, so the float summation order (and
-        therefore the factor bits) is identical across modes."""
+        """Assemble small front ``s`` on the host (original entries +
+        children extend-add), popping — i.e. freeing — the children's
+        Schur blocks from ``updates``.  Returns (front, consumed CB
+        bytes).  Children are folded in tree order regardless of
+        completion order, so the float summation order (and therefore the
+        factor bits) is identical across runners."""
         sn = self.symb.supernodes[s]
-        kids = self._children[s]
-        assert all(panels[c] is not None for c in kids), (
-            "dispatch order violates tree precedence"
-        )
         t_a0 = time.perf_counter()
-        kid_updates, consumed = self._pop_children(s, updates)
+        kid_updates, consumed = self._pop_children(self._children[s], updates)
         idx, lower, mirror = self._entries[s]
         f = np.zeros((sn.m, sn.m))
         flat = f.reshape(-1)
@@ -1230,31 +1364,28 @@ class PlanExecutor:
         return out, consumed
 
     def _take_large(
-        self,
-        s: int,
-        acsc: sp.csc_matrix,
-        panels: List[Optional[np.ndarray]],
-        updates: Dict[int, Tuple[np.ndarray, object]],
+        self, s: int, acsc: sp.csc_matrix, updates: Dict[int, Tuple[np.ndarray, object]]
     ) -> Tuple[_LargeJob, float]:
-        """The main thread's part of a large front's assembly: pop (free)
-        the children's Schur blocks, kept on a lane or on the host, and
-        gather the front's original entries for its worker.  Returns the
-        job and the consumed CB bytes, counted as ``_assemble`` counts."""
-        assert all(panels[c] is not None for c in self._children[s]), (
-            "dispatch order violates tree precedence"
-        )
+        """The host's part of a large front's assembly: pop (free) the
+        children's Schur blocks from ``updates``, kept on a lane or on the
+        host, and gather the front's original entries for ``_run_large``.
+        Returns the job and the consumed CB bytes, counted as
+        ``_assemble`` counts."""
         t_a0 = time.perf_counter()
-        kids, consumed = self._pop_children(s, updates)
+        kids, consumed = self._pop_children(self._children[s], updates)
         values = np.asarray(acsc.data[self._entries[s][0]], dtype=np.float64)
         job = _LargeJob(s, values, [(c, blk) for c, (_, blk) in zip(self._children[s], kids)])
         self._assemble_span(s, t_a0)
         return job, consumed
 
-    def _pop_children(self, s: int, updates: Dict) -> Tuple[List, float]:
-        """Pop the children's (rows, Schur block) pairs in tree order, and
-        their bytes (a kept block's as its host copy would hold them)."""
-        kids = [updates.pop(c) for c in self._children[s]]
-        return kids, float(sum(rows.nbytes + blk.nbytes for rows, blk in kids))
+    def _pop_children(self, kids: Sequence[int], updates: Dict) -> Tuple[List, float]:
+        """Pop the (rows, Schur block) pairs of ``kids`` in order from
+        ``updates``, the dict that holds them (a run's, or a fused
+        group's), and their bytes (a kept block's as its host copy would
+        hold them)."""
+        assert all(c in updates for c in kids), "dispatch order violates tree precedence"
+        blocks = [updates.pop(c) for c in kids]
+        return blocks, float(sum(rows.nbytes + blk.nbytes for rows, blk in blocks))
 
     def _assemble_span(self, s: int, t_a0: float) -> None:
         """The bus span of front ``s``'s assembly, begun at ``t_a0``."""
@@ -1269,561 +1400,131 @@ class PlanExecutor:
                 children=len(self._children[s]),
             )
 
-    def _store(self, s, panel, schur, panels, updates, clock: _StageClock) -> None:
-        """Record a factored front: keep the panel, queue the Schur
-        complement (a host array, or a block kept on a lane) for the
-        parent's extend-add.  A small front's useful bytes are counted
-        here; the large route counts its own where it copies."""
+    def _gather(
+        self, st: _Run, members: Sequence[int], large: bool
+    ) -> Tuple[List, float]:
+        """Assemble a dispatch's fronts from the run's blocks (a large
+        front's job for its lane) and note the extend-add transient, the
+        consumed blocks beside the new fronts, before the blocks leave the
+        count.  Returns the fronts and their bytes."""
+        fronts, consumed = [], 0.0
+        for s in members:
+            f, c = (self._take_large(s, st.acsc, st.updates) if large
+                    else self._assemble(s, st.acsc, st.updates))
+            consumed += c
+            fronts.append(f)
+        fronts_bytes = float(sum(self._front_bytes[s] for s in members))
+        st.note(fronts_bytes)
+        st.held -= consumed
+        return fronts, fronts_bytes
+
+    def _pad(self, members: Sequence[int], fronts: Sequence[np.ndarray]) -> np.ndarray:
+        """Small fronts padded to their shape class and stacked."""
+        return np.stack(
+            [pad_front_np(f, self.symb.supernodes[s].nb, self.dtype)
+             for s, f in zip(members, fronts)]
+        )
+
+    def _store(
+        self, s, panel, schur, panels, updates, clock: Optional[_StageClock] = None
+    ) -> int:
+        """Record a factored front in ``panels`` and queue its Schur block
+        (a host array, or a block kept on a lane) in ``updates`` for the
+        parent's extend-add, unless ``schur`` is None (a fused group's
+        member whose parent is in the group).  Returns the bytes it keeps.
+        A small front's useful bytes are counted on ``clock``; the large
+        route counts its own where it copies."""
         sn = self.symb.supernodes[s]
-        if self._shape[s][0] <= VMEM_FRONT_MAX:
+        if clock is not None and self._shape[s][0] <= VMEM_FRONT_MAX:
             clock.useful_front(sn.m, panel, schur)
         panels[s] = panel
-        self._mem_panels += float(panel.nbytes)
-        if sn.m > sn.nb:
-            updates[s] = (sn.rows[sn.nb :], schur)
-            self._mem_updates += float(sn.rows[sn.nb :].nbytes + schur.nbytes)
+        kept = panel.nbytes
+        if sn.m > sn.nb and schur is not None:
+            rows = sn.rows[sn.nb :]
+            updates[s] = (rows, schur)
+            kept += rows.nbytes + schur.nbytes
+        return kept
 
-    def _make_report(
-        self,
-        trace: List[TraceEvent],
-        n_disp: int,
-        mem_peak: float,
-        mode: str,
-        t_run0: float,
-    ) -> ExecutionReport:
-        """The report of a run that started at ``t_run0`` (perf_counter),
-        with the plan's projected peak, published to the bus on its
+    def _land_batch(self, members, out: np.ndarray, panels, updates, clock) -> int:
+        """Cut a factored stack's panels and Schur blocks and store them;
+        returns the bytes kept."""
+        kept = 0
+        for s, o in zip(members, out):
+            sn = self.symb.supernodes[s]
+            panel, schur = extract_panel_schur(o, sn.m, sn.nb)
+            kept += self._store(s, panel, schur, panels, updates, clock)
+        return kept
+
+    def _work(self, st: _Run, seq: int, lane: int, delay: float, fixed: bool, fn, *args):
+        """A dispatch on a worker thread: ``fn(*args, clock)`` on the
+        thread's own ``transfer`` clock (``fixed`` for a fused group, which
+        stalls itself); returns its result and its interval on the run's
         clock."""
-        measured = max((e.t_end for e in trace), default=0.0)
-        report = self._build_report(
-            trace, n_disp, mem_peak, self._projected_peak(), mode, measured
-        )
-        if obs_events.enabled():
-            _publish_report_obs(report, t_run0 - obs_events.BUS.epoch)
-        return report
+        t0 = st.now()
+        if delay > 0:
+            time.sleep(delay)  # the straggling device — only this
+            # dispatch's ancestors wait for it
+        with _StageClock(st.clock.tally, "transfer", seq, lane, fixed=fixed) as wc:
+            out = fn(*args, wc)
+        return out, t0, st.now()
 
-    def _build_report(
-        self, trace, n_disp, mem_peak, projected_peak, mode, measured
-    ) -> ExecutionReport:
-        return ExecutionReport(
-            plan_makespan=self.plan.makespan,
-            plan_alpha=self.plan.alpha,
-            plan_devices=self.plan.total_devices,
-            measured_makespan=measured,
-            trace=trace,
-            n_dispatches=n_disp,
-            n_devices=len(self.devices),
-            interpret=self.interpret,
-            measured_peak_bytes=float(mem_peak),
-            projected_peak_bytes=float(projected_peak),
-            mode=mode,
-        )
-
-    # -- wave runner (legacy, barrier-synchronous) ---------------------
-    def _run_waves(
-        self, a: sp.csr_matrix, clock: _StageClock
-    ) -> Tuple[Factorization, ExecutionReport]:
-        symb = self.symb
-        acsc = lower_csc(a)
-        self._entry_maps(acsc)
-        clock.lap("scan")
-        groups = self._wave_groups()
-        ds = self.dispatches()
-        by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        panels: List[Optional[np.ndarray]] = [None] * symb.n_supernodes
-        trace: List[TraceEvent] = []
-        n_disp = 0
-        # measured peak over the real buffers: retained panels + pending
-        # Schur updates + the dispatch's assembled fronts (the executor's
-        # realization of the schedule's memory timeline)
-        self._mem_panels = 0.0
-        self._mem_updates = 0.0
-        mem_peak = 0.0
-        t_run0 = time.perf_counter()
-
-        for d in ds:
-            clock.lap("assemble", n_disp)
-            mp, nbp = d.key
-            large = mp > VMEM_FRONT_MAX
-            fronts = []  # assembled fronts; a large front's job for its lane
-            consumed = 0.0
-            for s in d.supernodes:
-                f, c = (self._take_large(s, acsc, panels, updates) if large
-                        else self._assemble(s, acsc, panels, updates))
-                consumed += c
-                fronts.append(f)
-            fronts_bytes = float(
-                sum(symb.supernodes[s].m ** 2 for s in d.supernodes) * self.dtype.itemsize
-            )
-            # extend-add transient: consumed CBs (still counted in
-            # _mem_updates) coexist with the assembled fronts
-            mem_peak = max(
-                mem_peak, self._mem_panels + self._mem_updates + fronts_bytes
-            )
-            self._mem_updates -= consumed
-
-            disp_devs = self._dispatch_devices(d.supernodes, groups)
-            if not self.shard_dispatch or large:
-                disp_devs = disp_devs[:1]  # large fronts run on one lane
-            delay = self._delay_for(d.supernodes)
-            t0 = time.perf_counter() - t_run0
-            if delay > 0:
-                clock.lap("wait", n_disp)
-                time.sleep(delay)  # the straggling device, behind the barrier
-            if large:
-                # large fronts: assembled on the lane, per-front panel+SYRK
-                for s, job in zip(d.supernodes, fronts):
-                    clock.lap("transfer", n_disp)
-                    panel, schur = self._run_large(job, disp_devs[0], clock)
-                    clock.lap("extract", n_disp)
-                    self._store(s, panel, schur, panels, updates, clock)
-                t1 = time.perf_counter() - t_run0
-            else:
-                clock.lap("pad", n_disp)
-                batch = np.stack(
-                    [
-                        pad_front_np(f, symb.supernodes[s].nb, self.dtype)
-                        for s, f in zip(d.supernodes, fronts)
-                    ]
-                )
-                mem_peak = max(
-                    mem_peak,
-                    self._mem_panels
-                    + self._mem_updates
-                    + fronts_bytes
-                    + float(batch.nbytes),
-                )
-                clock.lap("transfer", n_disp)
-                out = self._run_batch(batch, nbp, disp_devs, clock)
-                t1 = time.perf_counter() - t_run0
-                clock.lap("extract", n_disp)
-                for s, o in zip(d.supernodes, out):
-                    sn = symb.supernodes[s]
-                    panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-                    self._store(s, panel, schur, panels, updates, clock)
-            n_disp += 1
-            for s in d.supernodes:
-                sn = symb.supernodes[s]
-                g = groups.get(s)
-                trace.append(
-                    TraceEvent(
-                        front=s,
-                        wave=d.wave,
-                        devices=by_task[s].devices if s in by_task else 1,
-                        devices_used=g.size if g else 1,
-                        dispatch_devices=len(disp_devs),
-                        t_start=t0,
-                        t_end=t1,
-                        flops=sn.flops,
-                        batched=len(d.supernodes),
-                        device0=g.offset if g else 0,
-                    )
-                )
-
-        clock.lap("report")
-        assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(trace, n_disp, mem_peak, "waves", t_run0)
-        return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
-
-    # -- async futures runner (per-front state machine) ----------------
-    def _run_async(
-        self, a: sp.csr_matrix, clock: _StageClock
-    ) -> Tuple[Factorization, ExecutionReport]:
-        """Event-driven execution: fronts dispatch the instant their
-        children's Schur complements land; no wave barrier.
-
-        The main thread owns all bookkeeping (readiness, assembly,
-        extend-add, memory accounting, trace); worker threads only run
-        the kernel dispatch, so no lock is needed beyond the futures.
-        """
-        symb = self.symb
-        acsc = lower_csc(a)
-        self._entry_maps(acsc)
-        clock.lap("scan")
-        ndev = len(self.devices)
-        by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-
-        n = symb.n_supernodes
-        itemsize = self.dtype.itemsize
-        # plan-derived dispatch priority (earliest planned start first) and
-        # desired group size, rescaled to the executing mesh
-        prio = {
-            s: (by_task[s].start if s in by_task else 0.0, s) for s in range(n)
-        }
-        want = {
-            s: (
-                scale_group(
-                    by_task[s].devices, self.plan.total_devices, ndev
-                )
-                if s in by_task and by_task[s].devices > 0
-                else 1
-            )
-            for s in range(n)
-        }
-
-        n_unfinished = np.array(
-            [len(self._children[s]) for s in range(n)], dtype=np.int64
-        )
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        panels: List[Optional[np.ndarray]] = [None] * n
-        trace: List[TraceEvent] = []
-        alloc = BuddyAllocator(ndev)
-        in_flight: Dict = {}  # Future -> _Inflight
-        t_ready: Dict[int, float] = {}
-        # the ready fronts: one min-heap of (prio, front) per shape class;
-        # prio ends in the front's id, so heap order is priority order
-        ready: Dict[Tuple[int, int], List[Tuple[Tuple[float, int], int]]] = {}
-        n_ready = 0
-        self._mem_panels = 0.0
-        self._mem_updates = 0.0
-        mem_inflight = 0.0
-        mem_peak = 0.0
-        n_done = 0
-        n_disp = 0
-        seq = 0
-
-        t_run0 = time.perf_counter()
-
-        def make_ready(s: int, t: float) -> None:
-            nonlocal n_ready
-            t_ready[s] = t
-            heapq.heappush(ready.setdefault(self._shape[s], []), (prio[s], s))
-            n_ready += 1
-
-        def now() -> float:
-            return time.perf_counter() - t_run0
-
-        def publish_state() -> None:
-            """Live counter samples on the bus clock: the bus points become
-            perfetto counter tracks; the gauges feed the dashboard."""
-            if not obs_events.enabled():
-                return
-            bus = obs_events.BUS
-            t = bus.wall()
-            resident = self._mem_panels + self._mem_updates + mem_inflight
-            bus.point("queue_depth", n_ready, t=t)
-            bus.point("resident_bytes", resident, t=t)
-            reg = obs_metrics.REGISTRY
-            reg.gauge(
-                "repro_queue_depth",
-                "ready fronts awaiting dispatch",
-                unit="fronts",
-                track=True,
-            ).set(n_ready, t=t)
-            reg.gauge(
-                "repro_resident_bytes",
-                "live host buffers (panels + CBs + in-flight)",
-                unit="bytes",
-            ).set(resident, t=t)
-            reg.gauge(
-                "repro_buddy_free_devices",
-                "free devices in the buddy allocator",
-                unit="devices",
-            ).set(alloc.n_free, t=t)
-            reg.gauge(
-                "repro_buddy_fragmentation",
-                "1 - largest free run / free devices",
-            ).set(alloc.fragmentation, t=t)
-
-        for s in range(n):
-            if n_unfinished[s] == 0:
-                make_ready(s, 0.0)
-
-        def worker_small(batch, nbp, devs, delay, key, lane):
-            t0 = now()
-            if delay > 0:
-                time.sleep(delay)  # the straggling device — only this
-                # dispatch's ancestors wait for it
-            with _StageClock(clock.tally, "transfer", key, lane) as wc:
-                out = self._run_batch(batch, nbp, devs, wc)
-            return {"out": out, "t0": t0, "t1": now()}
-
-        def worker_large(jobs, dev, delay, key, lane):
-            # jobs: one _LargeJob a front — assembled on the lane, then
-            # the per-front panel+SYRK pipeline
-            t0 = now()
-            if delay > 0:
-                time.sleep(delay)
-            with _StageClock(clock.tally, "transfer", key, lane) as wc:
-                outs = [self._run_large(job, dev, wc) for job in jobs]
-            return {"outs": outs, "t0": t0, "t1": now()}
-
-        def launch_ready(pool) -> int:
-            """Issue as many dispatches as devices/memory admit; returns
-            how many were launched."""
-            nonlocal mem_inflight, mem_peak, n_disp, n_ready, seq
-            clock.lap("scan", seq)
-            launched = 0
-            while n_ready:
-                if alloc.n_free == 0:
-                    break
-                # the class holding the highest-priority ready front
-                key = min(ready, key=lambda k: ready[k][0])
-                heap = ready[key]
-                mp, nbp = key
-                # power-of-two batch sizes only, as in the reference, so
-                # dispatch counts compare one to one with it (the remainder
-                # stays ready for the next dispatch); large fronts one by one
-                k = (
-                    1
-                    if mp > VMEM_FRONT_MAX
-                    else pow2_floor(min(len(heap), self.max_batch))
-                )
-                members = [s for _, s in _heap_head(heap, k)]
-
-                def dispatch_bytes(ms) -> float:
-                    fb = sum(
-                        symb.supernodes[s].m ** 2 * itemsize for s in ms
-                    )
-                    bb = 0 if mp > VMEM_FRONT_MAX else len(ms) * mp * mp * itemsize
-                    return float(fb + bb)
-
-                if self.memory_cap_bytes is not None:
-                    resident = (
-                        self._mem_panels + self._mem_updates + mem_inflight
-                    )
-                    while (
-                        len(members) > 1
-                        and resident + dispatch_bytes(members)
-                        > self.memory_cap_bytes
-                    ):
-                        members = members[:-1]  # shed the lowest priority
-                    if resident + dispatch_bytes(members) > self.memory_cap_bytes:
-                        if in_flight or launched:
-                            break  # wait for buffers to free
-                        # pipeline empty: dispatch anyway (progress beats
-                        # the cap, same as the wave path's single dispatch)
-
-                groups: Dict[int, DeviceGroup] = {}
-                for s in members:
-                    g = alloc.alloc(want[s])
-                    if g is None:
-                        break
-                    groups[s] = g
-                if not groups:
-                    break  # no free device — wait for a completion
-                # every chosen member joins the dispatch: the batch is one
-                # kernel launch sharded over the carved groups' union, so
-                # fronts beyond the free capacity time-share it (same
-                # discipline as the wave carver's oversubscription rule)
-                for _ in members:
-                    heapq.heappop(heap)
-                if not heap:
-                    del ready[key]
-                n_ready -= len(members)
-
-                t_sub = now()
-                clock.lap("assemble", seq)
-                large = mp > VMEM_FRONT_MAX
-                fronts = []  # assembled fronts; a large front's job for its lane
-                consumed = 0.0
-                for s in members:
-                    f, c = (self._take_large(s, acsc, panels, updates) if large
-                            else self._assemble(s, acsc, panels, updates))
-                    consumed += c
-                    fronts.append(f)
-                fronts_bytes = float(
-                    sum(symb.supernodes[s].m ** 2 for s in members) * itemsize
-                )
-                # extend-add transient: consumed CBs coexist with the
-                # newly assembled fronts
-                mem_peak = max(
-                    mem_peak,
-                    self._mem_panels
-                    + self._mem_updates
-                    + mem_inflight
-                    + fronts_bytes,
-                )
-                self._mem_updates -= consumed
-                delay = self._delay_for(members)
-
-                devs = self._dispatch_devices(members, groups)
-                if not self.shard_dispatch or large:
-                    devs = devs[:1]  # large fronts run on one lane
-                lane = min(g.offset for g in groups.values())  # devs[0]'s
-                if large:
-                    clock.lap("scan", seq)
-                    held = fronts_bytes
-                    fut = pool.submit(worker_large, fronts, devs[0], delay, seq, lane)
-                else:
-                    clock.lap("pad", seq)
-                    batch = np.stack(
-                        [
-                            pad_front_np(f, symb.supernodes[s].nb, self.dtype)
-                            for s, f in zip(members, fronts)
-                        ]
-                    )
-                    clock.lap("scan", seq)
-                    mem_peak = max(
-                        mem_peak,
-                        self._mem_panels
-                        + self._mem_updates
-                        + mem_inflight
-                        + fronts_bytes
-                        + float(batch.nbytes),
-                    )
-                    held = float(batch.nbytes)
-                    fut = pool.submit(
-                        worker_small, batch, nbp, devs, delay, seq, lane
-                    )
-                del fronts
-                mem_inflight += held
-                in_flight[fut] = _Inflight(
-                    seq=seq,
-                    supernodes=tuple(members),
-                    key=key,
-                    groups=groups,
-                    dispatch_devices=len(devs),
-                    held_bytes=held,
-                    t_submit=t_sub,
-                    large=large,
-                )
-                seq += 1
-                n_disp += 1
-                launched += 1
-                publish_state()
-            return launched
-
-        def complete(fut) -> None:
-            nonlocal mem_inflight, mem_peak, n_done
-            info = in_flight.pop(fut)
-            clock.lap("extract", info.seq)
-            res = fut.result()
-            t0, t1 = res["t0"], res["t1"]
-            if info.large:
-                for s, (panel, schur) in zip(info.supernodes, res["outs"]):
-                    self._store(s, panel, schur, panels, updates, clock)
-            else:
-                for s, o in zip(info.supernodes, res["out"]):
-                    sn = symb.supernodes[s]
-                    panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-                    self._store(s, panel, schur, panels, updates, clock)
-            mem_inflight -= info.held_bytes
-            mem_peak = max(
-                mem_peak, self._mem_panels + self._mem_updates + mem_inflight
-            )
-            for s in info.supernodes:
-                g = info.groups.get(s)
-                if g is not None:
-                    alloc.free(g)
-                sn = symb.supernodes[s]
-                trace.append(
-                    TraceEvent(
-                        front=s,
-                        wave=info.seq,
-                        devices=by_task[s].devices if s in by_task else 1,
-                        devices_used=g.size if g else 1,
-                        dispatch_devices=info.dispatch_devices,
-                        t_start=t0,
-                        t_end=t1,
-                        flops=sn.flops,
-                        batched=len(info.supernodes),
-                        t_ready=t_ready[s],
-                        t_submit=info.t_submit,
-                        device0=g.offset if g is not None else 0,
-                    )
-                )
-                # the completion event: the parent becomes ready the
-                # instant its last child's Schur complement lands
-                p = symb.supernodes[s].parent
-                if p >= 0:
-                    n_unfinished[p] -= 1
-                    if n_unfinished[p] == 0:
-                        make_ready(p, t1)
-            n_done += len(info.supernodes)
-            publish_state()
-
-        workers = self.max_workers or max(2, ndev)
-        pool = ThreadPoolExecutor(max_workers=workers)
-        try:
-            while n_done < n:
-                launched = launch_ready(pool)
-                if in_flight:
-                    clock.lap("wait")
-                    done, _ = futures_wait(
-                        set(in_flight), return_when=FIRST_COMPLETED
-                    )
-                    for fut in done:
-                        complete(fut)
-                elif not launched:
-                    raise RuntimeError(
-                        "async executor stalled with ready fronts"
-                    )
-            clock.lap("report")
-        finally:
-            pool.shutdown(wait=True)
-
-        assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(trace, n_disp, mem_peak, "async", t_run0)
-        return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
-
-
-    # -- amalgamated-plan runners (provenance group dispatches) --------
     def _run_group(
         self,
         gid: int,
         acsc: sp.csc_matrix,
-        ext_cb: Dict[int, Tuple[np.ndarray, np.ndarray]],
-        clock: _StageClock,
+        cb: Dict[int, Tuple[np.ndarray, object]],
         seq: int,
+        clock: _StageClock,
     ) -> Dict:
-        """Factor one fused group's member fronts; the worker body shared
-        by both provenance runners (pure compute — no shared state is
-        mutated, the callers own all bookkeeping).  Its stages are timed
-        on ``clock``, the calling thread's, under the dispatch's sequence
-        number ``seq``; a worker's ``fixed`` clock counts it all as
-        ``transfer``.
+        """Factor one fused group's member fronts; the body both fused
+        runners share (the caller lands its results in the run).  Its
+        stages are timed on ``clock``, the calling thread's, under the
+        dispatch's sequence number ``seq``; a worker's ``fixed`` clock
+        counts it all as ``transfer``.
 
-        ``ext_cb`` holds the Schur complements crossing into the group
-        from already-finished external children.  Levels run children
-        before parents; within a level, same-shape small members factor
-        as **one batched launch** (each front is its own CTA, so batching
-        never changes a front's bits) and each member still assembles via
-        ``assemble_front_np`` with its children folded in tree order —
-        the bit-identity discipline of ``_assemble``, unchanged.
+        ``cb`` holds the Schur blocks entering the group from its external
+        children; the members queue theirs there too.  Levels run children
+        before parents, and each member takes the per-front path of a
+        plain run on the first lane: a level's small members of one shape
+        class assembled by ``_assemble`` and factored in batches of up to
+        ``max_batch`` (each front is its own CTA, so batching never
+        changes a front's bits), a large one assembled and factored on the
+        lane by ``_run_large``, which keeps its Schur block there when the
+        parent is large too.
 
         Returns per-member ``(s, panel, schur)`` (``schur`` only for
-        members whose parent lies outside the group), the dispatch's
-        wall-clock interval, and the transient byte peak the group held.
+        members whose parent lies outside the group) and the transient
+        byte peak the group held, each front counted as its m² entries at
+        the run's dtype.
         """
-        symb = self.symb
         members = self._groups[gid]
-        inset = set(members)
-        cb = dict(ext_cb)
-        results: List[Tuple[int, np.ndarray, Optional[np.ndarray]]] = []
-        t0 = time.perf_counter()
         delay = self._delay_for(members)
         if delay > 0:
             clock.lap("wait", seq)
             time.sleep(delay)  # one injected stall per *dispatch*: fused
             # members share the launch, so a group pays its slowest member
             # once — the whole point of amalgamation
-        held = float(
-            sum(r.nbytes + u.nbytes for r, u in cb.values())
-        )
+        held = float(sum(r.nbytes + u.nbytes for r, u in cb.values()))
         peak = held
-        panels_local: Dict[int, np.ndarray] = {}
+        panels: Dict[int, np.ndarray] = {}
+        dev = self.devices[0]
         for level in self._group_levels[gid]:
             clock.lap("assemble", seq)
-            fronts: Dict[int, np.ndarray] = {}
+            fronts: Dict[int, object] = {}
             consumed = 0.0
             for s in level:
-                sn = symb.supernodes[s]
-                kid_updates = [cb[c] for c in self._children[s]]
-                f = assemble_front_np(acsc, sn, kid_updates)
-                fronts[s] = f.astype(self.dtype, copy=False)
-                # extend-add transient: the children's CBs coexist with
-                # the assembled front until this pop
-                peak = max(peak, held + float(fronts[s].nbytes))
-                for c in self._children[s]:
-                    r, u = cb.pop(c)
-                    consumed += float(r.nbytes + u.nbytes)
-                held += float(fronts[s].nbytes)
+                large = self._shape[s][0] > VMEM_FRONT_MAX
+                fronts[s], c = (self._take_large(s, acsc, cb) if large
+                                else self._assemble(s, acsc, cb))
+                # extend-add transient: the children's blocks coexist with
+                # the assembled front
+                peak = max(peak, held + self._front_bytes[s])
+                consumed += c
+                held += self._front_bytes[s]
             peak = max(peak, held)
             held -= consumed
 
+            kept = 0
             classes: Dict[Tuple[int, int], List[int]] = {}
             for s in level:
                 classes.setdefault(self._shape[s], []).append(s)
@@ -1832,376 +1533,274 @@ class PlanExecutor:
                 sns = classes[key]
                 if mp > VMEM_FRONT_MAX:
                     for s in sns:
-                        sn = symb.supernodes[s]
                         clock.lap("transfer", seq)
-                        panel, schur = self._run_large_host(
-                            fronts[s], sn.nb, self.devices[0], clock
-                        )
-                        clock.useful_front(sn.m, panel, schur)
-                        panels_local[s] = panel
-                        if sn.m > sn.nb:
-                            cb[s] = (sn.rows[sn.nb :], schur)
+                        panel, schur = self._run_large(fronts[s], dev, clock)
+                        kept += self._store(s, panel, schur, panels, cb, clock)
                     continue
                 for lo in range(0, len(sns), self.max_batch):
                     chunk = sns[lo : lo + self.max_batch]
                     clock.lap("pad", seq)
-                    batch = np.stack(
-                        [
-                            pad_front_np(
-                                fronts[s], symb.supernodes[s].nb, self.dtype
-                            )
-                            for s in chunk
-                        ]
-                    )
+                    batch = self._pad(chunk, [fronts[s] for s in chunk])
                     peak = max(peak, held + float(batch.nbytes))
                     clock.lap("transfer", seq)
-                    out = self._run_batch(batch, nbp, self.devices[:1], clock)
+                    out = self._run_batch(batch, nbp, [dev], clock)
                     clock.lap("extract", seq)
-                    for s, o in zip(chunk, out):
-                        sn = symb.supernodes[s]
-                        panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-                        clock.useful_front(sn.m, panel, schur)
-                        panels_local[s] = panel
-                        if sn.m > sn.nb:
-                            cb[s] = (sn.rows[sn.nb :], schur)
-            for s in level:
-                sn = symb.supernodes[s]
-                held += float(panels_local[s].nbytes)
-                if sn.m > sn.nb:
-                    held += float(cb[s][1].nbytes + cb[s][0].nbytes)
-                held -= float(fronts[s].nbytes)
+                    kept += self._land_batch(chunk, out, panels, cb, clock)
+            held += kept - sum(self._front_bytes[s] for s in level)
             peak = max(peak, held)
-
-        for s in members:
-            sn = symb.supernodes[s]
-            ext = sn.parent < 0 or sn.parent not in inset
-            schur = cb[s][1] if (ext and sn.m > sn.nb) else None
-            results.append((s, panels_local[s], schur))
         return {
-            "results": results,
-            "t0": t0,
-            "t1": time.perf_counter(),
+            "results": [(s, panels[s], cb[s][1] if s in cb else None) for s in members],
             "transient": peak,
         }
 
-    def _pop_ext_cb(
-        self,
-        gid: int,
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]],
-    ) -> Tuple[Dict[int, Tuple[np.ndarray, np.ndarray]], float]:
-        """Pop the Schur complements entering group ``gid`` from outside
-        (main-thread bookkeeping; the bytes stay counted in
-        ``_mem_updates`` until the caller subtracts the returned total —
-        the extend-add transient)."""
-        ext: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        consumed = 0.0
-        for s in self._groups[gid]:
-            for c in self._children[s]:
-                if self._gid_of[c] != gid:
-                    r, u = updates.pop(c)
-                    ext[c] = (r, u)
-                    consumed += float(r.nbytes + u.nbytes)
-        return ext, consumed
-
-    def _store_group(self, res: Dict, panels, updates) -> None:
-        """Land a finished group's results in the shared front space."""
-        for s, panel, schur in res["results"]:
-            sn = self.symb.supernodes[s]
-            panels[s] = panel
-            self._mem_panels += float(panel.nbytes)
-            if schur is not None:
-                updates[s] = (sn.rows[sn.nb :], schur)
-                self._mem_updates += float(
-                    sn.rows[sn.nb :].nbytes + schur.nbytes
+    # -- wave runners (barrier-synchronous) -----------------------------
+    def _run_waves(self, st: _Run) -> None:
+        """``dispatches()`` in order, each factored before the next starts."""
+        clock = st.clock
+        groups = self._wave_groups()
+        for d in self.dispatches():
+            seq = st.n_disp
+            clock.lap("assemble", seq)
+            mp, nbp = d.key
+            large = mp > VMEM_FRONT_MAX
+            fronts, fronts_bytes = self._gather(st, d.supernodes, large)
+            devs = self._dispatch_devices(d.supernodes, groups)
+            if not self.shard_dispatch or large:
+                devs = devs[:1]  # large fronts run on one lane
+            delay = self._delay_for(d.supernodes)
+            t0 = st.now()
+            if delay > 0:
+                clock.lap("wait", seq)
+                time.sleep(delay)  # the straggling device, behind the barrier
+            if large:
+                for s, job in zip(d.supernodes, fronts):
+                    clock.lap("transfer", seq)
+                    panel, schur = self._run_large(job, devs[0], clock)
+                    clock.lap("extract", seq)
+                    st.held += self._store(s, panel, schur, st.panels, st.updates, clock)
+                t1 = st.now()
+            else:
+                clock.lap("pad", seq)
+                batch = self._pad(d.supernodes, fronts)
+                st.note(fronts_bytes + float(batch.nbytes))
+                clock.lap("transfer", seq)
+                out = self._run_batch(batch, nbp, devs, clock)
+                t1 = st.now()
+                clock.lap("extract", seq)
+                st.held += self._land_batch(
+                    d.supernodes, out, st.panels, st.updates, clock
                 )
+            st.n_disp += 1
+            for s in d.supernodes:
+                st.record(s, groups.get(s), d.wave, len(devs), t0, t1, len(d.supernodes))
 
-    def _run_waves_prov(
-        self, a: sp.csr_matrix, clock: _StageClock
-    ) -> Tuple[Factorization, ExecutionReport]:
-        """Wave runner over fused groups: same barrier discipline as
-        ``_run_waves``, one dispatch per group task."""
-        symb = self.symb
-        acsc = lower_csc(a)
-        clock.lap("scan")
+    def _run_waves_prov(self, st: _Run) -> None:
+        """The wave runner over fused groups: one dispatch per group task."""
+        clock = st.clock
         groups = self._wave_groups()  # keyed by group label
-        by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        panels: List[Optional[np.ndarray]] = [None] * symb.n_supernodes
-        trace: List[TraceEvent] = []
-        n_disp = 0
-        self._mem_panels = 0.0
-        self._mem_updates = 0.0
-        mem_peak = 0.0
-        t_run0 = time.perf_counter()
-
         for w, wave in enumerate(self.plan.waves()):
             for t in sorted(wave, key=lambda t: t.task):
                 if t.label < 0:
                     continue
-                gid = t.label
-                clock.lap("scan", n_disp)
-                ext_cb, consumed = self._pop_ext_cb(gid, updates)
-                res = self._run_group(gid, acsc, ext_cb, clock, n_disp)
-                clock.lap("extract", n_disp)
-                mem_peak = max(
-                    mem_peak,
-                    self._mem_panels + self._mem_updates + res["transient"],
-                )
-                self._mem_updates -= consumed
-                self._store_group(res, panels, updates)
-                n_disp += 1
-                g = groups.get(gid)
-                t0 = res["t0"] - t_run0
-                t1 = res["t1"] - t_run0
-                for s in self._groups[gid]:
-                    trace.append(
-                        TraceEvent(
-                            front=s,
-                            wave=w,
-                            devices=t.devices,
-                            devices_used=g.size if g else 1,
-                            dispatch_devices=1,
-                            t_start=t0,
-                            t_end=t1,
-                            flops=symb.supernodes[s].flops,
-                            batched=len(self._groups[gid]),
-                            device0=g.offset if g else 0,
-                        )
-                    )
+                gid, seq = t.label, st.n_disp
+                clock.lap("scan", seq)
+                kids = self._group_in[gid]
+                blocks, consumed = self._pop_children(kids, st.updates)
+                t0 = st.now()
+                res = self._run_group(gid, st.acsc, dict(zip(kids, blocks)), seq, clock)
+                t1 = st.now()
+                clock.lap("extract", seq)
+                st.note(res["transient"])
+                st.held -= consumed
+                for s, panel, schur in res["results"]:
+                    st.held += self._store(s, panel, schur, st.panels, st.updates)
+                st.n_disp += 1
+                st.record(gid, groups.get(gid), w, 1, t0, t1, len(self._groups[gid]))
 
-        clock.lap("report")
-        assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(trace, n_disp, mem_peak, "waves", t_run0)
-        return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
+    # -- async futures runner (per-unit state machine) ------------------
+    def _run_async(self, st: _Run) -> None:
+        """Event-driven execution: a unit (a front, or a fused group) is
+        dispatched the instant its children's Schur blocks have landed; no
+        wave barrier.  Ready fronts of one shape class coalesce into one
+        dispatch; a fused group is one dispatch (the optimizer already
+        chose the batches).
 
-    def _run_async_prov(
-        self, a: sp.csr_matrix, clock: _StageClock
-    ) -> Tuple[Factorization, ExecutionReport]:
-        """Async futures runner over fused groups.
-
-        The state machine of ``_run_async`` with the group as the unit of
-        readiness and dispatch: a group is ready when its last external
-        child group completes, its device group is carved from the free
-        set, and its members factor on a worker thread as one dispatch.
-        Groups never coalesce across the provenance partition — the
-        optimizer already chose the batches.
+        The main thread owns all bookkeeping (readiness, the fronts'
+        assembly, memory accounting, trace); worker threads run the
+        dispatches (and a fused group's assembly), so no lock is needed
+        beyond the futures.
         """
-        symb = self.symb
-        acsc = lower_csc(a)
-        clock.lap("scan")
-        ndev = len(self.devices)
-        by_task = {t.label: t for t in self.plan.tasks if t.label >= 0}
-
-        ng = len(self._groups)
-        itemsize = self.dtype.itemsize
-        prio = {
-            g: (by_task[g].start if g in by_task else 0.0, g)
-            for g in range(ng)
-        }
-        want = {
-            g: (
-                scale_group(
-                    by_task[g].devices, self.plan.total_devices, ndev
-                )
-                if g in by_task and by_task[g].devices > 0
-                else 1
-            )
-            for g in range(ng)
-        }
-        n_unfinished = np.array(
-            [len(self._group_ext_children[g]) for g in range(ng)],
-            dtype=np.int64,
-        )
-        updates: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        panels: List[Optional[np.ndarray]] = [None] * symb.n_supernodes
-        trace: List[TraceEvent] = []
-        alloc = BuddyAllocator(ndev)
-        in_flight: Dict = {}  # Future -> (gid, group alloc, held, t_submit, seq)
-        t_ready: Dict[int, float] = {}
-        ready: List[int] = []
-        self._mem_panels = 0.0
-        self._mem_updates = 0.0
-        mem_inflight = 0.0
-        mem_peak = 0.0
+        fused = self._prov is not None
+        clock, ready, cap = st.clock, st.ready, self.memory_cap_bytes
+        alloc = st.alloc = BuddyAllocator(len(self.devices))
+        n_unfinished = list(self._unit_kids)
+        t_ready = [math.nan] * len(n_unfinished)
+        in_flight: Dict = {}  # Future -> _Inflight
         n_done = 0
-        n_disp = 0
-        seq = 0
-        t_run0 = time.perf_counter()
 
-        def now() -> float:
-            return time.perf_counter() - t_run0
+        def make_ready(u: int, t: float) -> None:
+            t_ready[u] = t
+            ready.push(self._unit_key[u], self._prio[u])
 
-        for g in range(ng):
-            if n_unfinished[g] == 0:
-                t_ready[g] = 0.0
-                ready.append(g)
+        def finish_unit(u: int, t: float) -> None:
+            """The parent becomes ready the instant its last child lands."""
+            p = self._unit_parent[u]
+            if p >= 0:
+                n_unfinished[p] -= 1
+                if n_unfinished[p] == 0:
+                    make_ready(p, t)
 
-        def est_bytes(gid: int) -> float:
-            return float(
-                sum(
-                    symb.supernodes[s].m ** 2 * itemsize
-                    for s in self._groups[gid]
-                )
-            )
-
-        def publish_state() -> None:
-            if not obs_events.enabled():
-                return
-            bus = obs_events.BUS
-            t = bus.wall()
-            resident = self._mem_panels + self._mem_updates + mem_inflight
-            bus.point("queue_depth", len(ready), t=t)
-            bus.point("resident_bytes", resident, t=t)
-            reg = obs_metrics.REGISTRY
-            reg.gauge(
-                "repro_queue_depth",
-                "ready fronts awaiting dispatch",
-                unit="fronts",
-                track=True,
-            ).set(len(ready), t=t)
-            reg.gauge(
-                "repro_resident_bytes",
-                "live host buffers (panels + CBs + in-flight)",
-                unit="bytes",
-            ).set(resident, t=t)
-            reg.gauge(
-                "repro_buddy_free_devices",
-                "free devices in the buddy allocator",
-                unit="devices",
-            ).set(alloc.n_free, t=t)
-            reg.gauge(
-                "repro_buddy_fragmentation",
-                "1 - largest free run / free devices",
-            ).set(alloc.fragmentation, t=t)
-
-        def worker_group(gid, ext_cb, sq, lane):
-            with _StageClock(clock.tally, "transfer", sq, lane, fixed=True) as wc:
-                return self._run_group(gid, acsc, ext_cb, wc, sq)
+        for u, k in enumerate(n_unfinished):
+            if k == 0:
+                make_ready(u, 0.0)
 
         def launch_ready(pool) -> int:
-            nonlocal mem_inflight, mem_peak, n_disp, seq
-            clock.lap("scan", seq)
+            """Issue as many dispatches as devices/memory admit; returns
+            how many were launched."""
+            clock.lap("scan", st.n_disp)
             launched = 0
-            while ready:
-                if alloc.n_free == 0:
-                    break
-                gid = min(ready, key=lambda g: prio[g])
-                if self.memory_cap_bytes is not None:
-                    resident = (
-                        self._mem_panels + self._mem_updates + mem_inflight
-                    )
-                    if resident + est_bytes(gid) > self.memory_cap_bytes:
-                        # a fused dispatch cannot shed members; defer it
-                        # while anything can still free buffers (progress
-                        # is guaranteed when the pipeline drains empty)
-                        if in_flight or launched:
-                            break
-                g_alloc = alloc.alloc(want[gid])
-                if g_alloc is None:
-                    break
-                ready.remove(gid)
-                t_sub = now()
-                ext_cb, consumed = self._pop_ext_cb(gid, updates)
-                held = consumed + est_bytes(gid)
-                mem_peak = max(
-                    mem_peak,
-                    self._mem_panels
-                    + self._mem_updates
-                    + mem_inflight
-                    + est_bytes(gid),
+            while ready.n and alloc.n_free:
+                key, heap = ready.top()
+                # power-of-two batches of small fronts, as in the reference,
+                # so dispatch counts compare one to one with it (the
+                # remainder stays ready for the next dispatch); a large
+                # front or a fused group alone
+                k = (1 if fused or key[0] > VMEM_FRONT_MAX
+                     else pow2_floor(min(len(heap), self.max_batch)))
+                members = ready.head(heap, k)
+                if cap is not None:
+                    resident = st.held + st.inflight
+                    while (len(members) > 1 and resident
+                           + sum(self._unit_bytes[u] for u in members) > cap):
+                        members = members[:-1]  # shed the lowest priority
+                    if (resident + sum(self._unit_bytes[u] for u in members) > cap
+                            and (in_flight or launched)):
+                        break  # wait for buffers to free; with the pipeline
+                        # empty, dispatch anyway (progress beats the cap)
+                groups: Dict[int, DeviceGroup] = {}
+                for u in members:
+                    g = alloc.alloc(self._want[u])
+                    if g is None:
+                        break
+                    groups[u] = g
+                if not groups:
+                    break  # no free device — wait for a completion
+                # every chosen member joins the dispatch: the batch is one
+                # kernel launch sharded over the carved groups' union, so
+                # fronts beyond the free capacity time-share it (same
+                # discipline as the wave carver's oversubscription rule)
+                ready.pop(key, len(members))
+                t_sub = st.now()
+                issue = self._issue_group if fused else self._issue_fronts
+                fut, held, n_devs = issue(st, pool, members, groups)
+                st.inflight += held
+                in_flight[fut] = _Inflight(
+                    st.n_disp, tuple(members), groups, n_devs, held, t_sub
                 )
-                self._mem_updates -= consumed
-                mem_inflight += held
-                fut = pool.submit(worker_group, gid, ext_cb, seq, g_alloc.offset)
-                in_flight[fut] = (gid, g_alloc, held, t_sub, seq)
-                seq += 1
-                n_disp += 1
+                st.n_disp += 1
                 launched += 1
-                publish_state()
+                st.publish_state()
             return launched
 
         def complete(fut) -> None:
-            nonlocal mem_inflight, mem_peak, n_done
-            gid, g_alloc, held, t_sub, sq = in_flight.pop(fut)
-            clock.lap("extract", sq)
-            res = fut.result()
-            self._store_group(res, panels, updates)
-            mem_inflight -= held
-            mem_peak = max(
-                mem_peak,
-                self._mem_panels
-                + self._mem_updates
-                + mem_inflight
-                + res["transient"]
-                - est_bytes(gid),
-            )
-            alloc.free(g_alloc)
-            t0 = res["t0"] - t_run0
-            t1 = res["t1"] - t_run0
-            for s in self._groups[gid]:
-                trace.append(
-                    TraceEvent(
-                        front=s,
-                        wave=sq,
-                        devices=by_task[gid].devices if gid in by_task else 1,
-                        devices_used=g_alloc.size,
-                        dispatch_devices=1,
-                        t_start=t0,
-                        t_end=t1,
-                        flops=symb.supernodes[s].flops,
-                        batched=len(self._groups[gid]),
-                        t_ready=t_ready[gid],
-                        t_submit=t_sub,
-                        device0=g_alloc.offset,
-                    )
-                )
-            pg = self._group_parent[gid]
-            if pg >= 0:
-                n_unfinished[pg] -= 1
-                if n_unfinished[pg] == 0:
-                    t_ready[pg] = t1
-                    ready.append(pg)
-            n_done += 1
-            publish_state()
+            nonlocal n_done
+            info = in_flight.pop(fut)
+            clock.lap("extract", info.seq)
+            out, t0, t1 = fut.result()
+            if fused:
+                for s, panel, schur in out["results"]:
+                    st.held += self._store(s, panel, schur, st.panels, st.updates)
+                extra = out["transient"] - self._unit_bytes[info.units[0]]
+                batched = len(self._fronts_of[info.units[0]])
+            elif self._shape[info.units[0]][0] > VMEM_FRONT_MAX:
+                st.held += self._store(info.units[0], *out, st.panels, st.updates, clock)
+                extra, batched = 0.0, 1
+            else:
+                st.held += self._land_batch(info.units, out, st.panels, st.updates, clock)
+                extra, batched = 0.0, len(info.units)
+            st.inflight -= info.held_bytes
+            st.note(extra)
+            for u in info.units:
+                g = info.groups.get(u)
+                if g is not None:
+                    alloc.free(g)
+                st.record(u, g, info.seq, info.dispatch_devices, t0, t1, batched,
+                          t_ready[u], info.t_submit)
+                finish_unit(u, t1)
+            n_done += len(info.units)
+            st.publish_state()
 
-        workers = self.max_workers or max(2, ndev)
+        workers = self.max_workers or max(2, len(self.devices))
         pool = ThreadPoolExecutor(max_workers=workers)
         try:
-            while n_done < ng:
+            while n_done < len(n_unfinished):
                 launched = launch_ready(pool)
                 if in_flight:
                     clock.lap("wait")
-                    done, _ = futures_wait(
-                        set(in_flight), return_when=FIRST_COMPLETED
-                    )
+                    done, _ = futures_wait(set(in_flight), return_when=FIRST_COMPLETED)
                     for fut in done:
                         complete(fut)
-                elif not launched and n_done < ng:
-                    # remaining groups are label -1 placeholders with no
-                    # computation (e.g. a lone virtual root)
-                    rest = [g for g in ready if not self._groups[g]]
+                elif not launched:
+                    # only fused placeholder groups, which factor nothing
+                    # (e.g. a lone virtual root), may be left
+                    rest = ready.take(lambda u: not self._fronts_of[u])
                     if not rest:
-                        raise RuntimeError(
-                            "async executor stalled with ready groups"
-                        )
-                    for g in rest:
-                        ready.remove(g)
-                        pg = self._group_parent[g]
-                        if pg >= 0:
-                            n_unfinished[pg] -= 1
-                            if n_unfinished[pg] == 0:
-                                t_ready[pg] = now()
-                                ready.append(pg)
+                        unit = "groups" if fused else "fronts"
+                        raise RuntimeError(f"async executor stalled with ready {unit}")
+                    for u in rest:
+                        finish_unit(u, st.now())
                         n_done += 1
             clock.lap("report")
         finally:
             pool.shutdown(wait=True)
 
-        assert all(p is not None for p in panels), "plan missed supernodes"
-        report = self._make_report(trace, n_disp, mem_peak, "async", t_run0)
-        return Factorization(symb=symb, panels=panels), report  # type: ignore[arg-type]
+    def _issue_fronts(
+        self, st: _Run, pool, members: List[int], groups: Dict[int, DeviceGroup]
+    ):
+        """Issue a batch of ready fronts of one shape class: assemble them
+        on the main thread (a large front's job for its lane), pad a small
+        batch, and hand it to a worker.  Returns the future, the bytes the
+        worker holds, and the lanes it engages."""
+        clock, seq = st.clock, st.n_disp
+        clock.lap("assemble", seq)
+        mp, nbp = self._shape[members[0]]
+        large = mp > VMEM_FRONT_MAX
+        fronts, fronts_bytes = self._gather(st, members, large)
+        delay = self._delay_for(members)
+        devs = self._dispatch_devices(members, groups)
+        if not self.shard_dispatch or large:
+            devs = devs[:1]  # large fronts run on one lane
+        lane = min(g.offset for g in groups.values())  # devs[0]'s
+        if large:
+            clock.lap("scan", seq)
+            fut = pool.submit(self._work, st, seq, lane, delay, False,
+                              self._run_large, fronts[0], devs[0])
+            return fut, fronts_bytes, 1
+        clock.lap("pad", seq)
+        batch = self._pad(members, fronts)
+        clock.lap("scan", seq)
+        st.note(fronts_bytes + float(batch.nbytes))
+        fut = pool.submit(self._work, st, seq, lane, delay, False,
+                          self._run_batch, batch, nbp, devs)
+        return fut, float(batch.nbytes), len(devs)
 
+    def _issue_group(
+        self, st: _Run, pool, members: List[int], groups: Dict[int, DeviceGroup]
+    ):
+        """Issue a ready fused group: pop the blocks entering it and hand
+        it whole to a worker, whose fixed clock counts the group as
+        ``transfer``.  Its bytes are estimated at its fronts' m² entries
+        until it completes.  Returns as ``_issue_fronts``."""
+        (gid,) = members
+        kids = self._group_in[gid]
+        blocks, consumed = self._pop_children(kids, st.updates)
+        est = self._unit_bytes[gid]
+        st.note(est)
+        st.held -= consumed
+        seq = st.n_disp
+        fut = pool.submit(self._work, st, seq, groups[gid].offset, 0.0, True,
+                          self._run_group, gid, st.acsc, dict(zip(kids, blocks)), seq)
+        return fut, consumed + est, 1
 
 BATCH_WIDTH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 

@@ -26,6 +26,7 @@ import repro.kernels.ops as rops
 import repro.obs as robs
 import repro.runtime.executor as rexecutor
 import repro.sparse as rsparse
+import repro_torch.api as tapi
 import repro_torch.kernels.frontal_cholesky as fc
 import repro_torch.kernels.ops as tops
 import repro_torch.obs as obs
@@ -163,6 +164,46 @@ def test_panels_are_the_host_assembled_factorization(case, dtype, monkeypatch):
         assert reg.get("repro_executor_kept_blocks_total").value == len(kept)
         assert reg.get("repro_executor_kept_bytes_total").value == sum(
             (symb.supernodes[s].m - symb.supernodes[s].nb) ** 2 * item for s in kept)
+
+
+LARGE_COUNTERS = (
+    "repro_executor_large_fronts_total",
+    "repro_executor_kept_blocks_total",
+    "repro_executor_kept_bytes_total",
+)
+
+
+@pytest.mark.parametrize("case", ["chain-128", "grid15-128"])
+def test_fused_plans_take_the_large_route(case, monkeypatch):
+    """An amalgamated plan's group dispatches (``provenance=``) take the
+    plain plan's per-front path: with every bordered front past
+    ``VMEM_FRONT_MAX``, both fused runners give the host-assembled
+    ``factorize``'s panels bit for bit, and assemble, factor and keep on
+    the lane the fronts and blocks the plain run does, whether a kept
+    block's parent is in its group or not."""
+    make, relax, vmem = MATRICES[case]
+    monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
+    a = make()
+    symb = tsparse.analyze(a, relax=relax)
+    want = factorize(a, symb, factor_fn=tops.factor_fn(), dtype=torch.float64, device="cpu")
+    sess = tapi.Session(tapi.DeviceMesh([CPU] * 2, plan_devices=8)).load(
+        tapi.Problem.from_symbolic(symb, 0.9, matrix=a))
+    sess.optimize(max_front=64).plan("greedy")
+    fused = (sess.schedule.to_execution_plan(), sess.problem.provenance)
+    plain = (tsparse.make_plan(symb.task_tree(), 8, alpha=0.9), None)
+    counts = {}
+    for name, mode, (plan, prov) in (
+        ("plain", "async", plain), ("async", "async", fused), ("waves", "waves", fused)
+    ):
+        obs.reset()
+        fact, _ = texecutor.PlanExecutor(
+            symb, plan, devices=[CPU] * 2, dtype=torch.float64, mode=mode, provenance=prov,
+        ).run(a, warmup=False)
+        for s, (p, q) in enumerate(zip(fact.panels, want.panels)):
+            np.testing.assert_array_equal(bits(p), bits(q), err_msg=f"{name} panel {s}")
+        counts[name] = [obs.REGISTRY.get(c).value for c in LARGE_COUNTERS]
+    assert counts["plain"][0] > 0 and counts["plain"][1] > 0
+    assert counts["async"] == counts["waves"] == counts["plain"]
 
 
 # the reference's front tolerance (tests/test_kernels.py), relative to the

@@ -117,7 +117,6 @@ def test_main_thread_stages_cover_the_run(grid15, fused15, mode, fused):
 def test_warmup_adds_nothing(grid15):
     ex = executor(grid15)
     ex.warmup()
-    ex._warmup_async()
     assert all(obs.REGISTRY.get(name) is None for name in COUNTERS)
     assert obs.BUS.spans(cat="dispatch") == []
     _, cold = ex.run(grid15[0], warmup=True)
@@ -139,9 +138,8 @@ def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkey
     cross in, its panel out, and its Schur block only where the parent is
     small; nothing padded crosses, so all of it is useful.  ``large_from``
     lowers the large route's threshold so both routes run; ``fused`` runs
-    the amalgamated plan's group dispatches, which assemble on the host
-    and send a large front as its (m, m) front in, its panel and Schur
-    block out."""
+    the amalgamated plan's group dispatches, which count as the plain
+    plan's dispatches do."""
     if large_from is not None:
         monkeypatch.setattr(executor_module, "VMEM_FRONT_MAX", large_from)
     limit = executor_module.VMEM_FRONT_MAX
@@ -169,12 +167,11 @@ def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkey
             useful += own
             continue
         n_large += 1
-        if not fused:
-            entries = lower.indptr[sn.cols[-1] + 1] - lower.indptr[sn.cols[0]]
-            small_kids = sum((k.m - k.nb) ** 2 for c, k in enumerate(sns)
-                             if k.parent == s and not large(c))
-            schur = 0 if large(sn.parent) else (m - nb) ** 2
-            own = entries * 8 + (small_kids + m * nb + schur) * item
+        entries = lower.indptr[sn.cols[-1] + 1] - lower.indptr[sn.cols[0]]
+        small_kids = sum((k.m - k.nb) ** 2 for c, k in enumerate(sns)
+                         if k.parent == s and not large(c))
+        schur = 0 if large(sn.parent) else (m - nb) ** 2
+        own = entries * 8 + (small_kids + m * nb + schur) * item
         copied += own
         useful += own
     assert (n_large > 0) == (large_from is not None)

@@ -8,8 +8,10 @@ runners take the completion order from the worker pool, so both runs here
 hand back the dispatches oldest first (real worker threads, a pinned
 completion order); on one lane that is the only order there is.  A
 ``memory_cap_bytes`` below the uncapped peak on several lanes makes both
-shed members from a batch and defer dispatches.  The port runs on CPU
-lanes (the kernels' plain versions), the reference on CPU JAX, in f64.
+shed members from a batch and defer dispatches.  An amalgamated plan's
+fused groups share one heap and are held to the reference's runner over
+them the same way.  The port runs on CPU lanes (the kernels' plain
+versions), the reference on CPU JAX, in f64.
 """
 import itertools
 from concurrent import futures
@@ -20,16 +22,20 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import repro.api as rapi
 import repro.kernels.ops as rops
 import repro.obs as robs
 import repro.runtime.executor as rexecutor
 import repro.sparse as rsparse
+import repro.sparse.optimize as ropt
+import repro_torch.api as tapi
 import repro_torch.kernels.ops as tops
 import repro_torch.obs as tobs
 import repro_torch.runtime.executor as texecutor
 import repro_torch.sparse as tsparse
 from repro.sparse.plan import make_plan as rmake_plan
 from repro_torch.kernels.ops import factor_fn
+from repro_torch.sparse.optimize import optimize_problem
 
 _ORDER = itertools.count()
 
@@ -170,6 +176,53 @@ def test_async_decisions_match_reference(case, monkeypatch):
     )
     for s, (pp, ps, pr) in enumerate(zip(fp.panels, seq.panels, fr.panels)):
         np.testing.assert_array_equal(pp, ps, err_msg=f"panel {s}")
+        assert np.abs(pp - pr).max() <= 1e-12 * max(1.0, np.abs(pr).max())
+
+
+def test_fused_async_decisions_match_reference(monkeypatch):
+    """An amalgamated plan (``provenance=``) on 4 lanes under a cap of
+    about a fiftieth of its uncapped peak (1.08 MB): the port's ready heap
+    of fused groups and the reference's ``_run_async_prov``, which scans a
+    ready list, issue the same group dispatches in the same order, defer
+    the same ones, and note the same peak."""
+    g, cap = 15, 20_000
+    a, order = rsparse.grid_laplacian_2d(g), rsparse.nested_dissection_2d(g)
+    runs = {}
+    for name, module, obs in (("port", texecutor, tobs), ("ref", rexecutor, robs)):
+        deferred = _pin_completions(monkeypatch, module, obs)
+        obs.enable()
+        obs.reset()
+        if name == "port":
+            prob = tapi.Problem.from_matrix(a, 0.9, ordering=order, relax=1)
+            opt = optimize_problem(prob, max_front=64)
+            plan = tapi.Session(tapi.DeviceMesh([torch.device("cpu")] * 4, plan_devices=8)) \
+                .load(opt).plan("greedy").schedule.to_execution_plan()
+            fact, report = texecutor.PlanExecutor(
+                prob.symb, plan, devices=[torch.device("cpu")] * 4, dtype=torch.float64,
+                memory_cap_bytes=cap, provenance=opt.provenance,
+            ).run(prob.matrix, warmup=False)
+        else:
+            jax.config.update("jax_enable_x64", True)
+            try:
+                rprob = rapi.Problem.from_matrix(a, 0.9, ordering=order, relax=1)
+                ropt_prob = ropt.optimize_problem(rprob, max_front=64)
+                rplan = rapi.Session(rapi.DeviceMesh(plan_devices=8)).load(ropt_prob) \
+                    .plan("greedy").schedule.to_execution_plan()
+                fact, report = rexecutor.PlanExecutor(
+                    rprob.symb, rplan, devices=jax.devices()[:1] * 4, mode="async",
+                    memory_cap_bytes=cap, provenance=ropt_prob.provenance,
+                ).run(rprob.matrix, warmup=False)
+            finally:
+                jax.config.update("jax_enable_x64", False)
+        runs[name] = (fact, report, _queue_depth(obs), len(deferred))
+    (fp, rp, qp, dp), (fr, rr, qr, dr) = runs["port"], runs["ref"]
+    assert rp.mode == "async" and opt.n < prob.symb.n_supernodes
+    assert rp.n_dispatches == rr.n_dispatches == opt.n
+    assert [(e.wave, e.front) for e in rp.trace] == [(e.wave, e.front) for e in rr.trace]
+    assert qp == qr and len(qp) == 2 * rp.n_dispatches
+    assert dp == dr and dp > 0
+    assert rp.measured_peak_bytes == rr.measured_peak_bytes
+    for pp, pr in zip(fp.panels, fr.panels):
         assert np.abs(pp - pr).max() <= 1e-12 * max(1.0, np.abs(pr).max())
 
 
