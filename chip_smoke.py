@@ -306,15 +306,10 @@ def syrk_sweep(fc, gen, dtype) -> None:
               f"{lib_ms:.4f}  clone_ms {clone_ms:.4f}", flush=True)
 
 
-def large_front_children(symb) -> int:
-    """The children with a Schur block of every front past VMEM_FRONT_MAX:
-    one ``extend_add`` launch each, as the large route assembles its
-    fronts on the card."""
-    from repro_torch.kernels import ops
-
-    large = {s for s, sn in enumerate(symb.supernodes)
-             if ops.padded_shape(len(sn.rows), len(sn.cols))[0] > ops.VMEM_FRONT_MAX}
-    return sum(sn.parent in large and len(sn.rows) > len(sn.cols) for sn in symb.supernodes)
+def children_with_blocks(symb) -> int:
+    """The fronts with a parent (each has a Schur block): one ``extend_add``
+    launch each, as the executor assembles every front on the card."""
+    return sum(sn.parent >= 0 and len(sn.rows) > len(sn.cols) for sn in symb.supernodes)
 
 
 def large_front_syrk_shapes(symb) -> list:
@@ -2125,14 +2120,17 @@ def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
         check(same, f"{what}: panels differ")
         check(launches["front_factor"] == lanes,
               f"{what}: {launches['front_factor']} launches, Σ dispatch_devices {lanes}")
+        check(launches["extend_add"] == children_with_blocks(symb),
+              f"{what}: {launches['extend_add']} extend_add launches")
         check((used > 1) == shard, f"{what}: max dispatch_devices {used}")
         return {"wall_s": wall, "makespan_s": report.measured_makespan,
                 "n_dispatches": report.n_dispatches, "launches": launches["front_factor"],
+                "extend_add_launches": launches["extend_add"],
                 "launches_by_card": per_card, "max_dispatch_devices": used,
                 "fit_alpha": report.fit_alpha(), "card": nvidia_smi()}
 
     lanes4 = [device] * 4
-    out, launches = {}, 0
+    out, launches, extend_adds = {}, 0, 0
     symb3 = analyze(ap3, relax=2)
     plan3 = make_plan(symb3.task_tree(), 4, 0.9)
     walls = {}
@@ -2141,6 +2139,7 @@ def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
         out[key] = run(f"14a poisson200 f64 async [{device}]*4 shard={shard}", ap3, symb3, plan3,
                        lanes4, "async", shard, fact3)
         launches += out[key]["launches"]
+        extend_adds += out[key]["extend_add_launches"]
         walls[shard] = out[key]["wall_s"]
     print(f"[14a] walls: sharded {walls[True]:.3f} s, unsharded {walls[False]:.3f} s, phase 3 "
           f"{wall3:.3f} s", flush=True)
@@ -2149,6 +2148,7 @@ def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
         f"14b poisson60 f64 waves [{device}]*4 shard=True", ap5, symb5,
         make_plan(symb5.task_tree(), 4, 0.9), lanes4, "waves", True, fact5)
     launches += out["poisson60_f64_waves_4lanes_sharded"]["launches"]
+    extend_adds += out["poisson60_f64_waves_4lanes_sharded"]["extend_add_launches"]
     n = torch.cuda.device_count()
     if n > 1:
         cards = [torch.device("cuda", i) for i in range(n)]
@@ -2158,10 +2158,12 @@ def phase_shard(fc, ap3, fact3, wall3: float, ap5, fact5, device) -> dict:
               f"phase 14c: cards that launched {rec['launches_by_card']}")
         out[f"poisson200_f64_async_{n}cards_sharded"] = rec
         launches += rec["launches"]
+        extend_adds += rec["extend_add_launches"]
     else:
         print("[14c] not run: the machine has one card (a split over distinct cards needs two)",
               flush=True)
     out["launches"] = launches
+    out["extend_add_launches"] = extend_adds
     return out
 
 # ----------------------------------------------------------------------
@@ -2227,6 +2229,7 @@ def phase_examples(fc, fa, device) -> dict:
     check(flash["launches"] == 0, "phase 15a: flash launched")
     out["quickstart"] = {
         "wall_s": wall, "front_factor_launches": frontal["front_factor"],
+        "extend_add_launches": frontal["extend_add"],
         "n_dispatches": res["n_dispatches"], "residual": res["residual"],
         "makespans": res["makespans"], "failure_makespan": res["failure_makespan"],
         "fluid_bound": res["fluid_bound"], "card": nvidia_smi()}
@@ -2304,6 +2307,7 @@ def phase_examples(fc, fa, device) -> dict:
                                "mean_latency": res["mean_latency"],
                                "mixed_makespan": res["mixed_makespan"]}
     out["front_factor_launches"] = out["quickstart"]["front_factor_launches"]
+    out["extend_add_launches"] = out["quickstart"]["extend_add_launches"]
     out["flash_route_launches"] = route_launches
     return out
 
@@ -2377,10 +2381,9 @@ def main() -> int:
     shapes4 = large_front_syrk_shapes(symb4)
     check(len(shapes4) == launches4["syrk_downdate"],
           f"phase 4: {launches4['syrk_downdate']} syrk launches, {len(shapes4)} shapes")
-    kids4 = large_front_children(symb4)
+    kids4 = children_with_blocks(symb4)
     check(launches4["extend_add"] == kids4,
-          f"phase 4: {launches4['extend_add']} extend_add launches, {kids4} children of large "
-          f"fronts")
+          f"phase 4: {launches4['extend_add']} extend_add launches, {kids4} children")
     # syrk_downdate alone at the (M, K) phase 4 launches (after the run: not counted)
     gen4 = torch.Generator().manual_seed(4)
     rec["syrk_downdate"]["phase4_cases"] = []
@@ -2440,11 +2443,11 @@ def main() -> int:
     stamp("14")
     e2e14 = phase_shard(fc, ap, fact, wall, ap5, fa, torch.device("cuda", 0))
     launches14 = {"front_factor": e2e14.pop("launches"), "panel_factor": 0, "syrk_downdate": 0,
-                  "extend_add": 0}
+                  "extend_add": e2e14.pop("extend_add_launches")}
     stamp("15")
     e2e15 = phase_examples(fc, flash, torch.device("cuda", 0))
     launches15 = {"front_factor": e2e15.pop("front_factor_launches"), "panel_factor": 0,
-                  "syrk_downdate": 0, "extend_add": 0}
+                  "syrk_downdate": 0, "extend_add": e2e15.pop("extend_add_launches")}
     flash15 = e2e15.pop("flash_route_launches")
     stamp("end")
 
@@ -2465,10 +2468,9 @@ def main() -> int:
            "phase 15 (repro_torch.examples.quickstart: the 21x21 grid in f64)"
         for k in fc.KERNELS
     }
-    paths["extend_add"] = ("PlanExecutor's large route (a front past VMEM_FRONT_MAX assembled "
-                           "on the card, one launch a child): phases 4 + 8a (random SPD 2500); "
-                           "none in phases 3, 7, 8b, 9, 10, 14, 15 (no large front there, or the "
-                           "cluster workers' host assembly)")
+    paths["extend_add"] = ("PlanExecutor, every front assembled on the card (one launch a "
+                           "child): phases 3, 4, 7, 8, 10, 14, 15; none in phase 9 (the "
+                           "cluster workers assemble on the host)")
     kernels = [
         {
             "name": k,

@@ -121,11 +121,13 @@ def factor_fn():
 # ----------------------------------------------------------------------
 # Batched dispatch (the plan executor's path).
 #
-# Fronts of one dispatch are padded host-side to a common 128-aligned
-# (mp, mp) shape class and factored in ONE launch (one cluster per front).
-# Padding follows the same unit-diagonal convention as ``partial_cholesky``:
-# padded pivot columns factor to e_j no-ops, so fronts with different true
-# (m, nb) can share a class as long as they round to the same (mp, nbp).
+# Fronts of one dispatch are padded to a common 128-aligned (mp, mp) shape
+# class and factored in ONE launch (one cluster per front): on the lane by
+# the plan executor, on the host by ``pad_front_np`` for the cluster's
+# workers.  Padding follows the same unit-diagonal convention as
+# ``partial_cholesky``: padded pivot columns factor to e_j no-ops, so
+# fronts with different true (m, nb) can share a class as long as they
+# round to the same (mp, nbp).
 # ----------------------------------------------------------------------
 def padded_shape(m: int, nb: int) -> Tuple[int, int]:
     """(mp, nbp): the 128-aligned padded front order and pivot width."""

@@ -9,31 +9,37 @@ are assembled and factored by the hand-written CUDA kernels of
 ``repro_torch.kernels`` (their plain PyTorch versions on CPU devices, which
 the caller asks for explicitly with ``devices=[torch.device("cpu")] * k``).
 
-One numeric path per front, shared by four runners.  A front's original
-entries are placed through index maps built once a pattern
-(``_entry_maps``: one vectorised pass over the lower CSC), and a front
-takes one of two routes by its padded order.  A small front (up to
-``VMEM_FRONT_MAX``) is assembled on the host (``_assemble``), padded to
-its shape class, batched with others of its class and factored in one
-launch; its panel and Schur block come back to the host.  A large front
-is assembled on its lane (``_take_large`` gathers its entries and its
-children's blocks, ``_run_large`` builds it): float64 zeros with a unit
-diagonal on the padding, its original entries scattered through its maps
-(and ``_kid_pos``; both uploaded to a lane on first use), each child's
-Schur block added in tree order by the ``extend_add`` kernel, one cast to
-the run's dtype — the host's arithmetic in the host's order, so the bits
-are the host-assembled front's — then the panel + SYRK pipeline.  Only
-its panel comes back.  Its Schur block stays on the lane, as its factored
-padded output (``_Kept``), when the parent is large too, until the
-parent's worker has added it; to a small parent it comes back.  The
-memory bookkeeping counts a large front as its m² entries at the run's
-dtype and a kept block as the host copy it replaces, so the cap's
-decisions do not depend on where a block lives: the bookkeeping
+One numeric path per front, shared by four runners, and one route shape.
+The run's values (the lower CSC's ``data``, float64) cross to each lane
+the run engages once (``_Run.values_on``); every front's original entries
+are gathered and placed on the card through index maps in padded
+coordinates, built once a pattern (``_entry_maps``: one vectorised pass
+over the lower CSC; ``_kid``: each child's rows in its parent's padded
+front) and uploaded to a lane in a few flat tensors (``_lane``).  The
+main thread pops a dispatch's children's blocks and hands a worker a job
+(``_take``, ``_jobs``: the members' rows of the front table, the
+dispatch's index table); the worker (``_run_job``) builds the members'
+float64 (B, mp, mp) stack on its lane: zeros with a unit diagonal on the
+padding, the original entries and their mirrors in one indexed write,
+each child's Schur block added in tree order by the ``extend_add``
+kernel, one cast to the run's dtype — the host's arithmetic in the
+host's order, so the bits are the host-assembled, host-padded fronts'.
+A dispatch of small fronts (padded order up to ``VMEM_FRONT_MAX``, a
+batch of one shape class) is factored in one launch (``_run_batch``), a
+large front alone by the panel + SYRK pipeline; then every member's
+(m, nb) panel is gathered on the card into one buffer and copied to the
+host once, and split there into views.  Every Schur block stays on its
+lane as a view of its front's factored padded output (``_Kept``) until
+the parent's worker has added it; nothing padded crosses the bus.  The
+memory bookkeeping counts a front as its m² entries at the run's dtype,
+a small dispatch's padded stack as the host copy the reference makes,
+and a kept block as the host copy it replaces, so the cap's decisions do
+not depend on where a block lives: the bookkeeping
 (``memory_cap_bytes``, ``measured_peak_bytes``) models the reference's
 resident bytes, not what a lane holds, which for a kept block is its
-child's whole factored padded output (mp² in the run's dtype, panel and
-padding included; 134 MB at mp = 4,096 in float64 against the 115 MB of
-its Schur block).
+front's whole factored padded output (mp² in the run's dtype, panel and
+padding included, shared with the other members of its stack; 134 MB at
+mp = 4,096 in float64 against the 115 MB of its Schur block).
 
 The runners differ only in what they dispatch and when; each keeps its
 state on one ``_Run`` (panels, queued Schur blocks, memory counters,
@@ -67,8 +73,8 @@ trace) and produces **bit-identical factors**:
 An amalgamated plan (``provenance=``) runs the same two loops with the
 fused group as the unit: a group is one dispatch (the async runner's
 groups share one heap), and its members factor level by level on the
-first lane through the same per-front path (``_run_group``), a large
-member's Schur block kept there for a large parent inside the group or
+first lane through the same per-front path (``_run_group``), each
+member's Schur block kept there for its parent inside the group or
 outside it.
 
 Both modes emit a :class:`TraceEvent` per front (planned and carved group
@@ -87,13 +93,13 @@ its device were slow — applied identically in both modes, it is the
 controlled experiment for the barrier-vs-futures comparison.
 
 Timing semantics: each dispatch is timed host-side around the copy of its
-result back to the host (which synchronizes the launching stream); fronts
+panels back to the host (which synchronizes the launching stream); fronts
 sharing a dispatch share its interval, and throughput is measured at
 dispatch granularity (one point per kernel launch — see
 ``ExecutionReport.dispatch_points``) for the α re-fit.  ``warmup=True``
 builds or loads the kernel library and runs an identity front of every
-small shape class once on every distinct device, untimed, so no build
-lands inside the trace.  A list of devices may repeat one card as several
+small shape class through the route once on every distinct device,
+untimed, so no build lands inside the trace.  A list of devices may repeat one card as several
 logical lanes.
 
 Sharded dispatch (``shard_dispatch``, on by default for CUDA devices): a
@@ -113,21 +119,23 @@ bytes copied between host and device and the useful part of them, the
 pauses of Python's garbage collector) land on ``ExecutionReport.host`` and,
 once per ``run`` (so ``warmup`` adds nothing), in registry counters:
 ``repro_executor_stage_seconds_total{stage}``,
-``repro_executor_copy_bytes_total{kind=copied|useful}`` (useful: a small
-front's m² entries sent, its panel and Schur block received; everything
-the large route moves, since nothing padded crosses there),
-``repro_host_gc_seconds_total`` (a ``gc.callbacks`` hook installed for the
-run) and, from the clocks of the threads that ran the large route and
+``repro_executor_copy_bytes_total{kind=copied|useful}`` (the run's values
+once a lane and every front's panel: all of it useful, since nothing
+padded crosses), ``repro_host_gc_seconds_total`` (a ``gc.callbacks`` hook
+installed for the run) and, from the clocks of the worker threads and
 apart from their stages, ``repro_executor_large_seconds_total`` (inside
-``_run_large``: the assembly on the lane, the panel + SYRK loop, the
-copies), ``repro_executor_large_bytes_total`` (the part of ``copied`` it
-moved: original entries and small children's Schur blocks in, panels and
-a small parent's Schur block out), ``repro_executor_large_fronts_total``,
-and ``repro_executor_kept_bytes_total`` / ``repro_executor_kept_blocks_total``
-(the Schur bytes and blocks kept on a lane for a large parent's
-extend-add, counted as the host copies they replace); each large front is
-an ``executor.large`` profiler range.  The index maps' uploads are the
-pattern's, not a run's, and are not counted.  ``RunReport.metrics``
+``_run_job`` for a large front: the assembly on the lane, the panel +
+SYRK loop, the panel's copy), ``repro_executor_large_bytes_total`` (the
+part of ``copied`` it moved: the large fronts' panels),
+``repro_executor_large_fronts_total``, ``repro_executor_kept_bytes_total``
+/ ``repro_executor_kept_blocks_total`` (the Schur bytes and blocks a large
+front kept on a lane for a large parent's extend-add, counted as the host
+copies they replace), ``repro_executor_small_fronts_total`` (small fronts
+assembled on a lane) and ``repro_executor_small_kept_bytes_total`` (their
+Schur bytes kept on a lane, counted likewise); each large front is an
+``executor.large`` profiler range.  Index tables are not a run's data and
+are not counted: the maps' uploads (the pattern's, once a lane) and a
+dispatch's rows of the front table (four integers a front).  ``RunReport.metrics``
 keeps the reference's names.  Every span and point of a run is stamped
 on the bus clock (``BUS.wall()``; the report's run-relative times are
 shifted by the run's start when published), so consecutive runs lie end
@@ -148,8 +156,8 @@ import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
-from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field, fields
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -166,20 +174,8 @@ from repro_torch.kernels.frontal_cholesky import VMEM_FRONT_MAX, extend_add
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.kernels.ops import (
-    batched_front_factor,
-    extract_panel_schur,
-    factor_padded,
-    pad_front_np,
-    padded_shape,
-    panel_of,
-    schur_of,
-)
-from repro_torch.sparse.multifrontal import (
-    Factorization,
-    extend_add_np,
-    lower_csc,
-)
+from repro_torch.kernels.ops import batched_front_factor, factor_padded, padded_shape
+from repro_torch.sparse.multifrontal import Factorization, lower_csc
 from repro_torch.sparse.plan import ExecutionPlan
 from repro_torch.sparse.symbolic import SymbolicFactorization
 
@@ -192,15 +188,14 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # The host stages of a run.  The main thread's: ``scan`` (the ready scan:
 # shape classes, priorities, device groups, memory bookkeeping, handing a
 # dispatch to a worker; the static schedule on the wave path), ``assemble``
-# (the matrix in CSC, gathering entries and the children's extend-add),
-# ``pad`` (padding fronts to their shape class and stacking them), ``wait``
-# (blocked on the workers, or an injected delay), ``extract`` (panels and
-# Schur blocks out of a factored stack, and the completion's bookkeeping),
-# ``report`` (the projected peak, the report and its publishing).  The
-# thread that runs a dispatch's kernels: ``transfer`` (copy in, launch,
-# wait, copy out; the main thread's own on the wave path; on the fused
-# async path a worker's whole group, its assembly, padding and extraction
-# included).
+# (the matrix in CSC and the pattern's maps; popping the children's Schur
+# blocks), ``pad`` (building a dispatch's index table), ``wait`` (blocked
+# on the workers, or an injected delay), ``extract`` (splitting the panels
+# and the completion's bookkeeping), ``report`` (the projected peak, the
+# report and its publishing).  The thread that runs a dispatch's kernels:
+# ``transfer`` (the assembly on the lane, the launches, the panels' copy
+# out; the main thread's own on the wave path; on the fused async path a
+# worker's whole group, its host steps included).
 STAGES = ("scan", "assemble", "pad", "wait", "extract", "report", "transfer")
 
 
@@ -231,11 +226,9 @@ class HostTotals:
 
     ``seconds``: by stage (every name of ``STAGES``); ``gc_seconds``: the
     pauses of Python's garbage collector while the run was in progress;
-    ``copied_bytes``: what crossed between host and device (padded stacks
-    both ways; a large front's original entries and small children's
-    Schur blocks in, its panel and a small parent's Schur block out);
-    ``useful_bytes``: of those, a small front's m² entries sent and its
-    panel and Schur block received, and all the large route moved.
+    ``copied_bytes``: what crossed between host and device (the run's
+    values once a lane in, every front's panel out); ``useful_bytes``: of
+    those, the fronts' own, which is all of it (nothing padded crosses).
     """
 
     seconds: Dict[str, float]
@@ -290,9 +283,10 @@ class ExecutionReport:
     n_dispatches: int = 0
     n_devices: int = 1
     interpret: bool = True  # True when the plain versions ran (CPU devices)
-    # the memory dimension: peak bytes of the real host-side buffers
-    # (fronts + retained panels + pending Schur updates) vs. the peak the
-    # plan's resident-bytes timeline projects at the executed dtype
+    # the memory dimension: peak bytes of the reference's host buffers
+    # (fronts + retained panels + pending Schur updates; a block kept on
+    # a lane counted as its host copy) vs. the peak the plan's
+    # resident-bytes timeline projects at the executed dtype
     measured_peak_bytes: float = 0.0
     projected_peak_bytes: float = 0.0
     mode: str = "waves"  # which runner produced this report
@@ -427,7 +421,7 @@ class _RunTally:
         self.seconds = dict.fromkeys(STAGES, 0.0)
         self.copied = 0.0
         self.useful = 0.0
-        self.large = _LargeTally()
+        self.routes = _RouteTally()
         self.gc_seconds = 0.0
         self._gc_t0: Optional[float] = None
         self._lock = threading.Lock()
@@ -447,7 +441,7 @@ class _RunTally:
                 self.seconds[stage] += sec
             self.copied += clock.copied
             self.useful += clock.useful
-            self.large.add(clock.large)
+            self.routes.add(clock.routes)
 
     def totals(self) -> HostTotals:
         return HostTotals(dict(self.seconds), self.gc_seconds, self.copied, self.useful)
@@ -476,49 +470,59 @@ class _RunTally:
             "pauses of Python's garbage collector during PlanExecutor.run",
             unit="s",
         ).inc(self.gc_seconds)
+        r = self.routes
         reg.counter(
             "repro_executor_large_seconds_total",
-            "seconds of the threads that ran _run_large inside it",
+            "seconds of the threads that ran a large front's job inside it",
             unit="s",
-        ).inc(self.large.seconds)
+        ).inc(r.large_seconds)
         reg.counter(
             "repro_executor_large_bytes_total",
-            "bytes _run_large copied between host and device",
+            "bytes a large front's job copied between host and device (its panel)",
             unit="bytes",
-        ).inc(self.large.bytes)
+        ).inc(r.large_bytes)
         reg.counter(
             "repro_executor_large_fronts_total",
-            "fronts factored by _run_large (padded order past VMEM_FRONT_MAX)",
-        ).inc(self.large.fronts)
+            "fronts factored by the panel + SYRK pipeline (padded order past VMEM_FRONT_MAX)",
+        ).inc(r.large_fronts)
         reg.counter(
             "repro_executor_kept_bytes_total",
             "Schur bytes the large route kept on the card for a large parent's extend-add",
             unit="bytes",
-        ).inc(self.large.kept_bytes)
+        ).inc(r.kept_bytes)
         reg.counter(
             "repro_executor_kept_blocks_total",
             "Schur blocks the large route kept on the card for a large parent's extend-add",
-        ).inc(self.large.kept_blocks)
+        ).inc(r.kept_blocks)
+        reg.counter(
+            "repro_executor_small_fronts_total",
+            "small fronts (padded order up to VMEM_FRONT_MAX) assembled on a lane",
+        ).inc(r.small_fronts)
+        reg.counter(
+            "repro_executor_small_kept_bytes_total",
+            "Schur bytes of small fronts kept on a lane, as the host copies they replace",
+            unit="bytes",
+        ).inc(r.small_kept_bytes)
 
 
-class _LargeTally:
-    """The large route's seconds, bytes and fronts on one clock, and the
-    Schur bytes and blocks it kept on the card for the parents'
-    extend-add."""
+@dataclass
+class _RouteTally:
+    """What the jobs of one clock did, by route: the large fronts'
+    seconds, panel bytes and count, and the Schur bytes and blocks they
+    kept for a large parent; the small fronts assembled on a lane and the
+    Schur bytes they kept there."""
 
-    def __init__(self) -> None:
-        self.seconds = 0.0
-        self.bytes = 0.0
-        self.fronts = 0
-        self.kept_bytes = 0.0
-        self.kept_blocks = 0
+    large_seconds: float = 0.0
+    large_bytes: float = 0.0
+    large_fronts: int = 0
+    kept_bytes: float = 0.0
+    kept_blocks: int = 0
+    small_fronts: int = 0
+    small_kept_bytes: float = 0.0
 
-    def add(self, other: "_LargeTally") -> None:
-        self.seconds += other.seconds
-        self.bytes += other.bytes
-        self.fronts += other.fronts
-        self.kept_bytes += other.kept_bytes
-        self.kept_blocks += other.kept_blocks
+    def add(self, other: "_RouteTally") -> None:
+        for f in fields(self):
+            setattr(self, f.name, getattr(self, f.name) + getattr(other, f.name))
 
 
 class _StageClock:
@@ -548,7 +552,7 @@ class _StageClock:
         self.seconds = dict.fromkeys(STAGES, 0.0)
         self.copied = 0.0
         self.useful = 0.0
-        self.large = _LargeTally()
+        self.routes = _RouteTally()
         self._range = None
         self._start(stage, key, time.perf_counter())
 
@@ -578,10 +582,11 @@ class _StageClock:
         self._stop(t)
         self._start(stage, key, t)
 
-    def useful_front(self, m: int, panel: np.ndarray, schur: np.ndarray) -> None:
-        """Count a front's useful bytes: its m² entries sent, its panel
-        and Schur block received."""
-        self.useful += m * m * self.tally.itemsize + panel.nbytes + schur.nbytes
+    def moved(self, nbytes: int) -> None:
+        """Count bytes that crossed between host and device: the fronts'
+        own, so useful too."""
+        self.copied += nbytes
+        self.useful += nbytes
 
     def close(self) -> None:
         if self._stage is None:
@@ -616,14 +621,16 @@ class _Inflight:
     dispatch_devices: int
     held_bytes: float  # buffers the worker holds until completion
     t_submit: float
+    job: Optional["_Job"]  # the fronts' job; None for a fused group
 
 
 @dataclass
 class _Kept:
-    """A large front's Schur block kept on its lane for a large parent's
-    extend-add: the lower triangle of ``out[off:off+n, off:off+n]``, its
-    factored padded output.  ``nbytes`` is what the block would hold on
-    the host, so the memory bookkeeping counts it as it did there."""
+    """A front's Schur block kept on its lane for the parent's extend-add:
+    the lower triangle of ``out[off:off+n, off:off+n]``, its factored
+    padded output (a view of its dispatch's stack).  ``nbytes`` is what
+    the block would hold on the host, so the memory bookkeeping counts it
+    as it did there."""
 
     out: torch.Tensor
     off: int
@@ -637,16 +644,55 @@ class _Kept:
         return b if b.device == torch.device(device) else b.to(device)
 
 
-@dataclass
-class _LargeJob:
-    """What the main thread hands a large front's worker: the front's
-    original entries (float64, in the order of its entry map) and its
-    children's Schur blocks in tree order, each a host array (a small
-    child's) or a :class:`_Kept` (a large child's)."""
+class _LaneMaps(NamedTuple):
+    """A pattern's index maps on one lane (``PlanExecutor._lane``): every
+    front's original entries, grouped by front, as their places in the
+    lower CSC's ``data`` (``idx``) and their linear positions in the
+    front's padded (mp, mp) block, below the diagonal and mirrored
+    (``lower``, ``mirror``; int64), and ``_kid`` (int32)."""
 
-    s: int
-    values: np.ndarray
-    kids: List[Tuple[int, object]]
+    idx: torch.Tensor
+    lower: torch.Tensor
+    mirror: torch.Tensor
+    kid: torch.Tensor
+
+
+@dataclass
+class _Job:
+    """What the main thread hands a worker: the members of a dispatch
+    (supernode ids of one shape class ``(mp, nbp)``, in batch order), the
+    dispatch's index table (``table``, int64 (6, B), one column a member:
+    nb; nbp + m − nb, where the padding's diagonal resumes; the offset
+    from a dispatch entry's number to its place in the entry maps; the
+    end of its entries among the dispatch's; the start and the end of its
+    panel in the dispatch's panel buffer), the members' children's Schur
+    blocks in tree order as ``(slot, child, block)``, and the run whose
+    values they read (None for warmup's identity fronts: columns of
+    zeros, no entries, no children)."""
+
+    members: Tuple[int, ...]
+    mp: int
+    nbp: int
+    table: np.ndarray
+    kids: List[Tuple[int, int, _Kept]]
+    run: Optional["_Run"]
+
+
+def _cut_panels(out: torch.Tensor, d: torch.Tensor, nbp: int, n: int) -> torch.Tensor:
+    """Every member's (m, nb) panel of a factored (B, mp, mp) stack, one
+    after another in one flat tensor of ``n`` entries on the stack's
+    device: row r of a panel is row r of its front above nb and
+    r + (nbp − nb) below, zero above L11's diagonal.  ``d`` is the job's
+    index table (``_Job.table``) on the device."""
+    mp = out.shape[-1]
+    k = torch.arange(n, device=out.device)
+    slot = torch.searchsorted(d[5], k, right=True)  # each entry's member
+    k -= d[4][slot]
+    nb = d[0][slot]
+    r = torch.div(k, nb, rounding_mode="floor")
+    c = k - r * nb
+    row = torch.where(r < nb, r, r + (nbp - nb))
+    return torch.where(r >= c, out.view(-1)[(slot * mp + row) * mp + c], 0.0)
 
 
 def _top(item: Tuple[object, list]):
@@ -711,10 +757,10 @@ class _Ready:
 
 class _Run:
     """What one ``run`` owns: the factor's panels, the Schur blocks queued
-    for their parents' extend-add (``updates``: rows and a host array or a
-    :class:`_Kept`), the memory bookkeeping, the ready set and the
-    allocator of the async runner, the trace and the dispatch count, on a
-    clock (``now``) that starts with it.
+    for their parents' extend-add (``updates``: rows and a
+    :class:`_Kept`), its values on each lane, the memory bookkeeping, the
+    ready set and the allocator of the async runner, the trace and the
+    dispatch count, on a clock (``now``) that starts with it.
 
     The bookkeeping is the reference's: ``held`` the panels and queued
     blocks (a kept block at its host copy's bytes), ``inflight`` what
@@ -725,7 +771,9 @@ class _Run:
     ) -> None:
         self.ex, self.acsc, self.clock = ex, acsc, clock
         self.panels: List[Optional[np.ndarray]] = [None] * ex.symb.n_supernodes
-        self.updates: Dict[int, Tuple[np.ndarray, object]] = {}
+        self.updates: Dict[int, Tuple[np.ndarray, _Kept]] = {}
+        self._values: Dict[torch.device, torch.Tensor] = {}
+        self._values_lock = threading.Lock()
         self.held = self.inflight = self.peak = 0.0
         self.ready = _Ready()
         self.alloc: Optional[BuddyAllocator] = None
@@ -735,6 +783,20 @@ class _Run:
 
     def now(self) -> float:
         return time.perf_counter() - self.t_run0
+
+    def values_on(self, device: torch.device, clock: Optional[_StageClock]) -> torch.Tensor:
+        """Every front's original entries on ``device``, in the order of
+        the entry maps: the lower CSC's values (float64) cross to the
+        lane once a run, counted on ``clock``, and are gathered there."""
+        with self._values_lock:
+            got = self._values.get(device)
+            if got is None:
+                data = np.asarray(self.acsc.data, dtype=np.float64)
+                got = torch.from_numpy(data).to(device)[self.ex._lane(device).idx]
+                self._values[device] = got
+                if clock is not None:
+                    clock.moved(data.nbytes)
+        return got
 
     def note(self, extra: float = 0.0) -> None:
         """Raise the peak to the resident bytes plus a transient ``extra``."""
@@ -918,16 +980,18 @@ class PlanExecutor:
             padded_shape(sn.m, sn.nb) for sn in symb.supernodes
         ]
         self._tdtype = dtype
-        # index maps: each child's border rows at their padded positions in
-        # a large parent (the pattern's, fixed here); every front's original
-        # entries' places in a matrix's lower CSC, built by the first run of
-        # a pattern (``_entry_maps``); a large front's uploaded to a lane on
-        # first use
-        self._large = [
-            s for s, (mp, _) in enumerate(self._shape) if mp > VMEM_FRONT_MAX
-        ]
+        # index maps in padded coordinates: each child's border rows in its
+        # parent's padded front (the pattern's, fixed here: ``_kid``, one
+        # flat int32 array, child c's at ``_kid_at[c]:_kid_at[c + 1]``);
+        # every front's original entries' places in a matrix's lower CSC,
+        # built by the first run of a pattern (``_entry_maps``); all of
+        # them uploaded to a lane on first use (``_lane``)
         ns, n = symb.n_supernodes, symb.n
-        nb = [sn.nb for sn in symb.supernodes]
+        m = np.array([sn.m for sn in symb.supernodes], dtype=np.int64)
+        nb = np.array([sn.nb for sn in symb.supernodes], dtype=np.int64)
+        parent = np.array([sn.parent for sn in symb.supernodes], dtype=np.int64)
+        # the padding a front's border rows move down by
+        self._shift = np.array([nbp for _, nbp in self._shape], dtype=np.int64) - nb
         cols = np.concatenate([sn.cols for sn in symb.supernodes])
         self._col_sn = np.empty(n, dtype=np.int64)  # each column's front
         self._col_sn[cols] = np.repeat(np.arange(ns), nb)
@@ -938,25 +1002,21 @@ class PlanExecutor:
         self._row_key = np.concatenate(
             [s * n + sn.rows.astype(np.int64) for s, sn in enumerate(symb.supernodes)]
         )
-        self._row_start = np.concatenate(
-            [[0], np.cumsum([sn.m for sn in symb.supernodes])[:-1]]
-        ).astype(np.int64)
-        self._kid_pos: Dict[int, np.ndarray] = {}
-        for p in self._large:
-            sn = symb.supernodes[p]
-            nbp = self._shape[p][1]
-            for c in self._children[p]:
-                sc = symb.supernodes[c]
-                local = np.searchsorted(sn.rows, sc.rows[sc.nb :])
-                assert np.array_equal(sn.rows[local], sc.rows[sc.nb :]), (
-                    "child border not in front"
-                )
-                self._kid_pos[c] = np.where(
-                    local < sn.nb, local, local + (nbp - sn.nb)
-                ).astype(np.int32)
-        self._entries: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        self._row_start = np.concatenate([[0], np.cumsum(m)[:-1]]).astype(np.int64)
+        front = np.repeat(np.arange(ns), m)  # each (front, row)'s front
+        border = np.arange(len(front)) - self._row_start[front] >= nb[front]
+        border &= parent[front] >= 0
+        p = parent[front[border]]
+        key = p * n + self._row_key[border] - front[border] * n
+        at = np.minimum(np.searchsorted(self._row_key, key), len(self._row_key) - 1)
+        assert np.array_equal(self._row_key[at], key), "child border not in front"
+        local = at - self._row_start[p]
+        self._kid = np.where(local < nb[p], local, local + self._shift[p]).astype(np.int32)
+        self._kid_at = np.concatenate([[0], np.cumsum(np.where(parent >= 0, m - nb, 0))])
+        self._ent: Tuple[np.ndarray, ...] = ()
+        self._desc = np.zeros((4, 0), dtype=np.int64)
         self._entry_pattern: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        self._lane_maps: Dict[torch.device, Dict] = {}
+        self._lane_maps: Dict[torch.device, _LaneMaps] = {}
         self._lane_lock = threading.Lock()  # workers upload to one lane at once
 
         self._prov = provenance
@@ -1094,56 +1154,44 @@ class PlanExecutor:
         return max((float(self.delay_fn(s)) for s in supernodes), default=0.0)
 
     # ------------------------------------------------------------------
-    def _run_batch(
-        self,
-        batch: np.ndarray,
-        nbp: int,
-        group_devices: List,
-        clock: Optional[_StageClock] = None,
-    ) -> np.ndarray:
-        """Factor a (B, mp, mp) padded stack, split over ``group_devices``
+    def _run_batch(self, batch, nbp: int, group_devices: List) -> torch.Tensor:
+        """Factor a (B, mp, mp) padded stack (a tensor on the first lane,
+        or what ``torch.as_tensor`` takes), split over ``group_devices``
         when more than one is given and sharding is on, else in one launch
-        on its first device; returns the factored stack (host).  The bytes
-        copied both ways are counted on ``clock``.
+        on its first device; returns the factored stack on the first
+        device.
 
         Sharded, the stack is padded with identity fronts to a multiple
-        of the lane count and cut into equal shards, one launch per lane;
-        every shard is copied and launched before the first copy back, so
-        distinct cards work at once (lanes that repeat a card take turns
-        on its current stream)."""
-        mp = batch.shape[1]
+        of the lane count and cut into equal shards, one launch per lane,
+        every shard launched before the first is gathered, so distinct
+        cards work at once (lanes that repeat a card take turns on its
+        current stream)."""
+        dev = group_devices[0]
+        x = torch.as_tensor(batch, device=dev)
+        b, mp = x.shape[0], x.shape[1]
         assert mp <= VMEM_FRONT_MAX, "large fronts take the per-front path"
         if len(group_devices) == 1 or not self.shard_dispatch:
-            x = torch.from_numpy(batch).to(group_devices[0])
-            # .cpu() waits for the launch on the calling thread's current stream
-            out = batched_front_factor(x, nbp).cpu().numpy()
-            if clock is not None:
-                clock.copied += batch.nbytes + out.nbytes
-            return out
-        b = batch.shape[0]
+            return batched_front_factor(x, nbp)
         pad = (-b) % len(group_devices)
         if pad:
-            eye = np.broadcast_to(np.eye(mp, dtype=batch.dtype), (pad, mp, mp))
-            batch = np.concatenate([batch, eye])
+            eye = torch.eye(mp, dtype=x.dtype, device=dev).expand(pad, mp, mp)
+            x = torch.cat([x, eye])
         shards = [
-            batched_front_factor(torch.from_numpy(part).to(dev), nbp)
-            for part, dev in zip(np.split(batch, len(group_devices)), group_devices)
+            batched_front_factor(part.to(d), nbp)
+            for part, d in zip(x.chunk(len(group_devices)), group_devices)
         ]
-        # in lane order; each .cpu() waits only for its own card's stream
-        out = np.concatenate([o.cpu().numpy() for o in shards])
-        if clock is not None:
-            clock.copied += batch.nbytes + out.nbytes
-        return out[:b]
+        return torch.cat([o.to(dev) for o in shards])[:b]
 
     def _entry_maps(self, acsc: sp.csc_matrix) -> None:
         """Every front's original entries, in one vectorised pass: their
         indices in the sorted lower CSC's ``data`` and their linear
-        positions in the front, below the diagonal and mirrored
-        (``gather_front_entries``'s assignments; of an entry given twice,
-        the last).  A small front's positions are in its (m, m) block, a
-        large front's in its padded (mp, mp) one.  Built once a pattern: a
-        matrix with other ``indptr`` / ``indices`` rebuilds them and drops
-        what the lanes hold."""
+        positions in the front's padded (mp, mp) block, below the diagonal
+        and mirrored (``gather_front_entries``'s assignments; of an entry
+        given twice, the last), grouped by front in three flat arrays
+        (``_ent``); and the front table (``_desc``, (4, n_supernodes): a
+        front's m, nb, first entry there and number of entries).  Built once a pattern: a matrix
+        with other ``indptr`` / ``indices`` rebuilds them and drops what
+        the lanes hold."""
         if self._entry_pattern is not None and all(
             np.array_equal(x, y)
             for x, y in zip(self._entry_pattern, (acsc.indptr, acsc.indices))
@@ -1163,111 +1211,118 @@ class PlanExecutor:
         idx = np.flatnonzero(keep)
         idx = idx[np.argsort(s[idx], kind="stable")]  # grouped by front
         s, k, r = s[idx], k[idx], g[idx] - self._row_start[s[idx]]
-        shape = np.array(self._shape, dtype=np.int64).reshape(-1, 2)
         m = np.array([sn.m for sn in symb.supernodes], dtype=np.int64)
         nb = np.array([sn.nb for sn in symb.supernodes], dtype=np.int64)
-        large = shape[:, 0] > VMEM_FRONT_MAX
-        order = np.where(large, shape[:, 0], m)[s]  # the block's order
-        r = np.where(large[s] & (r >= nb[s]), r + (shape[:, 1] - nb)[s], r)
-        lower, mirror = r * order + k, k * order + r
+        mp = np.array([x for x, _ in self._shape], dtype=np.int64)[s]
+        r = np.where(r >= nb[s], r + self._shift[s], r)  # the border moves down
+        self._ent = (idx, r * mp + k, k * mp + r)
         bounds = np.searchsorted(s, np.arange(symb.n_supernodes + 1))
-        self._entries = {
-            f: (idx[a:b], lower[a:b], mirror[a:b])
-            for f, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))
-        }
+        self._desc = np.stack([m, nb, bounds[:-1], np.diff(bounds)])
         self._entry_pattern = (indptr.copy(), acsc.indices.copy())
 
-    def _on_lane(self, key: Tuple[str, int], device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """An index map on ``device``, uploaded on first use: ``("kid",
-        c)`` the child's padded positions (int32), ``("entries", s)`` the
-        front's lower and mirrored linear positions (int64).  The uploads
-        are the pattern's, once a lane, and are not counted as a run's
-        copies."""
+    def _lane(self, device: torch.device) -> _LaneMaps:
+        """The pattern's index maps on ``device``, uploaded on first use in
+        four flat tensors.  The uploads are the pattern's, once a lane,
+        and are not counted as a run's copies."""
         with self._lane_lock:
-            lane = self._lane_maps.setdefault(device, {})
-            got = lane.get(key)
+            got = self._lane_maps.get(device)
             if got is None:
-                kind, i = key
-                arrays = (self._kid_pos[i],) if kind == "kid" else self._entries[i][1:]
-                got = tuple(torch.from_numpy(x).to(device) for x in arrays)
-                lane[key] = got
+                got = _LaneMaps(*(torch.from_numpy(x).to(device)
+                                  for x in (*self._ent, self._kid)))
+                self._lane_maps[device] = got
         return got
 
-    def _run_large(
-        self,
-        job: _LargeJob,
-        device: torch.device,
-        clock: Optional[_StageClock] = None,
-    ) -> Tuple[np.ndarray, object]:
-        """Assemble one large front on ``device`` and factor it through the
-        panel + SYRK pipeline; returns (panel, schur): the panel on the
-        host; the Schur block kept on the lane (:class:`_Kept`) when the
-        parent is large too, else on the host.
+    def _assemble_stack(
+        self, job: _Job, d: torch.Tensor, dev: torch.device, clock: Optional[_StageClock]
+    ) -> torch.Tensor:
+        """A job's fronts as a float64 (B, mp, mp) stack on ``dev``, built
+        as the host builds and pads them: zeros with 1 on the padding's
+        diagonal, each member's original entries and their mirrors placed
+        in one indexed write (the two meet only on the diagonal, with one
+        value), each child's block added in tree order (``extend_add``).
+        ``d`` is the job's ``table`` on ``dev``."""
+        b, mp, nbp = job.table.shape[1], job.mp, job.nbp
+        nb, hi, shift, ends = d[0], d[1], d[2], d[3]
+        f = torch.zeros((b, mp, mp), dtype=torch.float64, device=dev)
+        i = torch.arange(mp, device=dev)
+        f.diagonal(dim1=1, dim2=2).copy_(
+            ((i >= nb[:, None]) & (i < nbp)) | (i >= hi[:, None]))
+        n_ent = int(job.table[3, -1])
+        if not (n_ent or job.kids):
+            return f  # warmup's identity fronts
+        lane = self._lane(dev)
+        src = torch.arange(n_ent, device=dev)
+        slot = torch.searchsorted(ends, src, right=True)  # each entry's member
+        src += shift[slot]
+        at = slot * (mp * mp)
+        values = job.run.values_on(dev, clock)[src]
+        f.view(-1)[torch.cat([lane.lower[src] + at, lane.mirror[src] + at])] = (
+            torch.cat([values, values]))
+        for k, c, blk in job.kids:
+            extend_add(f[k], blk.block(dev), lane.kid[self._kid_at[c] : self._kid_at[c + 1]])
+        job.kids.clear()  # the children's kept blocks go with it
+        return f
 
-        The front is built as the host builds it: float64 zeros (1 on the
-        padding's diagonal), the original entries and their mirror, each
-        child's block added in tree order (``extend_add``), one cast to
-        the run's dtype; so its bits are the host-assembled front's.  The
-        bytes that cross (entries and small children's blocks in, panel
-        and a small parent's Schur block out: all of them the front's
-        own), the seconds, the front and a kept block are counted on
-        ``clock``; while ``torch.profiler`` records, the front is an
+    def _run_job(
+        self, job: _Job, devs: List, clock: Optional[_StageClock] = None
+    ) -> Tuple[np.ndarray, List[Optional[_Kept]]]:
+        """Assemble a job's fronts on the first of ``devs``
+        (``_assemble_stack``), cast them once to the run's dtype, so their
+        bits are the host-assembled, host-padded fronts', and factor them:
+        a batch of small fronts in one launch (sharded over ``devs`` by
+        ``_run_batch``), a large front by the panel + SYRK pipeline.
+        Returns the members' panels, cut on the card as
+        ``extract_panel_schur`` cuts them (``tril`` of the top block), one
+        after another in one host buffer (one copy; ``_land`` splits it),
+        and each member's Schur block kept on the lane (:class:`_Kept`,
+        None where it has none).  The bytes that cross (the panels, and
+        the run's values on their first use on a lane), the large route's
+        seconds and fronts, and the kept blocks are counted on ``clock``;
+        while ``torch.profiler`` records, a large front is an
         ``executor.large`` range."""
         t0 = time.perf_counter()
-        sn = self.symb.supernodes[job.s]
-        m, nb, mb = sn.m, sn.nb, sn.m - sn.nb
-        mp, nbp = self._shape[job.s]
-        with _large_range():
-            f = torch.zeros((mp, mp), dtype=torch.float64, device=device)
-            diag = f.diagonal()
-            diag[nb:nbp] = 1.0
-            diag[nbp + mb :] = 1.0
-            below, mirror = self._on_lane(("entries", job.s), device)
-            values = torch.from_numpy(job.values).to(device)
-            flat = f.view(-1)
-            flat[below] = values
-            flat[mirror] = values
-            moved = job.values.nbytes
-            for c, blk in job.kids:
-                if isinstance(blk, _Kept):
-                    src = blk.block(device)
-                else:
-                    src = torch.from_numpy(blk).to(device)
-                    moved += blk.nbytes
-                extend_add(f, src, self._on_lane(("kid", c), device)[0])
-            job.kids.clear()  # the children's kept blocks go with it
-            src = values = None
-            out = factor_padded(f.to(self._tdtype), nbp)
-            f = None
-            panel = panel_of(out, m, nb).cpu().numpy()
-            moved += panel.nbytes
-            p = sn.parent
-            if mb > 0 and p >= 0 and self._shape[p][0] > VMEM_FRONT_MAX:
-                schur = _Kept(out, nbp, mb, mb * mb * self.dtype.itemsize)
-            else:
-                schur = schur_of(out, m, nb).cpu().numpy()
-                moved += schur.nbytes
+        dev, nbp = devs[0], job.nbp
+        large = job.mp > VMEM_FRONT_MAX
+        with _large_range() if large else contextlib.nullcontext():
+            d = torch.from_numpy(job.table).to(dev)
+            x = self._assemble_stack(job, d, dev, clock).to(self._tdtype)
+            out = factor_padded(x[0], nbp)[None] if large else self._run_batch(x, nbp, devs)
+            x = None
+            panels = _cut_panels(out, d, nbp, int(job.table[5, -1])).cpu().numpy()
+        item = self.dtype.itemsize
+        kept: List[Optional[_Kept]] = []
+        for j, s in enumerate(job.members):
+            sn = self.symb.supernodes[s]
+            mb = sn.m - sn.nb
+            kept.append(_Kept(out[j], nbp, mb, mb * mb * item) if mb > 0 else None)
         if clock is not None:
-            clock.copied += moved
-            clock.useful += moved
-            clock.large.seconds += time.perf_counter() - t0
-            clock.large.bytes += moved
-            clock.large.fronts += 1
-            if isinstance(schur, _Kept):
-                clock.large.kept_bytes += schur.nbytes
-                clock.large.kept_blocks += 1
-        return panel, schur
+            clock.moved(panels.nbytes)
+            routes = clock.routes
+            if large:
+                routes.large_seconds += time.perf_counter() - t0
+                routes.large_bytes += panels.nbytes
+                routes.large_fronts += 1
+                p = self.symb.supernodes[job.members[0]].parent
+                if kept[0] is not None and self._shape[p][0] > VMEM_FRONT_MAX:
+                    routes.kept_bytes += kept[0].nbytes
+                    routes.kept_blocks += 1
+            else:
+                routes.small_fronts += len(job.members)
+                routes.small_kept_bytes += sum(blk.nbytes for blk in kept if blk is not None)
+        return panels, kept
 
     def warmup(self) -> None:
         """Build or load the kernel library and run one identity front of
-        every small shape class on every distinct device (untimed), so no
-        card's first launch (module load, shared-memory opt-in) lands
-        inside a timed run.  This covers every lane a dispatch of any
-        runner can engage."""
+        every small shape class through the route on every distinct device
+        (untimed), so no card's first launch (module load, shared-memory
+        opt-in) lands inside a timed run.  This covers every lane a
+        dispatch of any runner can engage."""
         keys = sorted({k for k in self._shape if k[0] <= VMEM_FRONT_MAX})
+        identity = np.zeros((6, 1), dtype=np.int64)  # no rows: all padding
         for dev in dict.fromkeys(self.devices):
             for mp, nbp in keys:
-                self._run_batch(np.eye(mp, dtype=self.dtype)[None], nbp, [dev])
+                self._run_job(_Job((), mp, nbp, identity, [], None), [dev])
+
     def _dispatch_devices(
         self, supernodes: Sequence[int], groups: Dict[int, DeviceGroup]
     ) -> List:
@@ -1341,42 +1396,18 @@ class PlanExecutor:
         return fact, report
 
     # -- one numeric path per front, shared by every runner --------------
-    def _assemble(
-        self, s: int, acsc: sp.csc_matrix, updates: Dict[int, Tuple[np.ndarray, object]]
-    ) -> Tuple[np.ndarray, float]:
-        """Assemble small front ``s`` on the host (original entries +
-        children extend-add), popping — i.e. freeing — the children's
-        Schur blocks from ``updates``.  Returns (front, consumed CB
-        bytes).  Children are folded in tree order regardless of
-        completion order, so the float summation order (and therefore the
-        factor bits) is identical across runners."""
-        sn = self.symb.supernodes[s]
+    def _take_kids(self, s: int, updates: Dict) -> Tuple[List[Tuple[int, _Kept]], float]:
+        """The host's part of front ``s``'s assembly: pop — i.e. free — its
+        children's Schur blocks from ``updates`` (the run's, or a fused
+        group's), in tree order.  Returns them as (child, block) and their
+        bytes.  Children are folded in tree order whatever the completion
+        order, so the float summation order (and therefore the factor
+        bits) is identical across runners."""
         t_a0 = time.perf_counter()
-        kid_updates, consumed = self._pop_children(self._children[s], updates)
-        idx, lower, mirror = self._entries[s]
-        f = np.zeros((sn.m, sn.m))
-        flat = f.reshape(-1)
-        flat[lower] = flat[mirror] = acsc.data[idx]
-        for rows_c, upd in kid_updates:
-            extend_add_np(f, sn, rows_c, upd)
-        out = f.astype(self.dtype, copy=False)
+        kids = self._children[s]
+        blocks, consumed = self._pop_children(kids, updates)
         self._assemble_span(s, t_a0)
-        return out, consumed
-
-    def _take_large(
-        self, s: int, acsc: sp.csc_matrix, updates: Dict[int, Tuple[np.ndarray, object]]
-    ) -> Tuple[_LargeJob, float]:
-        """The host's part of a large front's assembly: pop (free) the
-        children's Schur blocks from ``updates``, kept on a lane or on the
-        host, and gather the front's original entries for ``_run_large``.
-        Returns the job and the consumed CB bytes, counted as
-        ``_assemble`` counts."""
-        t_a0 = time.perf_counter()
-        kids, consumed = self._pop_children(self._children[s], updates)
-        values = np.asarray(acsc.data[self._entries[s][0]], dtype=np.float64)
-        job = _LargeJob(s, values, [(c, blk) for c, (_, blk) in zip(self._children[s], kids)])
-        self._assemble_span(s, t_a0)
-        return job, consumed
+        return [(c, blk) for c, (_, blk) in zip(kids, blocks)], consumed
 
     def _pop_children(self, kids: Sequence[int], updates: Dict) -> Tuple[List, float]:
         """Pop the (rows, Schur block) pairs of ``kids`` in order from
@@ -1400,43 +1431,55 @@ class PlanExecutor:
                 children=len(self._children[s]),
             )
 
-    def _gather(
-        self, st: _Run, members: Sequence[int], large: bool
-    ) -> Tuple[List, float]:
-        """Assemble a dispatch's fronts from the run's blocks (a large
-        front's job for its lane) and note the extend-add transient, the
-        consumed blocks beside the new fronts, before the blocks leave the
-        count.  Returns the fronts and their bytes."""
-        fronts, consumed = [], 0.0
+    def _take(self, st: _Run, members: Sequence[int]) -> Tuple[List, float]:
+        """Pop a dispatch's children's blocks from the run and note the
+        extend-add transient, the consumed blocks beside the new fronts,
+        before the blocks leave the count.  Returns each member's
+        children's blocks and the fronts' bytes."""
+        kids, consumed = [], 0.0
         for s in members:
-            f, c = (self._take_large(s, st.acsc, st.updates) if large
-                    else self._assemble(s, st.acsc, st.updates))
+            k, c = self._take_kids(s, st.updates)
+            kids.append(k)
             consumed += c
-            fronts.append(f)
         fronts_bytes = float(sum(self._front_bytes[s] for s in members))
         st.note(fronts_bytes)
         st.held -= consumed
-        return fronts, fronts_bytes
+        return kids, fronts_bytes
 
-    def _pad(self, members: Sequence[int], fronts: Sequence[np.ndarray]) -> np.ndarray:
-        """Small fronts padded to their shape class and stacked."""
-        return np.stack(
-            [pad_front_np(f, self.symb.supernodes[s].nb, self.dtype)
-             for s, f in zip(members, fronts)]
-        )
+    def _jobs(self, members: Sequence[int], kids: Sequence, run: _Run) -> List[_Job]:
+        """The jobs of one dispatch: one for a batch of small fronts, one a
+        front for large ones; each with its index table and its members'
+        children's blocks by slot, in tree order."""
+        mp, nbp = self._shape[members[0]]
+        batches = ([[i] for i in range(len(members))] if mp > VMEM_FRONT_MAX
+                   else [range(len(members))])
+        return [
+            _Job(tuple(members[i] for i in batch), mp, nbp,
+                 self._table([members[i] for i in batch], nbp),
+                 [(j, c, blk) for j, i in enumerate(batch) for c, blk in kids[i]], run)
+            for batch in batches
+        ]
 
-    def _store(
-        self, s, panel, schur, panels, updates, clock: Optional[_StageClock] = None
-    ) -> int:
+    def _table(self, members: List[int], nbp: int) -> np.ndarray:
+        """A dispatch's index table (see :class:`_Job`) from the members'
+        columns of the front table."""
+        m, nb, first, count = self._desc[:, members]
+        ends, size = np.cumsum(count), m * nb
+        pends = np.cumsum(size)
+        return np.stack([nb, nbp + m - nb, first - (ends - count), ends, pends - size, pends])
+
+    def _batch_bytes(self, members: Sequence[int]) -> float:
+        """What a batch of small fronts would hold as the reference's host
+        stack of padded fronts at the run's dtype (the bookkeeping's)."""
+        mp = self._shape[members[0]][0]
+        return float(len(members) * mp * mp * self.dtype.itemsize)
+
+    def _store(self, s, panel, schur, panels, updates) -> int:
         """Record a factored front in ``panels`` and queue its Schur block
-        (a host array, or a block kept on a lane) in ``updates`` for the
-        parent's extend-add, unless ``schur`` is None (a fused group's
-        member whose parent is in the group).  Returns the bytes it keeps.
-        A small front's useful bytes are counted on ``clock``; the large
-        route counts its own where it copies."""
+        (kept on a lane) in ``updates`` for the parent's extend-add,
+        unless ``schur`` is None (a fused group's member whose parent is in
+        the group).  Returns the bytes it keeps."""
         sn = self.symb.supernodes[s]
-        if clock is not None and self._shape[s][0] <= VMEM_FRONT_MAX:
-            clock.useful_front(sn.m, panel, schur)
         panels[s] = panel
         kept = panel.nbytes
         if sn.m > sn.nb and schur is not None:
@@ -1445,15 +1488,18 @@ class PlanExecutor:
             kept += rows.nbytes + schur.nbytes
         return kept
 
-    def _land_batch(self, members, out: np.ndarray, panels, updates, clock) -> int:
-        """Cut a factored stack's panels and Schur blocks and store them;
-        returns the bytes kept."""
-        kept = 0
-        for s, o in zip(members, out):
+    def _land(self, job: _Job, out, panels, updates) -> int:
+        """Split a finished job's panel buffer into its members' panels
+        (views of it) and store them with their kept blocks; returns the
+        bytes kept."""
+        buf, kept = out
+        at = total = 0
+        for s, blk in zip(job.members, kept):
             sn = self.symb.supernodes[s]
-            panel, schur = extract_panel_schur(o, sn.m, sn.nb)
-            kept += self._store(s, panel, schur, panels, updates, clock)
-        return kept
+            panel = buf[at : at + sn.m * sn.nb].reshape(sn.m, sn.nb)
+            at += sn.m * sn.nb
+            total += self._store(s, panel, blk, panels, updates)
+        return total
 
     def _work(self, st: _Run, seq: int, lane: int, delay: float, fixed: bool, fn, *args):
         """A dispatch on a worker thread: ``fn(*args, clock)`` on the
@@ -1471,8 +1517,8 @@ class PlanExecutor:
     def _run_group(
         self,
         gid: int,
-        acsc: sp.csc_matrix,
-        cb: Dict[int, Tuple[np.ndarray, object]],
+        st: _Run,
+        cb: Dict[int, Tuple[np.ndarray, _Kept]],
         seq: int,
         clock: _StageClock,
     ) -> Dict:
@@ -1486,16 +1532,14 @@ class PlanExecutor:
         children; the members queue theirs there too.  Levels run children
         before parents, and each member takes the per-front path of a
         plain run on the first lane: a level's small members of one shape
-        class assembled by ``_assemble`` and factored in batches of up to
-        ``max_batch`` (each front is its own CTA, so batching never
-        changes a front's bits), a large one assembled and factored on the
-        lane by ``_run_large``, which keeps its Schur block there when the
-        parent is large too.
+        class in jobs of up to ``max_batch`` (each front is its own CTA,
+        so batching never changes a front's bits), a large one in a job of
+        its own; each keeps its Schur block on the lane.
 
         Returns per-member ``(s, panel, schur)`` (``schur`` only for
         members whose parent lies outside the group) and the transient
         byte peak the group held, each front counted as its m² entries at
-        the run's dtype.
+        the run's dtype and a batch as the reference's padded host stack.
         """
         members = self._groups[gid]
         delay = self._delay_for(members)
@@ -1507,15 +1551,13 @@ class PlanExecutor:
         held = float(sum(r.nbytes + u.nbytes for r, u in cb.values()))
         peak = held
         panels: Dict[int, np.ndarray] = {}
-        dev = self.devices[0]
+        devs = self.devices[:1]
         for level in self._group_levels[gid]:
             clock.lap("assemble", seq)
-            fronts: Dict[int, object] = {}
+            kids: Dict[int, List] = {}
             consumed = 0.0
             for s in level:
-                large = self._shape[s][0] > VMEM_FRONT_MAX
-                fronts[s], c = (self._take_large(s, acsc, cb) if large
-                                else self._assemble(s, acsc, cb))
+                kids[s], c = self._take_kids(s, cb)
                 # extend-add transient: the children's blocks coexist with
                 # the assembled front
                 peak = max(peak, held + self._front_bytes[s])
@@ -1529,23 +1571,18 @@ class PlanExecutor:
             for s in level:
                 classes.setdefault(self._shape[s], []).append(s)
             for key in sorted(classes):
-                mp, nbp = key
                 sns = classes[key]
-                if mp > VMEM_FRONT_MAX:
-                    for s in sns:
-                        clock.lap("transfer", seq)
-                        panel, schur = self._run_large(fronts[s], dev, clock)
-                        kept += self._store(s, panel, schur, panels, cb, clock)
-                    continue
-                for lo in range(0, len(sns), self.max_batch):
-                    chunk = sns[lo : lo + self.max_batch]
+                step = 1 if key[0] > VMEM_FRONT_MAX else self.max_batch
+                for lo in range(0, len(sns), step):
+                    chunk = sns[lo : lo + step]
                     clock.lap("pad", seq)
-                    batch = self._pad(chunk, [fronts[s] for s in chunk])
-                    peak = max(peak, held + float(batch.nbytes))
+                    (job,) = self._jobs(chunk, [kids[s] for s in chunk], st)
+                    if key[0] <= VMEM_FRONT_MAX:
+                        peak = max(peak, held + self._batch_bytes(chunk))
                     clock.lap("transfer", seq)
-                    out = self._run_batch(batch, nbp, [dev], clock)
+                    out = self._run_job(job, devs, clock)
                     clock.lap("extract", seq)
-                    kept += self._land_batch(chunk, out, panels, cb, clock)
+                    kept += self._land(job, out, panels, cb)
             held += kept - sum(self._front_bytes[s] for s in level)
             peak = max(peak, held)
         return {
@@ -1561,35 +1598,26 @@ class PlanExecutor:
         for d in self.dispatches():
             seq = st.n_disp
             clock.lap("assemble", seq)
-            mp, nbp = d.key
-            large = mp > VMEM_FRONT_MAX
-            fronts, fronts_bytes = self._gather(st, d.supernodes, large)
+            large = d.key[0] > VMEM_FRONT_MAX
+            kids, fronts_bytes = self._take(st, d.supernodes)
             devs = self._dispatch_devices(d.supernodes, groups)
             if not self.shard_dispatch or large:
                 devs = devs[:1]  # large fronts run on one lane
             delay = self._delay_for(d.supernodes)
-            t0 = st.now()
+            t0 = t1 = st.now()
             if delay > 0:
                 clock.lap("wait", seq)
                 time.sleep(delay)  # the straggling device, behind the barrier
-            if large:
-                for s, job in zip(d.supernodes, fronts):
-                    clock.lap("transfer", seq)
-                    panel, schur = self._run_large(job, devs[0], clock)
-                    clock.lap("extract", seq)
-                    st.held += self._store(s, panel, schur, st.panels, st.updates, clock)
-                t1 = st.now()
-            else:
-                clock.lap("pad", seq)
-                batch = self._pad(d.supernodes, fronts)
-                st.note(fronts_bytes + float(batch.nbytes))
+            clock.lap("pad", seq)
+            jobs = self._jobs(d.supernodes, kids, st)
+            if not large:
+                st.note(fronts_bytes + self._batch_bytes(d.supernodes))
+            for job in jobs:
                 clock.lap("transfer", seq)
-                out = self._run_batch(batch, nbp, devs, clock)
+                out = self._run_job(job, devs, clock)
                 t1 = st.now()
                 clock.lap("extract", seq)
-                st.held += self._land_batch(
-                    d.supernodes, out, st.panels, st.updates, clock
-                )
+                st.held += self._land(job, out, st.panels, st.updates)
             st.n_disp += 1
             for s in d.supernodes:
                 st.record(s, groups.get(s), d.wave, len(devs), t0, t1, len(d.supernodes))
@@ -1607,7 +1635,7 @@ class PlanExecutor:
                 kids = self._group_in[gid]
                 blocks, consumed = self._pop_children(kids, st.updates)
                 t0 = st.now()
-                res = self._run_group(gid, st.acsc, dict(zip(kids, blocks)), seq, clock)
+                res = self._run_group(gid, st, dict(zip(kids, blocks)), seq, clock)
                 t1 = st.now()
                 clock.lap("extract", seq)
                 st.note(res["transient"])
@@ -1692,10 +1720,10 @@ class PlanExecutor:
                 ready.pop(key, len(members))
                 t_sub = st.now()
                 issue = self._issue_group if fused else self._issue_fronts
-                fut, held, n_devs = issue(st, pool, members, groups)
+                fut, job, held, n_devs = issue(st, pool, members, groups)
                 st.inflight += held
                 in_flight[fut] = _Inflight(
-                    st.n_disp, tuple(members), groups, n_devs, held, t_sub
+                    st.n_disp, tuple(members), groups, n_devs, held, t_sub, job
                 )
                 st.n_disp += 1
                 launched += 1
@@ -1712,11 +1740,8 @@ class PlanExecutor:
                     st.held += self._store(s, panel, schur, st.panels, st.updates)
                 extra = out["transient"] - self._unit_bytes[info.units[0]]
                 batched = len(self._fronts_of[info.units[0]])
-            elif self._shape[info.units[0]][0] > VMEM_FRONT_MAX:
-                st.held += self._store(info.units[0], *out, st.panels, st.updates, clock)
-                extra, batched = 0.0, 1
             else:
-                st.held += self._land_batch(info.units, out, st.panels, st.updates, clock)
+                st.held += self._land(info.job, out, st.panels, st.updates)
                 extra, batched = 0.0, len(info.units)
             st.inflight -= info.held_bytes
             st.note(extra)
@@ -1757,32 +1782,29 @@ class PlanExecutor:
     def _issue_fronts(
         self, st: _Run, pool, members: List[int], groups: Dict[int, DeviceGroup]
     ):
-        """Issue a batch of ready fronts of one shape class: assemble them
-        on the main thread (a large front's job for its lane), pad a small
-        batch, and hand it to a worker.  Returns the future, the bytes the
-        worker holds, and the lanes it engages."""
+        """Issue a batch of ready fronts of one shape class (a large front
+        alone): pop their children's blocks and build the job on the main
+        thread, and hand it to a worker.  Returns the future, the job, the
+        bytes the worker holds, and the lanes it engages."""
         clock, seq = st.clock, st.n_disp
         clock.lap("assemble", seq)
-        mp, nbp = self._shape[members[0]]
-        large = mp > VMEM_FRONT_MAX
-        fronts, fronts_bytes = self._gather(st, members, large)
+        large = self._shape[members[0]][0] > VMEM_FRONT_MAX
+        kids, fronts_bytes = self._take(st, members)
         delay = self._delay_for(members)
         devs = self._dispatch_devices(members, groups)
         if not self.shard_dispatch or large:
             devs = devs[:1]  # large fronts run on one lane
         lane = min(g.offset for g in groups.values())  # devs[0]'s
-        if large:
-            clock.lap("scan", seq)
-            fut = pool.submit(self._work, st, seq, lane, delay, False,
-                              self._run_large, fronts[0], devs[0])
-            return fut, fronts_bytes, 1
         clock.lap("pad", seq)
-        batch = self._pad(members, fronts)
+        (job,) = self._jobs(members, kids, st)
         clock.lap("scan", seq)
-        st.note(fronts_bytes + float(batch.nbytes))
-        fut = pool.submit(self._work, st, seq, lane, delay, False,
-                          self._run_batch, batch, nbp, devs)
-        return fut, float(batch.nbytes), len(devs)
+        if large:
+            held = fronts_bytes
+        else:
+            held = self._batch_bytes(members)
+            st.note(fronts_bytes + held)
+        fut = pool.submit(self._work, st, seq, lane, delay, False, self._run_job, job, devs)
+        return fut, job, held, len(devs)
 
     def _issue_group(
         self, st: _Run, pool, members: List[int], groups: Dict[int, DeviceGroup]
@@ -1799,8 +1821,8 @@ class PlanExecutor:
         st.held -= consumed
         seq = st.n_disp
         fut = pool.submit(self._work, st, seq, groups[gid].offset, 0.0, True,
-                          self._run_group, gid, st.acsc, dict(zip(kids, blocks)), seq)
-        return fut, consumed + est, 1
+                          self._run_group, gid, st, dict(zip(kids, blocks)), seq)
+        return fut, None, consumed + est, 1
 
 BATCH_WIDTH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 

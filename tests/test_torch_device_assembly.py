@@ -1,17 +1,19 @@
-"""The large route's assembly on the lane (``repro_torch.runtime.executor``)
-and its extend-add (``repro_torch.kernels.frontal_cholesky.extend_add``).
+"""The fronts' assembly on the lane (``repro_torch.runtime.executor``) and
+its extend-add (``repro_torch.kernels.frontal_cholesky.extend_add``).
 
-A front past ``VMEM_FRONT_MAX`` is built on its lane in float64 as the
-host builds it (``sparse.multifrontal.assemble_front_np``): its original
-entries, then each child's Schur block added in tree order, one cast to
-the run's dtype.  A child that is large too leaves its block on the lane.
-So the panels are held bit for bit to the host-assembled ``factorize``,
-the extend-add bit for bit to the reference's ``extend_add_np``, the
-panels within the reference's front tolerance to the reference's
-``factorize``, the kept blocks' counters to sums over the supernodes, and
-the memory cap's decisions to the reference's async runner (which
-assembles every front on the host).  The port runs on CPU lanes (the
-kernels' plain versions).
+Every front, small (a batch of one shape class) or past
+``VMEM_FRONT_MAX`` (alone), is built on its lane in float64 as the host
+builds and pads it (``sparse.multifrontal.assemble_front_np``, then
+``kernels.ops.pad_front_np``): its original entries, then each child's
+Schur block added in tree order, one cast to the run's dtype.  Every
+Schur block stays on the lane.  So the assembled stacks are held bit for
+bit to the host's assembly and padding, the panels bit for bit to the
+host-assembled ``factorize`` in all four runners, the extend-add bit for
+bit to the reference's ``extend_add_np``, the panels within the
+reference's front tolerance to the reference's ``factorize``, the kept
+blocks' counters to sums over the supernodes, and the memory cap's
+decisions to the reference's async runner (which assembles every front
+on the host).  The port runs on CPU lanes (the kernels' plain versions).
 """
 import itertools
 from concurrent import futures
@@ -32,6 +34,7 @@ import repro_torch.kernels.ops as tops
 import repro_torch.obs as obs
 import repro_torch.runtime.executor as texecutor
 import repro_torch.sparse as tsparse
+import repro_torch.sparse.multifrontal as tmultifrontal
 from repro.sparse.multifrontal import extend_add_np
 from repro.sparse.plan import make_plan as rmake_plan
 from repro.sparse.symbolic import Supernode
@@ -276,34 +279,179 @@ def test_entry_maps_follow_the_pattern(monkeypatch):
         np.testing.assert_array_equal(bits(p), bits(q))
 
 
+def random300():
+    a = tsparse.random_spd(300, 6.0, np.random.default_rng(2**32 + 7))
+    return tsparse.permute_symmetric(a, tsparse.min_degree(a))
+
+
 @pytest.mark.parametrize("vmem", [128, None])
 def test_entry_maps_are_the_hosts_gather(vmem, monkeypatch):
-    """Every front's original entries placed through its maps (a small
-    front's in its (m, m) block, a large one's in its padded block) are
-    ``gather_front_entries``' block, bit for bit, on a random SPD pattern
-    (fronts of many sizes, rows that skip columns)."""
+    """Every front's original entries placed through its maps, small or
+    large, in its padded (mp, mp) block, are ``gather_front_entries``'
+    block bit for bit at the front's rows and columns and zero on the
+    padding, on a random SPD pattern (fronts of many sizes, rows that skip
+    columns); the front table counts each front's entries."""
     if vmem is not None:
         monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
-    a = tsparse.random_spd(300, 6.0, np.random.default_rng(2**32 + 7))
-    a = tsparse.permute_symmetric(a, tsparse.min_degree(a))
+    a = random300()
     symb = tsparse.analyze(a, relax=2)
     plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
     ex = texecutor.PlanExecutor(symb, plan, devices=[CPU], dtype=torch.float64)
     acsc = lower_csc(a)
     ex._entry_maps(acsc)
-    assert (len(ex._large) > 0) == (vmem is not None)
+    assert any(_large(symb, s) for s in range(symb.n_supernodes)) == (vmem is not None)
     for s, sn in enumerate(symb.supernodes):
-        idx, lower, mirror = ex._entries[s]
+        m, nb, first, count = ex._desc[:, s]
+        assert (m, nb) == (sn.m, sn.nb)
+        idx, lower, mirror = (x[first : first + count] for x in ex._ent)
         mp, nbp = ex._shape[s]
-        order = mp if s in ex._large else sn.m
-        f = np.zeros(order * order)
+        f = np.zeros(mp * mp)
         f[lower] = f[mirror] = acsc.data[idx]
-        f = f.reshape(order, order)
-        if s in ex._large:  # the padded layout's rows and columns of the front
-            at = np.r_[0 : sn.nb, nbp : nbp + sn.m - sn.nb]
-            assert not np.delete(np.delete(f, at, 0), at, 1).any()
-            f = f[np.ix_(at, at)]
-        np.testing.assert_array_equal(bits(f), bits(gather_front_entries(acsc, sn)))
+        f = f.reshape(mp, mp)
+        at = np.r_[0 : sn.nb, nbp : nbp + sn.m - sn.nb]  # the front's rows and columns
+        assert not np.delete(np.delete(f, at, 0), at, 1).any()
+        np.testing.assert_array_equal(bits(f[np.ix_(at, at)]),
+                                      bits(gather_front_entries(acsc, sn)))
+
+
+def arrow():
+    """Four dense blocks of order 30, each coupled to the first three rows
+    of a dense block of order 900: small leaves under the first link of a
+    chain capped at 256 pivots (padded orders 1,024, 768, 512, 256).  At a
+    ``VMEM_FRONT_MAX`` of 600 every pair of routes meets: small into large
+    (the leaves), large into large, large into small, small into small."""
+    g = np.random.default_rng(2**33 + 1020)
+    k, w, nd = 4, 30, 900
+    a = np.zeros((k * w + nd, k * w + nd))
+    for i in range(k):
+        x = g.standard_normal((w, w))
+        a[i * w : (i + 1) * w, i * w : (i + 1) * w] = x @ x.T / w
+        c = g.standard_normal((w, 3)) / w
+        a[i * w : (i + 1) * w, k * w : k * w + 3] = c
+        a[k * w : k * w + 3, i * w : (i + 1) * w] = c.T
+    x = g.standard_normal((nd, nd))
+    a[k * w :, k * w :] = x @ x.T / nd
+    return sp.csr_matrix(a + 2 * np.eye(len(a)))
+
+
+# MATRICES, and two with every pair of routes or many small children
+ROUTES = {**MATRICES, "arrow-600": (arrow, 2, 600), "random300": (random300, 2, None)}
+
+
+def _spy_lanes(monkeypatch):
+    """Record every front a run assembles on a lane (float64, before the
+    cast; by front) and every kept block's factored padded front (by
+    child), as the executor's helpers produce them."""
+    stacks, outs = {}, {}
+    assemble, run_job = texecutor.PlanExecutor._assemble_stack, texecutor.PlanExecutor._run_job
+
+    def assemble_spy(self, job, d, dev, clock):
+        f = assemble(self, job, d, dev, clock)
+        for j, s in enumerate(job.members):
+            stacks[s] = f[j].clone()
+        return f
+
+    def run_job_spy(self, job, devs, clock=None):
+        panels, kept = run_job(self, job, devs, clock)
+        for s, blk in zip(job.members, kept):
+            if blk is not None:
+                outs[s] = blk.out.numpy().copy()
+        return panels, kept
+
+    monkeypatch.setattr(texecutor.PlanExecutor, "_assemble_stack", assemble_spy)
+    monkeypatch.setattr(texecutor.PlanExecutor, "_run_job", run_job_spy)
+    return stacks, outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_lane_assembly_is_the_hosts_assembly_and_padding(case, dtype, monkeypatch):
+    """Every front assembled on a lane, cast to the run's dtype, is the
+    host's assembly followed by its padding bit for bit: its original
+    entries (``gather_front_entries``), each child's Schur block as the
+    host cut it from the child's factored front (``extract_panel_schur``)
+    added in tree order by ``sparse.multifrontal.extend_add_np``, the
+    cast, ``kernels.ops.pad_front_np``."""
+    make, relax, vmem = ROUTES[case]
+    if vmem is not None:
+        monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", vmem)
+    a = make()
+    symb = tsparse.analyze(a, relax=relax)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    stacks, outs = _spy_lanes(monkeypatch)
+    texecutor.PlanExecutor(symb, plan, devices=[CPU] * 2, dtype=dtype).run(a, warmup=False)
+    acsc, npdt, sns = lower_csc(a), NP_DTYPE[dtype], symb.supernodes
+    assert sorted(stacks) == list(range(symb.n_supernodes))
+    assert any(not _large(symb, s) for s in range(len(sns)))
+    for s, sn in enumerate(sns):
+        f = gather_front_entries(acsc, sn)
+        for c in (c for c, k in enumerate(sns) if k.parent == s):
+            k = sns[c]
+            _, schur = tops.extract_panel_schur(outs[c], k.m, k.nb)
+            tmultifrontal.extend_add_np(f, sn, k.rows[k.nb :], schur)
+        want = tops.pad_front_np(f.astype(npdt), sn.nb, npdt)
+        got = stacks[s].to(dtype).numpy()
+        np.testing.assert_array_equal(bits(got), bits(want), err_msg=f"{case} front {s}")
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("the host's assembly, padding or cut ran")
+
+
+RUNNERS = ("async", "waves", "fused-async", "fused-waves")
+
+
+@pytest.fixture(scope="module")
+def arrow_factor():
+    """The arrow, its analysis, and its host-assembled ``factorize`` by
+    dtype (computed on first use)."""
+    make, relax, _ = ROUTES["arrow-600"]
+    a = make()
+    symb = tsparse.analyze(a, relax=relax)
+    want = {}
+
+    def get(dtype):
+        if dtype not in want:
+            want[dtype] = factorize(a, symb, factor_fn=tops.factor_fn(), dtype=dtype,
+                                    device="cpu")
+        return a, symb, want[dtype]
+
+    return get
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("runner", RUNNERS)
+def test_every_runner_assembles_on_the_lane(runner, dtype, arrow_factor, monkeypatch):
+    """The arrow at a ``VMEM_FRONT_MAX`` of 600 (every pair of routes) in
+    each of the four runners: the panels are the host-assembled
+    ``factorize``'s bit for bit, with the host's ``extend_add_np``,
+    ``pad_front_np`` and ``extract_panel_schur`` made to raise; the small
+    route's counters are sums over the small fronts."""
+    monkeypatch.setattr(texecutor, "VMEM_FRONT_MAX", ROUTES["arrow-600"][2])
+    a, symb, want = arrow_factor(dtype)
+    mode = runner.split("-")[-1]
+    if runner.startswith("fused"):
+        sess = tapi.Session(tapi.DeviceMesh([CPU] * 2, plan_devices=8)).load(
+            tapi.Problem.from_symbolic(symb, 0.9, matrix=a))
+        sess.optimize(max_front=64).plan("greedy")
+        assert sess.problem.n < symb.n_supernodes
+        plan, prov = sess.schedule.to_execution_plan(), sess.problem.provenance
+    else:
+        plan, prov = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9), None
+    for module, name in ((tmultifrontal, "extend_add_np"), (tops, "pad_front_np"),
+                         (tops, "extract_panel_schur")):
+        monkeypatch.setattr(module, name, _raise)
+    fact, _ = texecutor.PlanExecutor(symb, plan, devices=[CPU] * 2, dtype=dtype, mode=mode,
+                                     provenance=prov).run(a, warmup=True)
+    for s, (p, q) in enumerate(zip(fact.panels, want.panels)):
+        assert p.dtype == q.dtype and p.shape == q.shape
+        np.testing.assert_array_equal(bits(p), bits(q), err_msg=f"{runner} panel {s}")
+    sns = symb.supernodes
+    small = [s for s in range(len(sns)) if not _large(symb, s)]
+    assert obs.REGISTRY.get("repro_executor_small_fronts_total").value == len(small)
+    item = torch.finfo(dtype).bits // 8
+    assert obs.REGISTRY.get("repro_executor_small_kept_bytes_total").value == sum(
+        (sns[s].m - sns[s].nb) ** 2 * item for s in small) > 0
 
 
 # -- the memory cap's decisions ----------------------------------------------
@@ -387,3 +535,43 @@ def test_memory_cap_defers_as_the_reference(monkeypatch):
     assert rp.measured_peak_bytes == rr.measured_peak_bytes
     for p, r in zip(fp.panels, fr.panels):
         assert np.abs(p - r).max() <= 1e-12 * max(1.0, np.abs(r).max())
+
+
+def test_lane_uploads_are_made_once_under_contention():
+    """Sixteen threads ask at once for the pattern's maps and the run's
+    values on one lane, with the interpreter switching threads every
+    microsecond: one upload each, the values counted once, every caller
+    handed the same tensors."""
+    import sys
+    import threading
+
+    a = grid15()
+    symb = tsparse.analyze(a, relax=1)
+    plan = tsparse.make_plan(symb.task_tree(), 8, alpha=0.9)
+    ex = texecutor.PlanExecutor(symb, plan, devices=[CPU], dtype=torch.float64)
+    acsc = lower_csc(a)
+    ex._entry_maps(acsc)
+    tally = texecutor._RunTally(8)
+    clock = texecutor._StageClock(tally, "scan")
+    st = texecutor._Run(ex, acsc, clock)
+    got, start = [], threading.Barrier(16)
+
+    def ask():
+        start.wait(timeout=30)
+        got.append((ex._lane(CPU), st.values_on(CPU, clock)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ask) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and len(got) == 16
+    assert all(lane is got[0][0] and values is got[0][1] for lane, values in got)
+    clock.close()
+    assert tally.copied == tally.useful == acsc.data.nbytes
+    np.testing.assert_array_equal(got[0][1].numpy(), acsc.data[ex._ent[0]])

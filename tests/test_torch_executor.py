@@ -171,12 +171,14 @@ def test_obs_metric_names_match_reference(grid23):
         names[reg] = set(reg.names())
         assert len(bus.spans(name="run")) == symb.n_supernodes
     port, ref = names.values()
-    # the port adds its host-stage, copy, GC and large-route counters
+    # the port adds its host-stage, copy, GC, large- and small-route counters
     assert port == ref | {"repro_executor_stage_seconds_total",
                           "repro_executor_copy_bytes_total", "repro_host_gc_seconds_total",
                           "repro_executor_large_seconds_total",
                           "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
-                          "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total"}
+                          "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total",
+                          "repro_executor_small_fronts_total",
+                          "repro_executor_small_kept_bytes_total"}
     assert {"repro_dispatches_total", "repro_queue_depth",
             "repro_batch_width", "repro_peak_resident_bytes"} <= port
 

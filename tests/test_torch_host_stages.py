@@ -131,15 +131,13 @@ def test_warmup_adds_nothing(grid15):
 @pytest.mark.parametrize("fused", [False, True])
 def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkeypatch, mode,
                                                          large_from, fused):
-    """Batched fronts cross as their padded (mp, mp) stack both ways; the
-    useful part is each front's m² entries sent, its (m, nb) panel and
-    (m−nb)² Schur block received.  A large front is assembled on its lane:
-    its original entries (float64) and its small children's Schur blocks
-    cross in, its panel out, and its Schur block only where the parent is
-    small; nothing padded crosses, so all of it is useful.  ``large_from``
-    lowers the large route's threshold so both routes run; ``fused`` runs
-    the amalgamated plan's group dispatches, which count as the plain
-    plan's dispatches do."""
+    """Every front is assembled on its lane from the run's values, which
+    cross once a lane (the lower triangle's entries, float64; the four
+    CPU lanes are one device), and only its (m, nb) panel comes back; its
+    Schur block stays on the lane.  Nothing padded crosses, so all of it
+    is useful.  ``large_from`` lowers the large route's threshold so both
+    routes run; ``fused`` runs the amalgamated plan's group dispatches,
+    which count as the plain plan's dispatches do."""
     if large_from is not None:
         monkeypatch.setattr(executor_module, "VMEM_FRONT_MAX", large_from)
     limit = executor_module.VMEM_FRONT_MAX
@@ -153,32 +151,11 @@ def test_copied_and_useful_bytes_are_the_supernodes_sums(grid15, fused15, monkey
     item = np.dtype(np.float64).itemsize
     sns = grid15[1].supernodes
     lower = sp.tril(grid15[0]).tocsc()
-
-    def large(s):
-        return s >= 0 and padded_shape(sns[s].m, sns[s].nb)[0] > limit
-
-    copied = useful = n_large = 0
-    for s, sn in enumerate(sns):
-        m, nb = sn.m, sn.nb
-        mp, _ = padded_shape(m, nb)
-        own = (m * m + m * nb + (m - nb) ** 2) * item
-        if not large(s):
-            copied += 2 * mp * mp * item
-            useful += own
-            continue
-        n_large += 1
-        entries = lower.indptr[sn.cols[-1] + 1] - lower.indptr[sn.cols[0]]
-        small_kids = sum((k.m - k.nb) ** 2 for c, k in enumerate(sns)
-                         if k.parent == s and not large(c))
-        schur = 0 if large(sn.parent) else (m - nb) ** 2
-        own = entries * 8 + (small_kids + m * nb + schur) * item
-        copied += own
-        useful += own
+    copied = lower.nnz * 8 * len(set(CPU4)) + sum(sn.m * sn.nb for sn in sns) * item
+    n_large = sum(padded_shape(sn.m, sn.nb)[0] > limit for sn in sns)
     assert (n_large > 0) == (large_from is not None)
-    assert rep.host.copied_bytes == copied
-    assert rep.host.useful_bytes == useful
-    assert counter(COUNTERS[1], kind="copied") == copied
-    assert counter(COUNTERS[1], kind="useful") == useful
+    assert rep.host.copied_bytes == rep.host.useful_bytes == copied
+    assert counter(COUNTERS[1], kind="copied") == counter(COUNTERS[1], kind="useful") == copied
 
 
 def test_consecutive_runs_lie_end_to_end(grid15):

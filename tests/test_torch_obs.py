@@ -87,6 +87,7 @@ PORT_COUNTERS = {"repro_executor_stage_seconds_total", "repro_executor_copy_byte
                  "repro_host_gc_seconds_total", "repro_executor_large_seconds_total",
                  "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
                  "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total",
+                 "repro_executor_small_fronts_total", "repro_executor_small_kept_bytes_total",
                  "repro_sparse_analyze_seconds_total",
                  "repro_sparse_supervariable_width"}
 
