@@ -199,11 +199,11 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 STAGES = ("scan", "assemble", "pad", "wait", "extract", "report", "transfer")
 
 
-def _large_range():
-    """An ``executor.large`` profiler range while ``torch.profiler``
-    records, else nothing."""
+def _profiler_range(name: str):
+    """A profiler range ``name`` while ``torch.profiler`` records, else
+    nothing."""
     if torch.autograd.profiler._is_profiler_enabled:
-        return torch.autograd.profiler.record_function("executor.large")
+        return torch.autograd.profiler.record_function(name)
     return contextlib.nullcontext()
 
 
@@ -503,6 +503,11 @@ class _RunTally:
             "Schur bytes of small fronts kept on a lane, as the host copies they replace",
             unit="bytes",
         ).inc(r.small_kept_bytes)
+        reg.counter(
+            "repro_executor_entry_bytes_total",
+            "the matrix's original entries gathered into fronts, 8 bytes each, once each",
+            unit="bytes",
+        ).inc(r.entry_bytes)
 
 
 @dataclass
@@ -510,7 +515,8 @@ class _RouteTally:
     """What the jobs of one clock did, by route: the large fronts'
     seconds, panel bytes and count, and the Schur bytes and blocks they
     kept for a large parent; the small fronts assembled on a lane and the
-    Schur bytes they kept there."""
+    Schur bytes they kept there; and, on both routes, the original
+    entries gathered into the fronts, 8 bytes each (float64)."""
 
     large_seconds: float = 0.0
     large_bytes: float = 0.0
@@ -519,6 +525,7 @@ class _RouteTally:
     kept_blocks: int = 0
     small_fronts: int = 0
     small_kept_bytes: float = 0.0
+    entry_bytes: float = 0.0
 
     def add(self, other: "_RouteTally") -> None:
         for f in fields(self):
@@ -767,12 +774,12 @@ class _Run:
     issued dispatches hold, ``peak`` the largest resident sum noted."""
 
     def __init__(
-        self, ex: "PlanExecutor", acsc: sp.csc_matrix, clock: _StageClock
+        self, ex: "PlanExecutor", values: np.ndarray, clock: _StageClock
     ) -> None:
-        self.ex, self.acsc, self.clock = ex, acsc, clock
+        self.ex, self.values, self.clock = ex, values, clock
         self.panels: List[Optional[np.ndarray]] = [None] * ex.symb.n_supernodes
         self.updates: Dict[int, Tuple[np.ndarray, _Kept]] = {}
-        self._values: Dict[torch.device, torch.Tensor] = {}
+        self._on_lane: Dict[torch.device, torch.Tensor] = {}
         self._values_lock = threading.Lock()
         self.held = self.inflight = self.peak = 0.0
         self.ready = _Ready()
@@ -789,13 +796,12 @@ class _Run:
         the entry maps: the lower CSC's values (float64) cross to the
         lane once a run, counted on ``clock``, and are gathered there."""
         with self._values_lock:
-            got = self._values.get(device)
+            got = self._on_lane.get(device)
             if got is None:
-                data = np.asarray(self.acsc.data, dtype=np.float64)
-                got = torch.from_numpy(data).to(device)[self.ex._lane(device).idx]
-                self._values[device] = got
+                got = torch.from_numpy(self.values).to(device)[self.ex._lane(device).idx]
+                self._on_lane[device] = got
                 if clock is not None:
-                    clock.moved(data.nbytes)
+                    clock.moved(self.values.nbytes)
         return got
 
     def note(self, extra: float = 0.0) -> None:
@@ -999,25 +1005,28 @@ class PlanExecutor:
         self._col_k[cols] = np.concatenate([np.arange(k) for k in nb])
         # every front's rows as one sorted key (front, row), and where each
         # front's rows begin in it
-        self._row_key = np.concatenate(
+        row_key = np.concatenate(
             [s * n + sn.rows.astype(np.int64) for s, sn in enumerate(symb.supernodes)]
         )
-        self._row_start = np.concatenate([[0], np.cumsum(m)[:-1]]).astype(np.int64)
+        row_start = np.concatenate([[0], np.cumsum(m)[:-1]]).astype(np.int64)
         front = np.repeat(np.arange(ns), m)  # each (front, row)'s front
-        border = np.arange(len(front)) - self._row_start[front] >= nb[front]
+        border = np.arange(len(front)) - row_start[front] >= nb[front]
         border &= parent[front] >= 0
         p = parent[front[border]]
-        key = p * n + self._row_key[border] - front[border] * n
-        at = np.minimum(np.searchsorted(self._row_key, key), len(self._row_key) - 1)
-        assert np.array_equal(self._row_key[at], key), "child border not in front"
-        local = at - self._row_start[p]
+        key = p * n + row_key[border] - front[border] * n
+        at = np.minimum(np.searchsorted(row_key, key), len(row_key) - 1)
+        assert np.array_equal(row_key[at], key), "child border not in front"
+        local = at - row_start[p]
         self._kid = np.where(local < nb[p], local, local + self._shift[p]).astype(np.int32)
         self._kid_at = np.concatenate([[0], np.cumsum(np.where(parent >= 0, m - nb, 0))])
         self._ent: Tuple[np.ndarray, ...] = ()
         self._desc = np.zeros((4, 0), dtype=np.int64)
         self._entry_pattern: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._lane_maps: Dict[torch.device, _LaneMaps] = {}
-        self._lane_lock = threading.Lock()  # workers upload to one lane at once
+        # a canonical CSR pattern and where its lower CSC's values sit in
+        # its data (``_lower_values``)
+        self._csr_key: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._csr_src = np.zeros(0, dtype=np.int64)
 
         self._prov = provenance
         # the units a run makes ready and dispatches: fronts, or the fused
@@ -1182,6 +1191,33 @@ class PlanExecutor:
         ]
         return torch.cat([o.to(dev) for o in shards])[:b]
 
+    def _lower_values(self, a: sp.spmatrix) -> np.ndarray:
+        """``a``'s lower triangle's values in sorted CSC order
+        (``lower_csc(a).data``, float64), its pattern's entry maps built
+        (``_entry_maps``).  Of a canonical CSR matrix the positions of
+        those values in its ``data`` are kept with its pattern, so the next
+        matrix with that pattern gives them by one gather, without the
+        lower CSC."""
+        key = self._csr_key
+        csr = sp.issparse(a) and a.format == "csr"
+        if key is not None and csr and all(
+            np.array_equal(x, y) for x, y in zip(key, (a.indptr, a.indices))
+        ):
+            return np.asarray(a.data, dtype=np.float64)[self._csr_src]
+        self._csr_key = None
+        if csr and a.has_canonical_format:
+            # the lower CSC of the positions: its data are where each
+            # value sits in ``a.data``
+            pos = lower_csc(sp.csr_matrix(
+                (np.arange(a.nnz, dtype=np.float64), a.indices, a.indptr), shape=a.shape))
+            self._entry_maps(pos)
+            self._csr_src = pos.data.astype(np.int64)
+            self._csr_key = (a.indptr.copy(), a.indices.copy())
+            return np.asarray(a.data, dtype=np.float64)[self._csr_src]
+        acsc = lower_csc(a)
+        self._entry_maps(acsc)
+        return np.asarray(acsc.data, dtype=np.float64)
+
     def _entry_maps(self, acsc: sp.csc_matrix) -> None:
         """Every front's original entries, in one vectorised pass: their
         indices in the sorted lower CSC's ``data`` and their linear
@@ -1191,46 +1227,85 @@ class PlanExecutor:
         (``_ent``); and the front table (``_desc``, (4, n_supernodes): a
         front's m, nb, first entry there and number of entries).  Built once a pattern: a matrix
         with other ``indptr`` / ``indices`` rebuilds them and drops what
-        the lanes hold."""
+        the lanes hold.  The maps then go to every distinct lane in four
+        flat tensors (``_LaneMaps``); the build and the uploads are the
+        pattern's set-up, counted in ``repro_executor_setup_seconds_total``
+        (stage ``maps``), a bus span ``setup/maps`` and, while
+        ``torch.profiler`` records, an ``executor.maps`` range, and not
+        as a run's copies."""
         if self._entry_pattern is not None and all(
             np.array_equal(x, y)
             for x, y in zip(self._entry_pattern, (acsc.indptr, acsc.indices))
         ):
             return
-        self._lane_maps = {}
+        t0 = time.perf_counter()
+        with _profiler_range("executor.maps"):
+            self._lane_maps, self._entry_pattern = {}, None
+            self._build_entry_maps(acsc)
+            self._lane_maps = {
+                d: _LaneMaps(*(torch.from_numpy(x).to(d) for x in (*self._ent, self._kid)))
+                for d in dict.fromkeys(self.devices)
+            }
+        t1 = time.perf_counter()
+        if obs_events.enabled():
+            obs_metrics.REGISTRY.counter(
+                "repro_executor_setup_seconds_total",
+                "host seconds of the executor's set-up of a pattern, by stage",
+                unit="s",
+            ).inc(t1 - t0, stage="maps")
+            epoch = obs_events.BUS.epoch
+            obs_events.BUS.span("maps", t0 - epoch, t1 - epoch, cat="setup")
+
+    def _build_entry_maps(self, acsc: sp.csc_matrix) -> None:
+        """``_entry_maps``' arrays from the lower CSC ``acsc``."""
         symb, n = self.symb, self.symb.n
         indptr, rows = acsc.indptr, acsc.indices.astype(np.int64)
-        col = np.repeat(np.arange(n), np.diff(indptr))
-        s, k = self._col_sn[col], self._col_k[col]
-        key = s * n + rows
-        g = np.minimum(np.searchsorted(self._row_key, key), len(self._row_key) - 1)
+        cnt = np.diff(indptr)  # a column's facts go to its entries by repeat
+        col = np.repeat(np.arange(n), cnt)
+        s = np.repeat(self._col_sn, cnt)
+        # the entries grouped by front, in column order within one: as they
+        # stand when the fronts are ranges of columns in order
+        grouped = bool((s[1:] >= s[:-1]).all())
+        order = None if grouped else np.argsort(s, kind="stable")
+        bounds = np.searchsorted(s if grouped else s[order], np.arange(symb.n_supernodes + 1))
+        # each entry's place among its front's rows, -1 where it is none of
+        # them: one front's rows at a time in a table over the rows
+        g = np.empty(len(rows), dtype=np.int64)
+        table = np.full(n, -1, dtype=np.int64)
+        for f, sn in enumerate(symb.supernodes):
+            e = slice(bounds[f], bounds[f + 1])
+            e = e if grouped else order[e]
+            table[sn.rows] = np.arange(sn.m)
+            g[e] = table[rows[e]]
+            table[sn.rows] = -1
         # below the diagonal, a row of the front, and not followed by the
         # same entry again (sorted columns put a repeat next to it)
-        keep = (rows >= col) & (self._row_key[g] == key)
+        keep = (rows >= col) & (g >= 0)
         keep[:-1] &= ~((col[1:] == col[:-1]) & (rows[1:] == rows[:-1]))
-        idx = np.flatnonzero(keep)
-        idx = idx[np.argsort(s[idx], kind="stable")]  # grouped by front
-        s, k, r = s[idx], k[idx], g[idx] - self._row_start[s[idx]]
+        del col
         m = np.array([sn.m for sn in symb.supernodes], dtype=np.int64)
         nb = np.array([sn.nb for sn in symb.supernodes], dtype=np.int64)
-        mp = np.array([x for x, _ in self._shape], dtype=np.int64)[s]
-        r = np.where(r >= nb[s], r + self._shift[s], r)  # the border moves down
-        self._ent = (idx, r * mp + k, k * mp + r)
+        mp = np.array([x for x, _ in self._shape], dtype=np.int64)
+        # the place in the padded (mp, mp) block: the border moves down
+        front = self._col_sn
+        r = np.where(g >= np.repeat(nb[front], cnt), g + np.repeat(self._shift[front], cnt), g)
+        k = np.repeat(self._col_k, cnt)
+        mpe = np.repeat(mp[front], cnt)
+        lower, mirror = r * mpe + k, k * mpe + r
+        del r, k, mpe
+        if grouped and keep.all():
+            idx = np.arange(len(rows))
+        else:
+            idx = np.flatnonzero(keep) if grouped else order[keep[order]]
+            s, lower, mirror = s[idx], lower[idx], mirror[idx]
+        self._ent = (idx, lower, mirror)
         bounds = np.searchsorted(s, np.arange(symb.n_supernodes + 1))
         self._desc = np.stack([m, nb, bounds[:-1], np.diff(bounds)])
         self._entry_pattern = (indptr.copy(), acsc.indices.copy())
 
     def _lane(self, device: torch.device) -> _LaneMaps:
-        """The pattern's index maps on ``device``, uploaded on first use in
-        four flat tensors.  The uploads are the pattern's, once a lane,
-        and are not counted as a run's copies."""
-        with self._lane_lock:
-            got = self._lane_maps.get(device)
-            if got is None:
-                got = _LaneMaps(*(torch.from_numpy(x).to(device)
-                                  for x in (*self._ent, self._kid)))
-                self._lane_maps[device] = got
-        return got
+        """The pattern's index maps on ``device`` (``_entry_maps``)."""
+        return self._lane_maps[torch.device(device)]
 
     def _assemble_stack(
         self, job: _Job, d: torch.Tensor, dev: torch.device, clock: Optional[_StageClock]
@@ -1283,7 +1358,7 @@ class PlanExecutor:
         t0 = time.perf_counter()
         dev, nbp = devs[0], job.nbp
         large = job.mp > VMEM_FRONT_MAX
-        with _large_range() if large else contextlib.nullcontext():
+        with _profiler_range("executor.large") if large else contextlib.nullcontext():
             d = torch.from_numpy(job.table).to(dev)
             x = self._assemble_stack(job, d, dev, clock).to(self._tdtype)
             out = factor_padded(x[0], nbp)[None] if large else self._run_batch(x, nbp, devs)
@@ -1298,6 +1373,7 @@ class PlanExecutor:
         if clock is not None:
             clock.moved(panels.nbytes)
             routes = clock.routes
+            routes.entry_bytes += 8 * int(job.table[3, -1])
             if large:
                 routes.large_seconds += time.perf_counter() - t0
                 routes.large_bytes += panels.nbytes
@@ -1383,10 +1459,9 @@ class PlanExecutor:
         gc.callbacks.append(hook)
         try:
             with _StageClock(tally, "assemble") as clock:
-                acsc = lower_csc(a)
-                self._entry_maps(acsc)
+                values = self._lower_values(a)
                 clock.lap("scan")
-                st = _Run(self, acsc, clock)
+                st = _Run(self, values, clock)
                 runner(st)
                 fact, report = st.finish(self.mode)
         finally:

@@ -83,12 +83,33 @@ def random_spd(
     return (a + sp.diags(d)).tocsr()
 
 
+def first_at_least(indptr: np.ndarray, indices: np.ndarray, value: np.ndarray) -> np.ndarray:
+    """In each sorted row, the position of the first entry >= ``value``
+    of that row (the row's end if none): a bisection of all rows at once."""
+    lo, hi = indptr[:-1].astype(np.int64), indptr[1:].astype(np.int64)
+    top = max(len(indices) - 1, 0)
+    for _ in range(int(np.max(hi - lo, initial=0)).bit_length()):
+        mid = (lo + hi) >> 1
+        go = (lo < hi) & (indices[np.minimum(mid, top)] < value)
+        lo = np.where(go, mid + 1, lo)
+        hi = np.where((lo < hi) & ~go, mid, hi)
+    return lo
+
+
 def permute_symmetric(a: sp.csr_matrix, perm: np.ndarray) -> sp.csr_matrix:
-    """P A Pᵀ for a permutation given as new-order-of-old-indices."""
-    p = sp.csr_matrix(
-        (np.ones(len(perm)), (np.arange(len(perm)), perm)), shape=a.shape
-    )
-    return (p @ a @ p.T).tocsr()
+    """P A Pᵀ for a permutation given as new-order-of-old-indices: entry
+    (i, j) is ``a[perm[i], perm[j]]``, in canonical CSR (sorted, duplicates
+    summed).  Every stored entry keeps its place, explicit zeros included:
+    a product of sparse matrices would drop them, and with them the
+    pattern the analysis reads."""
+    perm = np.asarray(perm)
+    inv = np.empty(len(perm), dtype=np.int64)
+    inv[perm] = np.arange(len(perm))
+    out = sp.csr_matrix(a, dtype=np.result_type(a.dtype, np.float64))[perm]
+    out.indices = inv[out.indices].astype(out.indices.dtype)
+    out.has_sorted_indices = False
+    out.sum_duplicates()
+    return out
 
 
 def lower_pattern(a: sp.csr_matrix) -> Tuple[np.ndarray, np.ndarray]:

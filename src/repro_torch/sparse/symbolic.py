@@ -13,7 +13,10 @@ or indistinguishable vertices.  They stay indistinguishable under
 elimination, so :func:`analyze` runs the etree and the column patterns on
 the compressed graph of supervariables and expands the result to
 unknowns; the :class:`SymbolicFactorization` is the one the scalar path
-gives.  A matrix without such runs takes the scalar path.
+gives.  The pattern is read once (the strict lower triangle by rows,
+:func:`_lower_rows`): the runs are found there, and the compressed graph
+is built from one column of each run.  A matrix without such runs takes
+the scalar path.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import scipy.sparse as sp
 from repro_torch.core.graph import TaskTree
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.sparse.matrix import first_at_least
 
 # the stages of ``analyze``, each a bus span ``analyze/<stage>`` and a
 # label of ``repro_sparse_analyze_seconds_total``
@@ -157,39 +161,133 @@ def partial_factor_flops(m: int, nb: int) -> float:
     return float(np.sum(mi**2 + mi + 1.0))
 
 
-def _closed(a: sp.csr_matrix, label: np.ndarray, n: int) -> sp.csr_matrix:
-    """The boolean pattern the analysis reads, the lower triangle of ``a``
-    mirrored with the diagonal added, its indices mapped through ``label``
-    onto ``n`` (sorted indices, symmetric)."""
-    lo = sp.tril(a).tocoo()
-    d = np.arange(n)
-    r = np.concatenate([label[lo.row], label[lo.col], d])
-    c = np.concatenate([label[lo.col], label[lo.row], d])
-    out = sp.csr_matrix((np.ones(len(r), dtype=bool), (r, c)), shape=(n, n))
-    out.sum_duplicates()
-    return out
+def _lower_rows(a: sp.spmatrix) -> sp.csr_matrix:
+    """The pattern the analysis reads, from one pass over ``a``: its
+    strict lower triangle by rows (boolean, sorted, duplicates merged,
+    explicit zeros kept).  Column j of the mirrored pattern with the
+    diagonal added is its row j, then j, then the rows that hold j."""
+    n = a.shape[0]
+    if sp.issparse(a) and a.format == "csr" and a.has_canonical_format:
+        # sorted rows: row i's entries left of i are its head, copied a
+        # block of rows at a time
+        start = a.indptr[:-1].astype(np.int64)
+        head = first_at_least(a.indptr, a.indices, np.arange(n)) - start
+        indptr = np.concatenate([[0], np.cumsum(head)])
+        ind = np.empty(int(indptr[-1]), dtype=a.indices.dtype)
+        for r0, r1 in _blocks(indptr):
+            take = np.repeat(start[r0:r1] - indptr[r0:r1], head[r0:r1])
+            take += np.arange(indptr[r0], indptr[r1])
+            ind[indptr[r0]:indptr[r1]] = a.indices[take]
+        return sp.csr_matrix((np.ones(len(ind), dtype=bool), ind, indptr), shape=(n, n))
+    lo = sp.csr_matrix(sp.tril(a, k=-1), dtype=bool)
+    lo.sum_duplicates()
+    return lo
+
+
+_BLOCK = 1 << 19  # entries of a block of rows that the pattern's passes take at once
+
+
+def _blocks(indptr: np.ndarray) -> List[Tuple[int, int]]:
+    """Consecutive ranges of whole rows of about ``_BLOCK`` entries each
+    (a longer row alone), covering every row: the passes over the pattern
+    keep their temporaries small this way."""
+    n = len(indptr) - 1
+    cuts = np.searchsorted(indptr, np.arange(0, int(indptr[-1]), _BLOCK), side="right") - 1
+    cuts = np.unique(np.concatenate([[0], cuts[cuts > 0], [n]]))
+    return list(zip(cuts[:-1].tolist(), cuts[1:].tolist()))
+
+
+def _runs(lo: sp.csr_matrix) -> np.ndarray:
+    """Start columns of the maximal runs of consecutive columns with one
+    mirrored structure (diagonal included), and ``n`` last.
+
+    Column j + 1 joins j's run when (j + 1, j) is an entry and the two
+    agree on both sides of the pair: row j + 1 of ``lo`` is row j and
+    then j (compared entry by entry), and every row below j + 1 that
+    holds j holds j + 1 right after it, and every row that holds j + 1
+    holds j right before it.  A few vectorised passes over ``lo`` (see
+    :func:`_lower_rows`), a block of rows at a time."""
+    n = lo.shape[0]
+    if n < 2:
+        return np.append(np.zeros(n, dtype=np.int64), n)
+    indptr, ind = lo.indptr.astype(np.int64), lo.indices
+    length = np.diff(indptr)
+    ok = length[1:] == length[:-1] + 1
+    ok[ok] = ind[indptr[2:][ok] - 1] == np.flatnonzero(ok)  # the entry (j + 1, j)
+    okx = np.append(ok, False)
+    full = length > 0
+    # lone[c + 1] marks a c seen without c + 1 right after it, or a c + 1
+    # without c right before it (a row's first entry follows nothing)
+    lone = np.zeros(n + 1, dtype=bool)
+    lone[ind[indptr[:-1][full]]] = True
+    for r0, r1 in _blocks(indptr):
+        p0, e = indptr[r0], int(indptr[r1] - indptr[r0])
+        blk = ind[p0:indptr[min(r1 + 1, n)]]  # and row r1, to look ahead
+        if e == 0:
+            continue
+        # row j against the head of row j + 1: entry p against p + length[j]
+        # (p itself elsewhere, so it differs nowhere else)
+        to = np.repeat(np.where(okx[r0:r1], length[r0:r1], 0), length[r0:r1])
+        to += np.arange(e)
+        at = np.flatnonzero(blk[:e] != blk[to])
+        ok[r0 + np.searchsorted(indptr[r0:r1 + 1] - p0, at, side="right") - 1] = False
+        # the rows below j + 1
+        nxt = np.zeros(e, dtype=bool)  # entry p is followed by blk[p] + 1
+        k = min(e, len(blk) - 1)
+        np.equal(blk[1:k + 1], blk[:k] + 1, out=nxt[:k])
+        f = full[r0:r1]
+        ends = indptr[r0 + 1:r1 + 1][f] - 1 - p0
+        nxt[ends] = blk[ends] == np.arange(r0, r1)[f] - 1  # (j + 1, j) ends its row
+        bad = np.flatnonzero(~nxt)
+        lone[blk[bad] + 1] = True
+        bad += 1
+        lone[blk[bad[bad < e]]] = True
+    ok &= ~lone[1:n]
+    return np.append(np.flatnonzero(np.append(True, ~ok)), n).astype(np.int64)
 
 
 def supervariables(a: sp.csr_matrix) -> np.ndarray:
     """Start columns of the maximal runs of consecutive columns with
     identical structure, and ``n`` last.
 
-    The structure is the one the analysis reads (:func:`_closed`), so
-    columns j and j+1 of one run are adjacent: the diagonal block is full.
-    One vectorised pass: each column against its predecessor, entry by
-    entry."""
-    n = a.shape[0]
-    s = _closed(a, np.arange(n), n)
-    length = np.diff(s.indptr)
-    same = np.zeros(n, dtype=bool)
-    same[1:] = length[1:] == length[:-1]
-    # each entry of a column of the same length as its predecessor against
-    # the entry at the same offset there
-    col = np.repeat(np.arange(n), length)
-    cand = np.flatnonzero(same[col])
-    differs = s.indices[cand] != s.indices[cand - length[col[cand]]]
-    same[col[cand[differs]]] = False
-    return np.append(np.flatnonzero(~same), n).astype(np.int64)
+    The structure is the one the analysis reads: the lower triangle of
+    ``a`` mirrored, with the diagonal added, so columns j and j+1 of one
+    run are adjacent (the diagonal block is full).  One vectorised pass
+    over the pattern (:func:`_runs`)."""
+    return _runs(_lower_rows(a))
+
+
+def _quotient(m: sp.csr_matrix, starts: np.ndarray) -> sp.csr_matrix:
+    """The mirrored pattern of the runs that start at ``starts``, diagonal
+    included (sorted indices, symmetric): the runs left of each run are
+    the runs of its first column's row of ``m`` (:func:`_lower_rows`).
+    Every column of a run has that structure, so the other columns are
+    not read."""
+    nv = len(starts) - 1
+    node_of = np.repeat(np.arange(nv), np.diff(starts))
+    first = starts[:-1]
+    lo, cnt = m.indptr[first], m.indptr[first + 1] - m.indptr[first]
+    idx = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(int(cnt.sum()))
+    col = node_of[m.indices[idx]]
+    row = np.repeat(np.arange(nv), cnt)
+    # a run left of it shows once for each of its columns: keep one
+    keep = np.ones(len(col), dtype=bool)
+    keep[1:] = (col[1:] != col[:-1]) | (row[1:] != row[:-1])
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(row[keep], minlength=nv))])
+    low = sp.csr_matrix(  # the runs left of each run, sorted
+        (np.ones(int(ptr[-1]), dtype=bool), col[keep], ptr), shape=(nv, nv))
+    up = low.tocsc()  # the runs right of each run: counting sort, sorted
+    # each run's column: the runs left of it, itself, the runs right of it
+    lcnt, ucnt = np.diff(low.indptr), np.diff(up.indptr)
+    ptr = np.concatenate([[0], np.cumsum(lcnt + 1 + ucnt)])
+    out = np.empty(int(ptr[-1]), dtype=low.indices.dtype)
+    mine = np.zeros(len(out), dtype=bool)
+    mine[np.repeat(ptr[:-1], lcnt) + np.arange(low.nnz) - np.repeat(low.indptr[:-1], lcnt)] = True
+    out[mine] = low.indices
+    out[ptr[:-1] + lcnt] = np.arange(nv)
+    mine[ptr[:-1] + lcnt] = True
+    out[~mine] = up.indices
+    return sp.csr_matrix((np.ones(len(out), dtype=bool), out, ptr), shape=(nv, nv))
 
 
 def _partition(
@@ -244,7 +342,9 @@ class _AnalyzeClock:
         self.laps.append((stage, self._t, t))
         self._t = t
 
-    def publish(self, width: float) -> None:
+    def publish(self, starts: np.ndarray) -> None:
+        """The stages' seconds and spans, the mean width of the runs that
+        start at ``starts`` and their count by width."""
         if not obs_events.enabled():
             return
         reg = obs_metrics.REGISTRY
@@ -260,7 +360,13 @@ class _AnalyzeClock:
         reg.gauge(
             "repro_sparse_supervariable_width",
             "columns per supervariable of the last analysed matrix",
-        ).set(width)
+        ).set((starts[-1] / (len(starts) - 1)) if len(starts) > 1 else 1.0)
+        runs = reg.counter(
+            "repro_sparse_supervariables_total",
+            "supervariables (runs of columns with one structure) by width in columns",
+        )
+        for w, k in zip(*np.unique(np.diff(starts), return_counts=True)):
+            runs.inc(int(k), width=str(int(w)))
 
 
 def analyze(
@@ -282,7 +388,8 @@ def analyze(
     equals the scalar path's.
     """
     clock = _AnalyzeClock()
-    return _analyze_runs(a, supervariables(a), relax, max_supernode, clock)
+    lo = _lower_rows(a)
+    return _analyze_runs(a, _runs(lo), relax, max_supernode, clock, lo)
 
 
 def _analyze_runs(
@@ -291,9 +398,11 @@ def _analyze_runs(
     relax: int,
     max_supernode: int,
     clock: _AnalyzeClock,
+    lo: Optional[sp.csr_matrix] = None,
 ) -> SymbolicFactorization:
     """:func:`analyze` over the runs of columns that start at ``starts``
-    (``np.arange(n + 1)``: the scalar path)."""
+    (``np.arange(n + 1)``: the scalar path), the runs' graph read from
+    ``lo`` (``a``'s :func:`_lower_rows`, read here when not given)."""
     n = a.shape[0]
     nv = len(starts) - 1
     if nv == n:
@@ -308,7 +417,7 @@ def _analyze_runs(
         # nothing
         width = np.diff(starts)
         node_of = np.repeat(np.arange(nv), width)
-        c = _closed(a, node_of, nv)
+        c = _quotient(lo if lo is not None else _lower_rows(a), starts)
         clock.lap("compress")
         node_parent = etree(c)
         clock.lap("etree")
@@ -357,7 +466,7 @@ def _analyze_runs(
         p = int(parent[last])
         sn.parent = int(sn_of[p]) if p >= 0 else -1
     clock.lap("supernodes")
-    clock.publish(n / nv if nv else 1.0)
+    clock.publish(starts)
 
     return SymbolicFactorization(
         n=n, supernodes=supernodes, col_to_sn=sn_of, parent_col=parent

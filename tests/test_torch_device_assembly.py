@@ -538,10 +538,10 @@ def test_memory_cap_defers_as_the_reference(monkeypatch):
 
 
 def test_lane_uploads_are_made_once_under_contention():
-    """Sixteen threads ask at once for the pattern's maps and the run's
-    values on one lane, with the interpreter switching threads every
-    microsecond: one upload each, the values counted once, every caller
-    handed the same tensors."""
+    """Sixteen threads ask at once for the pattern's maps (uploaded once,
+    when they were built) and the run's values on one lane, with the
+    interpreter switching threads every microsecond: one upload each, the
+    values counted once, every caller handed the same tensors."""
     import sys
     import threading
 
@@ -553,7 +553,7 @@ def test_lane_uploads_are_made_once_under_contention():
     ex._entry_maps(acsc)
     tally = texecutor._RunTally(8)
     clock = texecutor._StageClock(tally, "scan")
-    st = texecutor._Run(ex, acsc, clock)
+    st = texecutor._Run(ex, np.asarray(acsc.data, dtype=np.float64), clock)
     got, start = [], threading.Barrier(16)
 
     def ask():

@@ -79,17 +79,21 @@ def grid_problem(P, g: int = 9):
 
 
 # What the port's executor publishes beyond the reference's vocabulary:
-# its host stages as spans of category ``dispatch``, and three counters
+# its host stages as spans of category ``dispatch``, the analysis's stages,
+# the set-up of a pattern's entry maps, and its counters
 PORT_STAGE_SPANS = {("dispatch", stage) for stage in (
     "scan", "assemble", "pad", "wait", "extract", "report", "transfer")} | {
-    ("analyze", stage) for stage in ("compress", "etree", "patterns", "supernodes")}
+    ("analyze", stage) for stage in ("compress", "etree", "patterns", "supernodes")} | {
+    ("setup", "maps")}
 PORT_COUNTERS = {"repro_executor_stage_seconds_total", "repro_executor_copy_bytes_total",
                  "repro_host_gc_seconds_total", "repro_executor_large_seconds_total",
                  "repro_executor_large_bytes_total", "repro_executor_large_fronts_total",
                  "repro_executor_kept_bytes_total", "repro_executor_kept_blocks_total",
                  "repro_executor_small_fronts_total", "repro_executor_small_kept_bytes_total",
                  "repro_sparse_analyze_seconds_total",
-                 "repro_sparse_supervariable_width"}
+                 "repro_sparse_supervariable_width",
+                 "repro_executor_setup_seconds_total", "repro_executor_entry_bytes_total",
+                 "repro_sparse_supervariables_total"}
 
 
 def mesh(P, n: int):
